@@ -1,0 +1,52 @@
+"""Host-side array loader (copy of bayesdll_tpu.data.loader, without the
+multi-chain and augmentation hooks that later slices bring).
+
+Training batches share one shape (`drop_last=True`).  Eval batches are
+padded to the batch size with a `valid` 0/1 mask, which the metric code
+applies.  Batches are numpy arrays; the runner moves them to its device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+class ArrayLoader:
+    def __init__(self, x, y, batch_size: int, shuffle: bool = False,
+                 seed: int = 0, drop_last: bool = False):
+        if len(x) != len(y):
+            raise ValueError(f"{len(x)} inputs but {len(y)} labels")
+        self.x = np.asarray(x)
+        self.y = np.asarray(y, dtype=np.int32)
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self._rng = np.random.RandomState(seed)
+        self.n = len(x)
+
+    def __len__(self):
+        if self.drop_last:
+            return self.n // self.batch_size
+        return (self.n + self.batch_size - 1) // self.batch_size
+
+    @property
+    def num_examples(self):
+        return self.n
+
+    def __iter__(self):
+        idx = np.arange(self.n)
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        bs = self.batch_size
+        for b in range(len(self)):
+            sel = idx[b * bs:(b + 1) * bs]
+            xb, yb = self.x[sel], self.y[sel]
+            if len(sel) < bs:  # pad the final eval batch to the batch size
+                pad = bs - len(sel)
+                xb = np.concatenate([xb, np.zeros((pad,) + xb.shape[1:], xb.dtype)])
+                yb = np.concatenate([yb, np.zeros((pad,), yb.dtype)])
+                valid = np.concatenate(
+                    [np.ones(len(sel), np.float32), np.zeros(pad, np.float32)])
+            else:
+                valid = np.ones(bs, np.float32)
+            yield xb, yb, valid

@@ -1,0 +1,270 @@
+"""Shared machinery of the cyclical SG-MCMC methods (counterpart of
+bayesdll_tpu.methods.cyclical_base):
+
+  * the cyclical cosine step size and phase flags, from the host schedule
+    (core/schedule.py) of the global step;
+  * per-cycle Welford moments in the sampler state, snapshotted to the host
+    at each cycle end;
+  * the full-train-set likelihood of nst perturbed samples at each cycle
+    end;
+  * GMM weights w_c = 1 / mean_i(1/p_i), normalised;
+  * the mixture predictive: per component the Monte-Carlo averaged log-prob
+    vector (raw logits when nst = 0), mixed as a weighted sum on the host;
+  * per-cycle checkpoints `{cycle}_ckpt.pkl`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+from scipy.special import logsumexp
+
+from bayesdll_tpu_torch.core import rng
+from bayesdll_tpu_torch.core.schedule import CyclicalSchedule
+from bayesdll_tpu_torch.data.stream import window_batches
+from bayesdll_tpu_torch.methods import base
+
+
+class CyclicalRunnerBase(base.BaseRunner):
+    """Runner skeleton for cyclical SG-MCMC methods.  Subclasses provide
+    `_step` (consuming the scalars lr, should_sample, collect) and
+    `init_state` with a `moments` field (core/moments.py)."""
+
+    # Where the likelihood samples are centred: the live iterate, or the
+    # current cycle's Welford mean (the cSGHMC family).
+    LIK_CENTER = "iterate"
+    # Only the cSGHMC family evaluates a point estimate before the first
+    # completed cycle.
+    periodic_point_eval = False
+
+    def __init__(self, target, theta_init, net_state, cfg, **kw):
+        hp = cfg.hparams
+        self.ninflate = float(hp.get("Ninflate", 1.0))
+        self.nd = float(hp.get("nd", 1.0))
+        self.thin = max(1, int(hp.get("thin", 1)))
+        super().__init__(target, theta_init, net_state, cfg, **kw)
+        self.sched: CyclicalSchedule | None = None
+        self.current_cycle = 0
+        # cycle -> dict(mean, var, n, theta[, likelihoods]) on the host
+        self.cycle_stats: Dict[int, dict] = {}
+
+    # ---- cyclical plumbing --------------------------------------------------
+
+    def _ensure_sched(self, batches_per_epoch: int):
+        if self.sched is None:
+            self.sched = CyclicalSchedule(
+                base_lr=self.cfg.lr,
+                num_cycles=self.cfg.num_cycles,
+                epochs=self.cfg.epochs,
+                batches_per_epoch=batches_per_epoch,
+                proportion_exploration=self.cfg.proportion_exploration,
+            )
+
+    def train(self, train_loader, val_loader, test_loader, start_epoch=0):
+        self._ensure_sched(len(train_loader))
+        self._train_loader = train_loader
+        return super().train(train_loader, val_loader, test_loader,
+                             start_epoch=start_epoch)
+
+    def step_scalars(self, ep: int) -> dict:
+        s = self.sched
+        step = self.bi
+        # one flag gates both sample collection and the noise: the
+        # exploitation phase AND the within-epoch thinning stride
+        should_sample = s.should_sample_py(step) and \
+            ((step % s.batches_per_epoch) % self.thin == 0)
+        return {"lr": s.lr_py(step), "should_sample": should_sample,
+                "collect": should_sample}
+
+    def cyclical_lr_vec(self, lr_t: float) -> torch.Tensor:
+        """Per-element lr [dim]: lr_t for the body, lr_t * lr_head/lr for the
+        head, rounded to fp32 as the JAX package rounds them.  Both values
+        enter as kernel arguments, so no host-to-device copy waits."""
+        lr32 = np.float32(lr_t)
+        head = float(lr32 * np.float32(self.cfg.lr_head / self.cfg.lr))
+        return torch.where(self.target.is_head, head, float(lr32))
+
+    def after_batch(self, ep: int):
+        step = self.bi - 1  # the step that just ran
+        if self.sched.last_in_cycle_py(step):
+            self._end_of_cycle(self.sched.cycle_number_py(step))
+
+    def eval_ready(self, ep: int) -> bool:
+        # the GMM predictive needs one completed cycle; before that the
+        # point estimate is evaluated where the method asks for it
+        if self.cycle_stats:
+            return True
+        return self.periodic_point_eval and (
+            ep % 5 == 0 or ep == self.cfg.epochs - 1)
+
+    # ---- cycle boundary (host) ---------------------------------------------
+
+    def _end_of_cycle(self, cycle: int):
+        state = self.state
+        mean, var = state.moments.mean_var()
+        n = state.moments.n
+        self.cycle_stats[cycle] = {
+            "mean": base.to_host(mean),
+            "var": base.to_host(var),
+            "n": n,
+            "theta": base.to_host(state.theta),
+        }
+        if cycle > self.current_cycle:
+            self.current_cycle = cycle
+            self.logger.info("Completed cycle %d (samples collected: %d)",
+                             cycle, n)
+            lik = self.full_batch_likelihoods(self._train_loader)
+            self.cycle_stats[cycle]["likelihoods"] = lik
+            self.logger.info("Cycle %d full batch likelihood: %.6e",
+                             cycle, float(np.mean(lik)))
+            self.save_ckpt(cycle, fname=f"{cycle}_ckpt.pkl")
+        self.state = dataclasses.replace(
+            state, moments=type(state.moments).zeros(self.target.dim,
+                                                     self.device))
+
+    # ---- full-batch likelihoods --------------------------------------------
+
+    @torch.no_grad()
+    def full_batch_likelihoods(self, train_loader) -> np.ndarray:
+        """likelihood_s = exp(-mean CE over the train set) for nst samples
+        perturbed around LIK_CENTER with the current cycle's variance.
+
+        One pass over the loader, in windows of stacked batches; within a
+        window every sample's CE accumulates.  Sample s is regenerated in
+        each window from the generator keyed (seed, LIKELIHOOD, s), so it is
+        the same sample in every window."""
+        self.logger.info(
+            "Calculating full-batch likelihood for current cycle using %d "
+            "samples...", max(1, self.nst))
+        state = self.state
+        mean, var = state.moments.mean_var()
+        n = state.moments.n
+        # a cycle that collected nothing has an all-zero mean: centre on the
+        # live iterate instead
+        center = state.theta if (self.LIK_CENTER == "iterate" or n == 0) \
+            else mean
+        nst = max(1, self.nst)
+        std = torch.sqrt(var) if (self.nst > 0 and n > 1) else None
+
+        tot = np.zeros(nst)
+        cnt = 0.0
+        for xs, ys, vs in window_batches(train_loader):
+            xs_d = self._to_device(xs)
+            ys_d = self._to_device(ys).long()
+            vs_d = self._to_device(vs)
+            for s in range(nst):
+                theta_s = center
+                if std is not None:
+                    gen = rng.generator(self.device, self.cfg.seed,
+                                        rng.LIKELIHOOD, s)
+                    theta_s = center + std * torch.randn(
+                        center.shape, generator=gen, device=self.device)
+                acc = torch.zeros((), device=self.device)
+                for b in range(xs_d.shape[0]):
+                    logits, _ = self.target.forward(theta_s, self.net_state,
+                                                    xs_d[b], train=False)
+                    picked = torch.log_softmax(logits, -1).gather(
+                        1, ys_d[b][:, None])[:, 0]
+                    acc += torch.sum(-picked * vs_d[b])
+                tot[s] += float(acc)
+            cnt += float(vs.sum())
+        return np.exp(-tot / cnt)
+
+    # ---- GMM predictive -----------------------------------------------------
+
+    def gmm_weights(self) -> Dict[int, float]:
+        """w_c = [mean_i 1/p_i]^-1, normalised."""
+        cycles = [c for c in self.cycle_stats
+                  if "likelihoods" in self.cycle_stats[c]]
+        if not cycles:
+            return {0: 1.0}
+        weights = {}
+        for c in cycles:
+            lik = np.maximum(self.cycle_stats[c]["likelihoods"], 1e-300)
+            weights[c] = 1.0 / np.mean(1.0 / lik)
+        total = sum(weights.values())
+        if total > 0:
+            return {c: w / total for c, w in weights.items()}
+        return {c: 1.0 / len(weights) for c in weights}
+
+    def pred_state(self):
+        return self.state.theta
+
+    def _predict_logits(self, theta, x, generator):
+        return self.target.forward(theta, self.net_state, x, train=False)[0][None]
+
+    @torch.no_grad()
+    def evaluate(self, loader):
+        """GMM mixture predictive; before the first completed cycle, the
+        point estimate at the current iterate.  Component c of batch i draws
+        from the generator keyed (seed, EVAL, c, i)."""
+        if not any("likelihoods" in v for v in self.cycle_stats.values()):
+            return self._point_evaluate(loader)
+        weights = self.gmm_weights()
+        comps = [(c, w) for c, w in sorted(weights.items()) if w >= 1e-10]
+        moments = {c: (self._to_device(self.cycle_stats[c]["mean"]),
+                       self._to_device(self.cycle_stats[c]["var"]))
+                   for c, _ in comps}
+
+        loss_sum, err_sum, n = 0.0, 0.0, 0.0
+        targets, logits_list, logits_all_list = [], [], []
+        for i, (x, y, valid) in enumerate(loader):
+            xd = self._to_device(x)
+            mix = None
+            comp_stack = []
+            for c, w in comps:
+                gen = rng.generator(self.device, self.cfg.seed, rng.EVAL, c, i)
+                la = base.gaussian_sample_logits(
+                    self.target, self.net_state, *moments[c], xd, gen,
+                    self.nst)  # [S, B, K]
+                comp_out = la[0] if self.nst == 0 else base.combine_mc_logits(la)
+                comp_out = comp_out.cpu().numpy()
+                comp_stack.append(la.cpu().numpy().transpose(1, 0, 2))
+                mix = w * comp_out if mix is None else mix + w * comp_out
+            logp = mix - logsumexp(mix, axis=-1, keepdims=True)
+            picked = logp[np.arange(len(y)), y]
+            loss_sum += float(np.sum(-picked * valid))
+            err_sum += float(np.sum((np.argmax(mix, -1) != y) * valid))
+            nv = int(valid.sum())
+            n += nv
+            targets.append(y[:nv])
+            logits_list.append(mix[:nv])
+            logits_all_list.append(np.concatenate(comp_stack, axis=1)[:nv])
+        return (loss_sum / n, err_sum / n, np.concatenate(targets),
+                np.concatenate(logits_list), np.concatenate(logits_all_list))
+
+    @torch.no_grad()
+    def _point_evaluate(self, loader):
+        """Point-estimate evaluation at the current iterate."""
+        theta = self.state.theta
+        loss_sum = torch.zeros((), device=self.device)
+        err_sum = torch.zeros((), device=self.device)
+        n = 0.0
+        targets, logits_list, logits_all_list = [], [], []
+        for x, y, valid in loader:
+            yd, vd = self._to_device(y).long(), self._to_device(valid)
+            logits, _ = self.target.forward(theta, self.net_state,
+                                            self._to_device(x), train=False)
+            picked = torch.log_softmax(logits, -1).gather(1, yd[:, None])[:, 0]
+            loss_sum += torch.sum(-picked * vd)
+            err_sum += torch.sum((torch.argmax(logits, -1) != yd).float() * vd)
+            nv = int(valid.sum())
+            n += nv
+            lp = logits[:nv].cpu().numpy()
+            targets.append(y[:nv])
+            logits_list.append(lp)
+            logits_all_list.append(lp[:, None, :])
+        return (float(loss_sum) / n, float(err_sum) / n,
+                np.concatenate(targets), np.concatenate(logits_list),
+                np.concatenate(logits_all_list))
+
+    def extra_ckpt(self):
+        return {
+            "current_cycle": self.current_cycle,
+            "cycle_stats": self.cycle_stats,
+            "thin": self.thin,
+            "nst": self.nst,
+        }

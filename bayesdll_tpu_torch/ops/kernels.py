@@ -1,0 +1,153 @@
+"""Hopper kernels written by hand (counterpart of
+bayesdll_tpu/ops/pallas_kernels.py), built and bound without PyTorch's
+extension builder.
+
+Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
+plain C interface under `build/torch_kernels/`, at first use, and again when
+its source or a shared header changes (the file name carries their hash).
+The library is loaded with ctypes.  Nothing here runs at import: the CPU
+tests import this module on machines with no nvcc and no card.
+
+Each wrapper takes CUDA tensors only; on anything else it raises.  It counts
+its launches in `<wrapper>.launches`, so a run can show that its main path
+went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+KERNELS = ("csghmc_update",)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+_U64 = (1 << 64) - 1
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=KERNELS) -> float:
+    """Compile every library in `names` that is missing, one nvcc process
+    per source, all started together.  Returns the seconds taken."""
+    tic = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - tic
+
+
+@functools.cache
+def _library(name: str) -> ctypes.CDLL:
+    build((name,))
+    lib = ctypes.CDLL(str(library_path(name)))
+    fn = getattr(lib, name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+_P, _I64, _F, _U = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_uint64
+_ARGTYPES = {
+    # g, theta, v, lr, n, prior_sig, 1-alpha, noise_pref, gate, seed, step, stream
+    "csghmc_update": [_P, _P, _P, _P, _I64, _F, _F, _F, ctypes.c_int, _U, _U, _P],
+}
+
+
+def _check_vectors(**tensors: torch.Tensor) -> torch.Tensor:
+    """Every tensor a contiguous 1-D fp32 CUDA vector of one length on one
+    device, 16-byte aligned (the kernels use float4 accesses)."""
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name}: kernel needs a CUDA tensor, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: kernel needs float32, got {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name}: kernel needs a contiguous 1-D tensor")
+        if t.shape != first.shape or t.device != first.device:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} on {t.device} "
+                             f"differs from {tuple(first.shape)} on {first.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: kernel needs a 16-byte aligned pointer")
+    return first
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+
+
+def csghmc_update(g, theta, v, lr, *, prior_sig: float, alpha: float,
+                  noise_pref: float, gate: bool, seed: int, step: int):
+    """cSGHMC update on the card, IN PLACE on theta and v (csrc/csghmc_update.cu):
+
+        v     <- (1 - alpha) v - lr * (g + prior_sig * theta)
+                 + gate * noise_pref * sqrt(lr) * z
+        theta <- theta + v
+
+    noise_pref = nd * sqrt(2 alpha) / N; z is Philox noise keyed by `seed`
+    at counter `step`.  Returns (theta, v).
+    """
+    _check_vectors(g=g, theta=theta, v=v, lr=lr)
+    if theta.data_ptr() == v.data_ptr():
+        raise ValueError("theta and v must not alias")
+    lib = _library("csghmc_update")
+    with torch.cuda.device(theta.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.csghmc_update(
+            g.data_ptr(), theta.data_ptr(), v.data_ptr(), lr.data_ptr(),
+            theta.numel(), float(prior_sig), float(1.0 - alpha),
+            float(noise_pref), int(bool(gate)), int(seed) & _U64,
+            int(step) & _U64, stream)
+    _raise_on(err, "csghmc_update")
+    csghmc_update.launches += 1
+    return theta, v
+
+
+csghmc_update.launches = 0
+
+
+def noise_prefactor(nd: float, alpha: float, n_eff: float) -> float:
+    """nd * sqrt(2 alpha) / N: the noise scale of csghmc_update at lr = 1."""
+    return nd * math.sqrt(2.0 * alpha) / n_eff
