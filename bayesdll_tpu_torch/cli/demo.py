@@ -5,6 +5,9 @@ bayesdll_tpu.cli.demo).
       --dataset synthetic --epochs 4 --num_cycles 2 --lr 1e-2 \\
       --hparams prior_sig=1.0,Ninflate=1.0,nd=1.0,thin=2,bias=informative,nst=2 \\
       --device cuda
+  python -m bayesdll_tpu_torch.cli.demo --method sghmc --dataset synthetic \\
+      --epochs 4 --lr 1e-3 --momentum 0.5 \\
+      --hparams prior_sig=1.0,nd=1.0,burnin=1,thin=2,nst=2 --device cuda
 
 Artifacts (logs, logits, checkpoints, reliability plots) go to
 `<log_dir>/<run name>/`; the plots need matplotlib.
@@ -36,6 +39,7 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--lr_head", type=float, default=None)
+    p.add_argument("--momentum", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log_dir", type=str, default="results")
     p.add_argument("--test_eval_freq", type=int, default=1)
@@ -78,8 +82,8 @@ def main(argv=None):
         ece_num_bins=args.ece_num_bins, num_cycles=args.num_cycles,
         proportion_exploration=args.proportion_exploration,
         epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
-        lr_head=args.lr_head, seed=args.seed, log_dir=args.log_dir,
-        test_eval_freq=args.test_eval_freq, data_root=args.data_root,
+        lr_head=args.lr_head, momentum=args.momentum, seed=args.seed,
+        log_dir=args.log_dir, test_eval_freq=args.test_eval_freq, data_root=args.data_root,
         device=args.device)
 
     workdir = os.path.join(cfg.log_dir, cfg.run_name())

@@ -41,6 +41,7 @@ class Config:
     batch_size: int = 128
     lr: float = 1e-2
     lr_head: Optional[float] = None
+    momentum: float = 0.0  # torch-SGD momentum of SGLD, SGHMC and cSGLD
     seed: int = 0
     log_dir: str = "results"
     test_eval_freq: int = 1
@@ -72,6 +73,6 @@ class Config:
             f"{self.dataset}_val_heldout{self.val_heldout}/{self.backbone}/"
             f"{self.method}_{hp}/"
             f"ep{self.epochs}_bs{self.batch_size}_lr{self.lr}_lrh{self.lr_head}"
-            f"/seed{self.seed}_{stamp}"
+            f"_mo{self.momentum}/seed{self.seed}_{stamp}"
         )
         return self._run_name

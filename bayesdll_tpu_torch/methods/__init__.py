@@ -10,12 +10,14 @@ import importlib
 
 _METHODS = {
     "csghmc": "bayesdll_tpu_torch.methods.csghmc",
+    "csgld": "bayesdll_tpu_torch.methods.csgld",
+    "sghmc": "bayesdll_tpu_torch.methods.sghmc",
+    "sgld": "bayesdll_tpu_torch.methods.sgld",
 }
 
 # where each method of the JAX package stands in ROADMAP.md queue 1
 _PENDING = {
-    "sgld": 8, "sghmc": 8,
-    "adam_sghmc": 9, "csgld": 9, "adam_csghmc": 9, "csghmc_fs": 9,
+    "adam_sghmc": 9, "adam_csghmc": 9, "csghmc_fs": 9,
     "vanilla": 10, "vi": 10, "mc_dropout": 10, "la": 10,
 }
 

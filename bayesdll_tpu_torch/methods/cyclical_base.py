@@ -3,8 +3,9 @@ bayesdll_tpu.methods.cyclical_base):
 
   * the cyclical cosine step size and phase flags, from the host schedule
     (core/schedule.py) of the global step;
-  * per-cycle Welford moments in the sampler state, snapshotted to the host
-    at each cycle end;
+  * per-cycle moments in the sampler state (core/moments.py: Welford for
+    cSGHMC, running raw moments for cSGLD), snapshotted to the host at each
+    cycle end;
   * the full-train-set likelihood of nst perturbed samples at each cycle
     end;
   * GMM weights w_c = 1 / mean_i(1/p_i), normalised;
@@ -102,10 +103,17 @@ class CyclicalRunnerBase(base.BaseRunner):
 
     # ---- cycle boundary (host) ---------------------------------------------
 
+    @staticmethod
+    def _moments_count(state) -> int:
+        """Collected samples: RunningMoments counts in `cnt`, the Welford
+        moments in `n`."""
+        m = state.moments
+        return getattr(m, "cnt", getattr(m, "n", 0))
+
     def _end_of_cycle(self, cycle: int):
         state = self.state
         mean, var = state.moments.mean_var()
-        n = state.moments.n
+        n = self._moments_count(state)
         self.cycle_stats[cycle] = {
             "mean": base.to_host(mean),
             "var": base.to_host(var),
@@ -141,7 +149,7 @@ class CyclicalRunnerBase(base.BaseRunner):
             "samples...", max(1, self.nst))
         state = self.state
         mean, var = state.moments.mean_var()
-        n = state.moments.n
+        n = self._moments_count(state)
         # a cycle that collected nothing has an all-zero mean: centre on the
         # live iterate instead
         center = state.theta if (self.LIK_CENTER == "iterate" or n == 0) \

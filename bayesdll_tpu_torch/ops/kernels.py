@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("csghmc_update",)
+KERNELS = ("csghmc_update", "sgld_update", "sghmc_update")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 _U64 = (1 << 64) - 1
@@ -91,6 +91,11 @@ _P, _I64, _F, _U = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_uin
 _ARGTYPES = {
     # g, theta, v, lr, n, prior_sig, 1-alpha, noise_pref, gate, seed, step, stream
     "csghmc_update": [_P, _P, _P, _P, _I64, _F, _F, _F, ctypes.c_int, _U, _U, _P],
+    # g, theta, theta0, mask, lr, n, sigma^2, N, nd, seed, step, stream
+    "sgld_update": [_P, _P, _P, _P, _P, _I64, _F, _F, _F, _U, _U, _P],
+    # g, theta, theta0, v, mask, lr, n, sigma^2, N, nd, 1-alpha, 2 alpha,
+    # seed, step, stream
+    "sghmc_update": [_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _U, _U, _P],
 }
 
 
@@ -113,6 +118,16 @@ def _check_vectors(**tensors: torch.Tensor) -> torch.Tensor:
     return first
 
 
+def _check_no_overlap(written: dict, read: dict):
+    """No tensor a kernel writes may share memory with another operand."""
+    spans = {k: (t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+             for k, t in {**read, **written}.items()}
+    for w in written:
+        for other, (lo, hi) in spans.items():
+            if other != w and spans[w][0] < hi and lo < spans[w][1]:
+                raise ValueError(f"{w} must not alias {other}")
+
+
 def _raise_on(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
@@ -130,8 +145,7 @@ def csghmc_update(g, theta, v, lr, *, prior_sig: float, alpha: float,
     at counter `step`.  Returns (theta, v).
     """
     _check_vectors(g=g, theta=theta, v=v, lr=lr)
-    if theta.data_ptr() == v.data_ptr():
-        raise ValueError("theta and v must not alias")
+    _check_no_overlap(dict(theta=theta, v=v), dict(g=g, lr=lr))
     lib = _library("csghmc_update")
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -146,6 +160,63 @@ def csghmc_update(g, theta, v, lr, *, prior_sig: float, alpha: float,
 
 
 csghmc_update.launches = 0
+
+
+def sgld_update(g, theta, theta0, mask, lr, *, prior_sig: float, n_eff: float,
+                nd: float, seed: int, step: int):
+    """SGLD crafted gradient on the card, IN PLACE on g (csrc/sgld_update.cu):
+
+        g <- g + mask * (theta - theta0) / prior_sig^2 / N
+               + nd * sqrt(2 / (N * max(lr, 1e-30))) * z
+
+    z is Philox noise keyed by `seed` at counter `step`.  Returns g.
+    """
+    _check_vectors(g=g, theta=theta, theta0=theta0, mask=mask, lr=lr)
+    _check_no_overlap(dict(g=g), dict(theta=theta, theta0=theta0, mask=mask,
+                                      lr=lr))
+    lib = _library("sgld_update")
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sgld_update(
+            g.data_ptr(), theta.data_ptr(), theta0.data_ptr(), mask.data_ptr(),
+            lr.data_ptr(), g.numel(), float(prior_sig ** 2), float(n_eff),
+            float(nd), int(seed) & _U64, int(step) & _U64, stream)
+    _raise_on(err, "sgld_update")
+    sgld_update.launches += 1
+    return g
+
+
+sgld_update.launches = 0
+
+
+def sghmc_update(g, theta, theta0, v, mask, lr, *, prior_sig: float,
+                 n_eff: float, nd: float, alpha: float, seed: int, step: int):
+    """SGHMC momentum update on the card, IN PLACE on g and v
+    (csrc/sghmc_update.cu), with lr clamped at 1e-30:
+
+        v <- (1 - alpha) v + lr * (g + mask * (theta - theta0) / prior_sig^2 / N)
+             + nd * sqrt(2 alpha / (N * lr)) * z
+        g <- g + v
+
+    z is Philox noise keyed by `seed` at counter `step`.  Returns (g, v).
+    """
+    _check_vectors(g=g, theta=theta, theta0=theta0, v=v, mask=mask, lr=lr)
+    _check_no_overlap(dict(g=g, v=v), dict(theta=theta, theta0=theta0,
+                                           mask=mask, lr=lr))
+    lib = _library("sghmc_update")
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sghmc_update(
+            g.data_ptr(), theta.data_ptr(), theta0.data_ptr(), v.data_ptr(),
+            mask.data_ptr(), lr.data_ptr(), g.numel(), float(prior_sig ** 2),
+            float(n_eff), float(nd), float(1.0 - alpha), float(2.0 * alpha),
+            int(seed) & _U64, int(step) & _U64, stream)
+    _raise_on(err, "sghmc_update")
+    sghmc_update.launches += 1
+    return g, v
+
+
+sghmc_update.launches = 0
 
 
 def noise_prefactor(nd: float, alpha: float, n_eff: float) -> float:

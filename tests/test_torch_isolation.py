@@ -35,6 +35,8 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import json, sys\n"
         "import bayesdll_tpu_torch.methods.csghmc, bayesdll_tpu_torch.cli.demo\n"
+        "import bayesdll_tpu_torch.methods.sgld, bayesdll_tpu_torch.methods.sghmc\n"
+        "import bayesdll_tpu_torch.methods.csgld\n"
         "import bayesdll_tpu_torch.interop, chip_smoke\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         f"    if m.split('.')[0] in {FORBIDDEN!r})))\n")

@@ -37,3 +37,48 @@ def test_welford_against_numpy():
     mean, var = t.mean_var()
     np.testing.assert_allclose(mean.numpy(), samples.mean(0), atol=1e-5)
     np.testing.assert_allclose(var.numpy(), samples.var(0, ddof=1), rtol=1e-4)
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["zeros", "init_from"])
+@pytest.mark.parametrize("n_updates", [1, 2, 7])
+def test_running_moments_match_jax(seeded, n_updates):
+    dim = 1000
+    rng = np.random.RandomState(10 + n_updates)
+    first = (rng.randn(dim) * 2 + 0.5).astype(np.float32)
+    samples = (rng.randn(n_updates, dim) * 3 + 1).astype(np.float32)
+    if seeded:
+        j = jmom.RunningMoments.init_from(jnp.asarray(first))
+        t = tmom.RunningMoments.init_from(torch.from_numpy(first.copy()))
+    else:
+        j = jmom.RunningMoments.zeros(dim)
+        t = tmom.RunningMoments.zeros(dim, "cpu")
+    for s in samples:
+        j = j.update(jnp.asarray(s))
+        t = t.update(torch.from_numpy(s))
+    assert t.cnt == int(j.cnt) == n_updates + seeded
+    jm, jv = j.mean_var()
+    tm, tv = t.mean_var()
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-6)
+
+
+def test_running_moments_init_from_copies_theta():
+    theta = torch.arange(8, dtype=torch.float32)
+    m = tmom.RunningMoments.init_from(theta)
+    theta.add_(100.0)  # the samplers write theta in place every step
+    assert m.cnt == 1
+    assert torch.equal(m.mom1, torch.arange(8, dtype=torch.float32))
+    assert torch.equal(m.mom2, torch.arange(8, dtype=torch.float32) ** 2)
+    mean, var = m.mean_var()
+    assert torch.equal(mean, m.mom1)
+    assert torch.all(var == tmom.VAR_FLOOR)
+
+
+@pytest.mark.parametrize("name", ["RunningMoments", "WelfordMoments",
+                                  "RefWelfordMoments"])
+def test_zeros_takes_dim_and_device(name):
+    # the cyclical runners reset any of them the same way at a cycle end
+    m = getattr(tmom, name).zeros(16, torch.device("cpu"))
+    mean, _ = m.mean_var()
+    assert mean.shape == (16,) and mean.device.type == "cpu"
+    assert not torch.any(mean)

@@ -144,3 +144,170 @@ def test_kernel_library_name_tracks_its_sources():
 def test_noise_prefactor():
     assert kernels.noise_prefactor(1.0, 0.05, 1000.0) == \
         pytest.approx(np.sqrt(0.1) / 1000.0)
+
+
+# ---- SGLD and SGHMC ---------------------------------------------------------
+
+SG_KW = dict(prior_sig=1.5, n_eff=1000.0)
+
+
+def _sg_vecs(dim, seed, head, uninformative):
+    """g, theta, theta0, v, mask, lr as numpy fp32, lr head-scaled as
+    FlatTarget.lr_vec builds it; the mask drops a random set of "bias"
+    elements when uninformative."""
+    rng = np.random.RandomState(seed)
+    g, theta, theta0, v = (rng.randn(dim).astype(np.float32) for _ in range(4))
+    mask = np.ones(dim, np.float32)
+    if uninformative:
+        mask[rng.rand(dim) < 0.3] = 0.0
+    lr = np.full(dim, 0.01, np.float32)
+    lr[:head] = 0.05
+    return g, theta, theta0, v, mask, lr
+
+
+def _jax_sg(name, path, arrays, **kw):
+    """The JAX package's XLA or Pallas (interpret mode) version."""
+    args = [jnp.asarray(a) for a in arrays]
+    if path == "xla":
+        return getattr(jfused, name)(*args, jax.random.PRNGKey(0), **kw)
+    from jax.experimental.pallas import tpu as pltpu
+    from bayesdll_tpu.ops import pallas_kernels
+    with pltpu.force_tpu_interpret_mode():
+        return getattr(pallas_kernels, name)(*args, jax.random.PRNGKey(0), **kw)
+
+
+def _sg_port(name, arrays, **kw):
+    out = getattr(fused, name)(*_torch(*arrays), **kw)
+    return [t.numpy() for t in (out if isinstance(out, tuple) else (out,))]
+
+
+def _sg_args(name, vecs):
+    g, theta, theta0, v, mask, lr = vecs
+    if name == "sgld_update":
+        return (g, theta, theta0, mask, lr), {}
+    return (g, theta, theta0, v, mask, lr), dict(alpha=0.05)
+
+
+@pytest.mark.parametrize("uninformative", [False, True],
+                         ids=["informative", "uninformative"])
+@pytest.mark.parametrize("dim,head", [(3000, 10), (3001, 100), (4097, 1)])
+@pytest.mark.parametrize("path", ["xla", "pallas"])
+@pytest.mark.parametrize("name", ["sgld_update", "sghmc_update"])
+def test_sg_deterministic_matches_jax(name, path, dim, head, uninformative):
+    arrays, kw = _sg_args(name, _sg_vecs(dim, dim, head, uninformative))
+    want = _jax_sg(name, path, arrays, nd=0.0, **SG_KW, **kw)
+    want = want if isinstance(want, tuple) else (want,)
+    got = _sg_port(name, arrays, nd=0.0, **SG_KW, **kw)
+    for a, b in zip(got, want):
+        if path == "xla":  # the same operations in the same order
+            np.testing.assert_array_equal(a, np.asarray(b))
+        else:  # Pallas multiplies by a precomputed 1/sigma^2/N
+            np.testing.assert_allclose(a, np.asarray(b), **TOL)
+
+
+@pytest.mark.parametrize("name", ["sgld_update", "sghmc_update"])
+def test_sg_zero_lr_stays_finite_like_pallas(name):
+    vecs = list(_sg_vecs(4097, 5, 10, False))
+    vecs[5][[0, 7, 4096]] = 0.0  # lr = 0 on a few elements
+    arrays, kw = _sg_args(name, vecs)
+    pallas = _jax_sg(name, "pallas", arrays, nd=0.0, **SG_KW, **kw)
+    pallas = pallas if isinstance(pallas, tuple) else (pallas,)
+    for a, b in zip(_sg_port(name, arrays, nd=0.0, **SG_KW, **kw), pallas):
+        assert np.all(np.isfinite(a))
+        np.testing.assert_allclose(a, np.asarray(b), **TOL)
+    noisy = _sg_port(name, arrays, nd=1.0, **SG_KW, **kw,
+                     generator=torch.Generator().manual_seed(0))
+    assert all(np.all(np.isfinite(a)) for a in noisy)
+    # the JAX package's default XLA path has no lr clamp: NaN there
+    xla = _jax_sg(name, "xla", arrays, nd=0.0, **SG_KW, **kw)
+    xla = np.asarray(xla if name == "sgld_update" else xla[1])
+    assert np.isnan(xla[[0, 7, 4096]]).all() and np.isfinite(xla[1:7]).all()
+
+
+@pytest.mark.parametrize("lr_value", [0.01, 0.002])
+@pytest.mark.parametrize("name", ["sgld_update", "sghmc_update"])
+def test_sg_noise_statistics_match_closed_form(name, lr_value):
+    # mirrors tests/test_sgld.py and tests/test_sghmc.py
+    dim, nd, alpha, sig, n_eff = 200_000, 1.5, 0.1, 2.0, 1000.0
+    theta = torch.full((dim,), 2.0)
+    z = torch.zeros(dim)
+    lr = torch.full((dim,), lr_value)
+    gen = torch.Generator().manual_seed(4)
+    if name == "sgld_update":
+        out = fused.sgld_update(z, theta, z, torch.ones(dim), lr,
+                                prior_sig=sig, n_eff=n_eff, nd=nd,
+                                generator=gen)
+        mean = 2.0 / sig ** 2 / n_eff
+        std = nd * np.sqrt(2.0 / (n_eff * lr_value))
+    else:
+        _, out = fused.sghmc_update(z, theta, z, z, torch.ones(dim), lr,
+                                    prior_sig=sig, n_eff=n_eff, nd=nd,
+                                    alpha=alpha, generator=gen)
+        mean = lr_value * 2.0 / sig ** 2 / n_eff
+        std = nd * np.sqrt(2.0 * alpha / (n_eff * lr_value))
+    x = out.numpy().astype(np.float64)
+    assert abs(x.mean() - mean) < 4 * std / np.sqrt(dim)
+    assert abs(x.std() - std) / std < 0.02
+
+
+@pytest.mark.parametrize("name", ["sgld_update", "sghmc_update"])
+def test_sg_given_noise_is_used(name):
+    vecs = _sg_vecs(1000, 1, 10, True)
+    arrays, kw = _sg_args(name, vecs)
+    noise = np.random.RandomState(2).randn(1000).astype(np.float32)
+    nd, lr = 0.7, vecs[5].astype(np.float64)
+    got = _sg_port(name, arrays, nd=nd, noise=torch.from_numpy(noise),
+                   **SG_KW, **kw)[-1]
+    base = _sg_port(name, arrays, nd=0.0, **SG_KW, **kw)[-1]
+    a = 2.0 * kw.get("alpha", 1.0)
+    want = nd * np.sqrt(a / (SG_KW["n_eff"] * lr)) * noise
+    np.testing.assert_allclose(got - base, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["sgld_update", "sghmc_update"])
+def test_sg_dispatcher_on_cpu_runs_the_plain_version_in_place(name):
+    arrays, kw = _sg_args(name, _sg_vecs(2048, 3, 10, True))
+    ts = _torch(*arrays)
+    want = getattr(fused, name)(*ts, nd=0.0, **SG_KW, **kw)
+    want = want if isinstance(want, tuple) else (want,)
+    written = [ts[0]] if name == "sgld_update" else [ts[0], ts[3]]
+    ptrs = [t.data_ptr() for t in written]
+    out = getattr(fused, name + "_")(*ts, nd=0.0, seed=0, step=0, **SG_KW, **kw)
+    out = out if isinstance(out, tuple) else (out,)
+    assert [t.data_ptr() for t in out] == ptrs
+    for t, w in zip(written, want):
+        assert torch.equal(t, w)
+    assert getattr(kernels, name).launches == 0
+
+
+@pytest.mark.parametrize("name", ["sgld_update", "sghmc_update"])
+def test_sg_dispatcher_noise_is_a_function_of_seed_and_step(name):
+    def run(seed, step):
+        arrays, kw = _sg_args(name, _sg_vecs(4096, 0, 10, False))
+        ts = _torch(*arrays)
+        getattr(fused, name + "_")(*ts, nd=1.0, seed=seed, step=step,
+                                   **SG_KW, **kw)
+        return ts[0]
+
+    assert torch.equal(run(0, 5), run(0, 5))
+    assert not torch.equal(run(0, 5), run(0, 6))
+    assert not torch.equal(run(1, 5), run(0, 5))
+
+
+@pytest.mark.parametrize("name", ["sgld_update", "sghmc_update"])
+def test_sg_kernel_wrapper_refuses_cpu_tensors(name):
+    arrays, kw = _sg_args(name, _sg_vecs(64, 0, 1, False))
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(kernels, name)(*_torch(*arrays), nd=0.0, seed=0, step=0,
+                               **SG_KW, **kw)
+    assert getattr(kernels, name).launches == 0
+
+
+def test_kernel_wrappers_refuse_overlapping_operands():
+    buf = torch.zeros(4096)
+    a, b, c = buf[:1024], buf[1024:2048], buf[512:1536]
+    kernels._check_no_overlap(dict(g=a), dict(theta=b, lr=b))  # reads may share
+    with pytest.raises(ValueError, match="g must not alias theta"):
+        kernels._check_no_overlap(dict(g=a), dict(theta=c))
+    with pytest.raises(ValueError, match="g must not alias v"):
+        kernels._check_no_overlap(dict(g=b, v=c), dict(theta=buf[2048:3072]))

@@ -113,7 +113,7 @@ def test_artifacts_with_and_without_matplotlib(monkeypatch, tmp_path,
 
 def test_unported_names_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_runner_cls("sgld")
+        get_runner_cls("adam_sghmc")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_backbone("resnet50")
 
