@@ -1,8 +1,8 @@
 """Configuration surface (counterpart of bayesdll_tpu.config).
 
 The reference CLI's flags and its ``--hparams`` 'k1=v1,k2=v2' string as a
-dataclass, plus `device`: every run goes to the CUDA card unless the caller
-asks for "cpu".
+dataclass, plus `compute_dtype` (the forward's dtype) and `device`: every
+run goes to the CUDA card unless the caller asks for "cpu".
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ def parse_hparams(hparams_str: str) -> Dict[str, str]:
 class Config:
     method: str = "csghmc"
     hparams: Dict[str, str] = dataclasses.field(default_factory=dict)
+    pretrained: Optional[str] = None  # torchvision state_dict: prior mean
     dataset: str = "mnist"
     backbone: str = "mlp_mnist"
     val_heldout: float = 0.1
@@ -47,6 +48,7 @@ class Config:
     test_eval_freq: int = 1
     data_root: str = "data"
     num_classes: int = 10
+    compute_dtype: str = "float32"  # "bfloat16" for the big backbones
     device: str = "cuda"
 
     def __post_init__(self):
@@ -68,10 +70,11 @@ class Config:
         if getattr(self, "_run_name", None) is not None:
             return self._run_name
         hp = "_".join(f"{k}{v}" for k, v in sorted(self.hparams.items()))
+        pretr = 0 if self.pretrained is None else 1
         stamp = time.strftime("%Y%m%d_%H%M%S")
         self._run_name = (
             f"{self.dataset}_val_heldout{self.val_heldout}/{self.backbone}/"
-            f"{self.method}_{hp}/"
+            f"{self.method}_{hp}_pretr{pretr}/"
             f"ep{self.epochs}_bs{self.batch_size}_lr{self.lr}_lrh{self.lr_head}"
             f"_mo{self.momentum}/seed{self.seed}_{stamp}"
         )

@@ -27,6 +27,8 @@ class FlatTarget:
       unravel: flat vector -> nested dict of views (core/flat.make_unravel).
       nd_size: training-set size ND that scales the prior and the noise.
       n_params: true parameter count; dim is the padded vector length.
+      has_batch_stats: the module's forward takes and returns the
+        `batch_stats` collection of net_state (BatchNorm running averages).
     """
 
     theta0: torch.Tensor
@@ -37,6 +39,7 @@ class FlatTarget:
     nd_size: int = 0
     num_classes: int = 10
     n_params: int = 0
+    has_batch_stats: bool = False
 
     @property
     def dim(self) -> int:
@@ -48,9 +51,17 @@ class FlatTarget:
 
     def forward(self, theta: torch.Tensor, net_state, x, train: bool = False):
         """Apply the backbone with parameters taken as views of `theta`.
-        Returns (logits, net_state)."""
+        Returns (logits, net_state'), as the JAX package's apply_fn does: in
+        train mode a model with batch stats returns its updated
+        `batch_stats`; otherwise net_state comes back as it was given."""
         params = flat_util.dotted(self.unravel(theta))
-        return functional_call(self.module, params, (x,)), net_state
+        if not self.has_batch_stats:
+            return functional_call(self.module, params, (x,)), net_state
+        logits, stats = functional_call(
+            self.module, params, (x, net_state["batch_stats"], train))
+        if train:
+            return logits, {**net_state, "batch_stats": stats}
+        return logits, net_state
 
     def prior_mask(self, bias_mode: str) -> torch.Tensor:
         """Per-element multiplier for the prior term: bias elements drop out
@@ -82,6 +93,7 @@ def make_flat_target(
     rng: torch.Generator,
     theta0_params=None,
     readout_name: str = "head",
+    has_batch_stats: bool = False,
     pad_to: int = 1024,
     device="cuda",
 ) -> tuple:
@@ -91,7 +103,13 @@ def make_flat_target(
     the backbone's own initialisers.  theta0_params=None is a zero prior
     mean.  pad_to zero-pads the vector to the next multiple, as the JAX
     package does; pad elements are inert (the unravel ignores them, masks
-    are False and θ0 is 0 there).
+    are False and θ0 is 0 there).  With has_batch_stats, net_state_init is
+    {"batch_stats": ...} nested as flax's collection (leaves `mean` and
+    `var`); else {}.
+
+    The forward dtype is the backbone's own (`create_backbone(...,
+    dtype=)`): its layers cast each leaf, as the JAX package's ResNet does
+    (`prefer_half_flat = False`), so no whole-vector cast is made here.
     """
     params = model.init_params(rng)
     theta_init, unravel = flat_util.flatten_params(params)
@@ -108,6 +126,19 @@ def make_flat_target(
         nd_size=nd_size,
         num_classes=num_classes,
         n_params=n_params,
+        has_batch_stats=has_batch_stats,
     )
     theta = torch.from_numpy(pad_vector(theta_init.numpy(), pad_to))
-    return target, theta.to(device), {}
+    net_state = {}
+    if has_batch_stats:
+        net_state = {"batch_stats": tree_to(model.init_batch_stats(), device)}
+    return target, theta.to(device), net_state
+
+
+def tree_to(tree, device, dtype=torch.float32):
+    """A nested dict of tensors or arrays as tensors on `device`."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        tree = torch.from_numpy(np.array(tree))
+    return tree.to(device, dtype)

@@ -33,25 +33,30 @@ def prepare(cfg):
     """Build loaders for cfg.dataset. Returns (train, val, test, nd)."""
     seed = cfg.seed
     if cfg.dataset == "synthetic":
-        if cfg.backbone != "mlp_mnist":
-            raise NotImplementedError(
-                f"synthetic data for backbone '{cfg.backbone}' comes with "
-                "that backbone's port (ROADMAP.md queue 1 item 11)")
+        # the backbone's input shape; at more than 10,000 values per example
+        # the set is smaller, by the JAX package's rule, so that both
+        # packages see the same arrays
+        from bayesdll_tpu_torch.models import create_backbone
+        _, in_shape, _ = create_backbone(cfg.backbone,
+                                         num_classes=cfg.num_classes)
+        big = int(np.prod(in_shape)) > 10_000
         # at least 2 full train batches must survive the val split
         floor_n = int(np.ceil(2 * cfg.batch_size
                               / max(1e-9, 1.0 - cfg.val_heldout)))
         (xtr, ytr), (xte, yte), num_classes = make_synthetic(
-            n_train=getattr(cfg, "synthetic_n_train", max(4096, floor_n)),
-            n_test=getattr(cfg, "synthetic_n_test", 1024),
-            input_shape=(784,),
+            n_train=getattr(cfg, "synthetic_n_train",
+                            max(512 if big else 4096, floor_n)),
+            n_test=getattr(cfg, "synthetic_n_test", 256 if big else 1024),
+            input_shape=in_shape,
             num_classes=cfg.num_classes,
             seed=seed,
         )
     elif cfg.dataset == "mnist":
         (xtr, ytr), (xte, yte) = mnist_data.load(cfg.data_root)
         num_classes = 10
-        xtr = xtr.reshape(len(xtr), -1)
-        xte = xte.reshape(len(xte), -1)
+        if cfg.backbone == "mlp_mnist":
+            xtr = xtr.reshape(len(xtr), -1)
+            xte = xte.reshape(len(xte), -1)
     else:
         raise NotImplementedError(
             f"dataset '{cfg.dataset}' is not ported yet (ROADMAP.md queue 1); "

@@ -1,8 +1,8 @@
 """Carry weights across from the JAX package, as numpy arrays only.
 
 The parity tests hand the JAX package's parameters (a nested dict, turned
-into numpy by the caller) and flat vectors to the port through these two
-functions, so the port itself never imports JAX.
+into numpy by the caller), its flat vectors and its `batch_stats` to the
+port through these two functions, so the port itself never imports JAX.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from bayesdll_tpu_torch.core import flat as flat_util
-from bayesdll_tpu_torch.core.prior import FlatTarget
+from bayesdll_tpu_torch.core.prior import FlatTarget, tree_to
 
 
 def flat_from_param_dict(params, pad_to: int = 1) -> torch.Tensor:
@@ -23,10 +23,14 @@ def flat_from_param_dict(params, pad_to: int = 1) -> torch.Tensor:
 
 
 def target_from_arrays(theta, theta0, is_head, is_bias, *, model,
-                       nd_size: int, num_classes: int, device="cuda"):
+                       nd_size: int, num_classes: int, batch_stats=None,
+                       device="cuda"):
     """(target, theta_init, net_state) from the JAX package's flat arrays
     (padded or not).  `model` is the port's backbone of the same
-    architecture: its parameter shapes give the unravel."""
+    architecture: its parameter shapes give the unravel.  `batch_stats`,
+    the JAX package's collection of that name as nested numpy arrays,
+    becomes net_state["batch_stats"] and marks the target as one with
+    batch statistics."""
     nested: dict = {}
     for name, p in model.named_parameters():
         *outer, leaf = name.split(".")
@@ -47,5 +51,8 @@ def target_from_arrays(theta, theta0, is_head, is_bias, *, model,
         nd_size=nd_size,
         num_classes=num_classes,
         n_params=sum(p.numel() for p in model.parameters()),
+        has_batch_stats=batch_stats is not None,
     )
-    return target, dev(theta, torch.float32), {}
+    net_state = {} if batch_stats is None else {
+        "batch_stats": tree_to(batch_stats, device)}
+    return target, dev(theta, torch.float32), net_state

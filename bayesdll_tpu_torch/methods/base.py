@@ -210,6 +210,7 @@ class BaseRunner:
         self.results.setdefault("best_loss", float(best_loss))
         self.results["total_time"] = toc0 - tic0
         self.results["train_losses"] = losses_train.tolist()
+        self.results["train_errors"] = errors_train.tolist()
         if self._train_step_time > 0:
             sps = self._train_step_count / self._train_step_time
             self.results["train_steps_per_sec"] = sps

@@ -6,18 +6,23 @@
 Phases, one line each:
   1. the card (nvidia-smi name and power limit), the kernel build from
      bayesdll_tpu_torch/csrc (one nvcc per source, all started together),
-     fp32 matmuls pinned (TF32 off);
+     fp32 matmuls and convolutions pinned (TF32 off);
   2. every kernel (csghmc_update, sgld_update, sghmc_update) against its
-     plain PyTorch version at the main path's shapes (full-width
-     mlp_mnist: D = 2,797,568), with its noise checked against the closed
-     form;
+     plain PyTorch version at the main paths' shapes (full-width
+     mlp_mnist: D = 2,797,568; csghmc_update also at ResNet-101's
+     D = 42,576,896), with its noise checked against the closed form;
   3. the paths: cSGHMC, SGLD, SGHMC and cSGLD training of the full-width
      MNIST MLP (784 -> 3x1000 -> 10) on synthetic data, batch 128, 2
-     epochs, through the entry points a user calls, every kernel's launches
-     counted from 0 just before each run and read just after; then small
-     runs on the card held against the same runs on the CPU;
+     epochs, and cSGHMC training of the full-width ResNet-101 (37 classes,
+     bf16 forward, batch 256, 224x224x3 synthetic images), through the
+     entry points a user calls, every kernel's launches counted from 0 just
+     before each run and read just after; then small runs on the card held
+     against the same runs on the CPU (MLP width 32; a ResNet with one
+     bottleneck per stage);
   4. times with CUDA events: each kernel, its plain version, its bound,
-     and the cSGHMC and SGHMC training steps;
+     and the cSGHMC and SGHMC training steps of the MLP and the cSGHMC
+     step of ResNet-101 (ms/step, gradient-evals/s, TFLOP/s, the share of
+     the bf16 peak);
   5. those training steps' device time by kernel (torch.profiler).
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.  Any failure raises, and the script exits
@@ -62,6 +67,31 @@ def peak_bytes_per_s(name: str) -> float:
 
 
 FP32_PEAK = 67e12  # H100 SXM, fp32 outside the tensor cores
+BF16_PEAK = 989e12  # H100 SXM, bf16 dense on the tensor cores
+# forward FLOPs of one 224x224 ResNet-101 example (7.85 GMACs, torchvision's
+# profile), as bayesdll_tpu/utils/profiling.py counts them; a training step
+# is 3 forwards' worth
+RESNET101_FWD_FLOPS = 15.7e9
+
+# the JAX bench's ResNet-101 cell (bench.py::resnet101_mfu): cSGHMC, 37
+# classes (Pets), batch 256, bf16 forward, synthetic data, 40 epochs of 2
+# steps.  The bench's hparams but prior_sig: cSGHMC applies it as a weight
+# decay (grad_U = g + prior_sig * theta), and at the bench's 1.0 it pulls
+# theta to 0 faster than the data move it, so the model collapses to the
+# uniform prediction at every lr tried; 5e-4, a usual ResNet weight decay,
+# lets it fit.  With lr 1e-2 the run fits its 513 training images in about
+# 30 epochs.  The test error stays at chance whatever the settings: the
+# synthetic classes are white-noise images, which a convolutional net with
+# global pooling does not tell apart from fresh noise (PERF.md, PR 3), so
+# the run is held to the training error and reports the test error.
+RESNET = dict(backbone="resnet101", num_classes=37, batch_size=256,
+              compute_dtype="bfloat16", epochs=40, num_cycles=2)
+RESNET_HP = dict(HP, prior_sig="5e-4")
+RESNET_LR = 1e-2
+RESNET_TRAIN_ERR = 0.5  # the last epoch's training error, against 0.973
+RESNET_PARAMS = 42_575_973
+RESNET_STEPS_TIMED = 10
+RESNET_PROFILED_STEPS = 3
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -98,17 +128,24 @@ def cuda_ms_cold(fn, iters: int, flush: torch.Tensor, warmup: int = 3) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+# the card's name and power limit, as nvidia-smi gives them: every line that
+# carries a time or a memory size names it
+CARD = ""
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
         check=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}", flush=True)
+    global CARD
+    CARD = smi
     from bayesdll_tpu_torch.ops import kernels
     secs = kernels.build()
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"phase 1: built {list(kernels.KERNELS)} in {secs:.1f} s "
+    torch.backends.cudnn.allow_tf32 = False  # fp32 runs only; bf16 is bf16
+    print(f"phase 1: [{smi}] built {list(kernels.KERNELS)} in {secs:.1f} s "
           f"(sm_90a); matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
@@ -134,10 +171,10 @@ def csghmc_inputs(target, lr_body=1e-2, lr_head=2e-2):
     return g, theta, v, lr
 
 
-def phase_kernels():
-    """csghmc_update against its plain version at the main path's D."""
+def phase_kernels(target, label: str):
+    """csghmc_update against its plain version at `target`'s D: bitwise at
+    nd = 0, the noise against its closed form."""
     from bayesdll_tpu_torch.ops import fused, kernels
-    target, _, _ = full_width_target(nd_size=1000)
     g, theta, v, lr = csghmc_inputs(target)
     kw = dict(prior_sig=1.0, alpha=0.05)
     n_eff = 1000.0
@@ -154,8 +191,8 @@ def phase_kernels():
     th_k, v_k = kern(0.0, True)
     torch.cuda.synchronize()
     err = max(float((th_k - th_p).abs().max()), float((v_k - v_p).abs().max()))
-    check(torch.allclose(th_k, th_p, **TOL) and torch.allclose(v_k, v_p, **TOL),
-          f"kernel vs plain at nd=0: max abs err {err}")
+    check(torch.equal(th_k, th_p) and torch.equal(v_k, v_p),
+          f"kernel vs plain at nd=0, D={target.dim}: max abs err {err}")
 
     # scalar tail (n % 4 != 0) on a short vector
     n = 1027
@@ -201,10 +238,10 @@ def phase_kernels():
     else:
         raise RuntimeError("check failed: a misaligned pointer must raise")
 
-    print(f"phase 2: csghmc_update vs plain at D={target.dim}: max abs err "
-          f"{err:.3g} (rtol=atol=1e-6); tail n={n} ok; gate=0 injects "
-          f"nothing; noise {'; '.join(stats)}; repeatable per (seed, step)",
-          flush=True)
+    print(f"phase 2: csghmc_update vs plain at D={target.dim} ({label}): "
+          f"bitwise equal at nd=0 (max abs err {err:.3g}); tail n={n} ok; "
+          f"gate=0 injects nothing; noise {'; '.join(stats)}; repeatable per "
+          "(seed, step)", flush=True)
     return err
 
 
@@ -342,7 +379,7 @@ def phase_sg_kernels():
     return errs
 
 
-def make_runner(cfg, width=None, depth=None, theta_init=None):
+def make_runner(cfg, width=None, depth=None):
     from bayesdll_tpu_torch.core.prior import make_flat_target
     from bayesdll_tpu_torch.data import prepare
     from bayesdll_tpu_torch.methods import get_runner_cls
@@ -350,12 +387,12 @@ def make_runner(cfg, width=None, depth=None, theta_init=None):
     loaders = prepare(cfg)
     *loaders, nd = loaders
     kw = {} if width is None else dict(width=width, depth=depth)
-    model, _, _ = create_backbone(cfg.backbone, num_classes=cfg.num_classes, **kw)
+    model, _, meta = create_backbone(cfg.backbone, num_classes=cfg.num_classes,
+                                     dtype=cfg.compute_dtype, **kw)
     target, theta, ns = make_flat_target(
         model, nd_size=nd, num_classes=cfg.num_classes,
-        rng=torch.Generator().manual_seed(cfg.seed), device=cfg.device)
-    if theta_init is not None:
-        theta = theta_init.to(cfg.device)
+        rng=torch.Generator().manual_seed(cfg.seed),
+        has_batch_stats=meta["has_batch_stats"], device=cfg.device)
     return get_runner_cls(cfg.method)(target, theta, ns, cfg), loaders
 
 
@@ -420,7 +457,7 @@ def phase_path(method, hp, lr, kernel):
     check(min(collected) > 1, f"{method}: collected {collected} samples")
     check(res["test_err"] < 0.5, f"{method}: test error {res['test_err']} "
           "well below chance (0.9)")
-    print(f"phase 3: {method} mlp_mnist D={runner.target.dim} "
+    print(f"phase 3: [{CARD}] {method} mlp_mnist D={runner.target.dim} "
           f"({runner.target.n_params} params) lr={lr}, {steps} steps in "
           f"{secs:.2f} s incl. eval; launches {counts}; losses="
           f"{[round(x, 4) for x in res['train_losses']]}; nll={res['nll']:.4f} "
@@ -429,13 +466,17 @@ def phase_path(method, hp, lr, kernel):
     return runner, loaders, counts[kernel]
 
 
+# the reference run, then the run on the card
+REF_DEVICES = ("cpu", "cuda")
+
+
 def phase_reference(method, hp, momentum=0.0):
     """A small run on the card against the same run on the CPU (nd = 0: no
     noise, so the two agree up to fp32 rounding)."""
     from bayesdll_tpu_torch.config import Config
 
     out = {}
-    for device in ("cpu", "cuda"):
+    for device in REF_DEVICES:
         cfg = Config(method=method, hparams=dict(hp, nd="0.0", nst="0"),
                      dataset="synthetic", backbone="mlp_mnist", epochs=2,
                      batch_size=64, lr=2e-2, momentum=momentum, num_cycles=2,
@@ -445,7 +486,7 @@ def phase_reference(method, hp, momentum=0.0):
         runner, loaders = make_runner(cfg, width=32, depth=2)
         res = runner.train(*loaders)
         out[device] = (res, runner.state.theta.cpu())
-    (rc, tc), (rg, tg) = out["cpu"], out["cuda"]
+    (rc, tc), (rg, tg) = (out[d] for d in REF_DEVICES)
     err = float((tg - tc).abs().max())
     check(torch.allclose(tg, tc, rtol=1e-4, atol=1e-5),
           f"{method}: card vs CPU theta after training: max abs err {err}")
@@ -455,6 +496,159 @@ def phase_reference(method, hp, momentum=0.0):
           f"theta max abs err {err:.3g} (rtol 1e-4, atol 1e-5); nll "
           f"{rg['nll']:.5f} vs {rc['nll']:.5f}; ece {rg['ece']:.5f} vs "
           f"{rc['ece']:.5f}", flush=True)
+
+
+def tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def flat_cpu(tree) -> torch.Tensor:
+    return torch.cat([t.detach().reshape(-1).double().cpu()
+                      for t in tree_leaves(tree)])
+
+
+def resnet_runner():
+    """The ResNet-101 cSGHMC runner of the main path and its loaders,
+    through prepare, create_backbone, make_flat_target and get_runner_cls.
+    No workdir: no GB-sized checkpoint is written."""
+    from bayesdll_tpu_torch.config import Config
+
+    cfg = Config(method="csghmc", hparams=dict(RESNET_HP), dataset="synthetic",
+                 lr=RESNET_LR, seed=0, device="cuda", **RESNET)
+    runner, loaders = make_runner(cfg)
+    check(runner.target.n_params == RESNET_PARAMS,
+          f"resnet101 at 37 classes: {runner.target.n_params} parameters")
+    return runner, loaders
+
+
+def phase_resnet_path(runner, loaders) -> int:
+    """ResNet-101 cSGHMC through `train`, the counts set to 0 just before
+    and read just after."""
+    cfg = runner.cfg
+    stats0 = tree_clone(runner.net_state["batch_stats"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tic = time.perf_counter()
+    res = runner.train(*loaders)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - tic
+    counts = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = cfg.epochs * len(loaders[0])
+    moved = float((flat_cpu(runner.net_state["batch_stats"])
+                   - flat_cpu(stats0)).abs().max())
+    losses, errs = res["train_losses"], res["train_errors"]
+    done = sorted(c for c, st in runner.cycle_stats.items() if "likelihoods" in st)
+    chance = 1.0 - 1.0 / cfg.num_classes
+    print(f"phase 3: [{CARD}] csghmc resnet101 bf16 D={runner.target.dim} "
+          f"({runner.target.n_params} params) batch {cfg.batch_size} "
+          f"lr={cfg.lr} prior_sig={runner.prior_sig}, {steps} steps in "
+          f"{secs:.2f} s incl. eval; launches {counts}; batch_stats moved by "
+          f"up to {moved:.4g}; every 4th epoch's train loss "
+          f"{[round(x, 4) for x in losses[::4]]} and error "
+          f"{[round(x, 4) for x in errs[::4]]}, last epoch {losses[-1]:.4f} "
+          f"and {errs[-1]:.4f}; nll={res.get('nll', math.nan):.4f} "
+          f"ece={res.get('ece', math.nan):.4f} mce={res.get('mce', math.nan):.4f} "
+          f"test_err={res.get('test_err', math.nan):.4f} (chance {chance:.4f}); "
+          f"collected={[runner.cycle_stats[c]['n'] for c in done]}; peak device "
+          f"memory {peak_gb:.2f} GB (max_memory_allocated)", flush=True)
+    check(counts["csghmc_update"] == steps,
+          f"resnet101: csghmc_update launches {counts['csghmc_update']} == "
+          f"steps {steps}")
+    check(all(n == 0 for k, n in counts.items() if k != "csghmc_update"),
+          f"resnet101: no other kernel launched: {counts}")
+    check(moved > 0, "resnet101: batch_stats changed through training")
+    check(all(math.isfinite(x) for x in losses), "resnet101: finite losses")
+    check(losses[-1] < losses[0], f"resnet101: train loss falls: {losses}")
+    check(errs[-1] < RESNET_TRAIN_ERR,
+          f"resnet101: training error {errs[-1]} below {RESNET_TRAIN_ERR}")
+    for key in ("nll", "ece", "mce"):
+        check(key in res and math.isfinite(res[key]), f"resnet101: result {key}")
+    check(bool(torch.isfinite(runner.state.theta).all()), "resnet101: finite theta")
+    check(done == [1, 2], f"resnet101: two completed cycles, got {done}")
+    check(0.0 <= res["test_err"] <= 1.0, "resnet101: test error measured")
+    return counts["csghmc_update"]
+
+
+# a ResNet with one bottleneck per stage, 32x32 inputs, batch 8: layer4
+# normalises over 8 values per channel
+MINI = dict(stages=(1, 1, 1, 1), classes=5, hw=32, batch=8, steps=3)
+
+
+def phase_resnet_reference(method, hp):
+    """A few steps of a small ResNet on the card against the same steps on
+    the CPU, fp32 with TF32 off, nd = 0.  cuDNN and oneDNN sum in other
+    orders; train-mode BatchNorm amplifies the difference to ~1e-5 of the
+    activations, which flips the ReLU of the few activations that close to
+    0, and each flip moves that element's gradient by its full value.  So
+    the runs agree in norm: the gap is within 2% of the distance walked,
+    and 99% of elements agree to rtol 1e-4, atol 1e-5 (as
+    tests/test_torch_resnet.py holds the port against the JAX package)."""
+    from bayesdll_tpu_torch.config import Config
+    from bayesdll_tpu_torch.core.prior import make_flat_target
+    from bayesdll_tpu_torch.methods import get_runner_cls
+    from bayesdll_tpu_torch.models.resnet import ResNet
+
+    m = MINI
+    rng = np.random.RandomState(1)
+    xs = rng.randn(m["steps"], m["batch"], m["hw"], m["hw"], 3).astype(np.float32)
+    ys = rng.randint(0, m["classes"], (m["steps"], m["batch"])).astype(np.int32)
+    x_eval = torch.from_numpy(rng.randn(m["batch"], m["hw"], m["hw"], 3)
+                              .astype(np.float32))
+    out = {}
+    for device in REF_DEVICES:
+        cfg = Config(method=method, hparams=dict(hp, nd="0.0", nst="0"),
+                     dataset="synthetic", backbone="resnet_mini", epochs=1,
+                     batch_size=m["batch"], lr=1e-3, num_cycles=1, seed=0,
+                     device=device)
+        target, theta, ns = make_flat_target(
+            ResNet(m["stages"], m["classes"]), nd_size=64,
+            num_classes=m["classes"], rng=torch.Generator().manual_seed(0),
+            has_batch_stats=True, device=device)
+        runner = get_runner_cls(method)(target, theta, ns, cfg)
+        if hasattr(runner, "_ensure_sched"):
+            runner._ensure_sched(m["steps"])
+        start = {"theta": theta.clone(), "v": torch.zeros_like(theta),
+                 "batch_stats": tree_clone(ns["batch_stats"])}
+        runner.run_steps(0, xs, ys, 0)
+        logits, _ = target.forward(runner.state.theta, runner.net_state,
+                                   x_eval.to(device), train=False)
+        out[device] = {"theta": runner.state.theta,
+                       "v": getattr(runner.state, "v", None),
+                       "batch_stats": runner.net_state["batch_stats"],
+                       "logits": logits}
+    shown = []
+    ref, card = (out[d] for d in REF_DEVICES)
+    for key in ("theta", "v", "batch_stats"):
+        if card[key] is None:
+            continue
+        p, r, s0 = (flat_cpu(t) for t in (card[key], ref[key], start[key]))
+        walked = float((r - s0).norm())
+        gap = float((p - r).norm())
+        close = float(((p - r).abs() <= 1e-5 + 1e-4 * r.abs()).double().mean())
+        check(walked > 0 and gap <= 2e-2 * walked and close >= 0.99,
+              f"{method} mini resnet card vs CPU {key}: gap {gap:.3g}, walked "
+              f"{walked:.3g}, {close:.4%} within rtol 1e-4 atol 1e-5")
+        shown.append(f"{key} gap/walked {gap / walked:.3g}, {close:.4%} of "
+                     "elements within rtol 1e-4 atol 1e-5")
+    lg, lc = card["logits"].cpu(), ref["logits"].cpu()
+    check(bool(torch.isfinite(lg).all()) and torch.allclose(lg, lc, rtol=1e-3,
+                                                            atol=1e-3),
+          f"{method} mini resnet: eval logits card vs CPU "
+          f"{float((lg - lc).abs().max())}")
+    print(f"phase 3b: {method} ResNet stages (1,1,1,1) {m['hw']}x{m['hw']} "
+          f"batch {m['batch']} fp32, {m['steps']} steps at nd=0, card vs CPU "
+          f"(bound: gap <= 2% of the walk, >= 99% of elements close): "
+          f"{'; '.join(shown)}; eval logits max abs err "
+          f"{float((lg - lc).abs().max()):.3g} (rtol=atol=1e-3)", flush=True)
 
 
 def bound(nbytes: float, nops: float, name: str):
@@ -500,32 +694,41 @@ BYTES_PER_ELEM = {"csghmc_update": 24,  # read g, theta, v, lr; write theta, v
 OPS_PER_ELEM = {"csghmc_update": 45, "sgld_update": 45, "sghmc_update": 50}
 
 
-def phase_kernel_times(smi, target):
+def phase_kernel_times(smi, mlp_target, resnet_target):
+    """Each kernel cold against its bound and its plain version: csghmc_update
+    at both main paths' D (the ResNet-101 numbers go into the kernels
+    line), sgld_update and sghmc_update at the MLP's."""
     from bayesdll_tpu_torch.ops import fused, kernels
-    d = target.dim
-    n_eff = float(target.nd_size)
     flush = torch.zeros(64 * 2**20, device="cuda")  # 256 MB, 5x the L2
     gen = torch.Generator(device="cuda").manual_seed(0)
     step = [0]
     out = {}
-
-    g, theta, v, lr = csghmc_inputs(target, lr_body=1e-4, lr_head=2e-4)
     kw = dict(prior_sig=1.0, alpha=0.05)
-    pref = kernels.noise_prefactor(1.0, kw["alpha"], n_eff)
 
-    def csghmc(gate):
-        step[0] += 1
-        kernels.csghmc_update(g, theta, v, lr, noise_pref=pref, gate=gate,
-                              seed=0, step=step[0], **kw)
+    for target in (mlp_target, resnet_target):
+        d = target.dim
+        n_eff = float(target.nd_size)
+        g, theta, v, lr = csghmc_inputs(target, lr_body=1e-4, lr_head=2e-4)
+        pref = kernels.noise_prefactor(1.0, kw["alpha"], n_eff)
 
-    out["csghmc_update"] = kernel_times(
-        smi, "csghmc_update", csghmc,
-        lambda: fused.csghmc_update(g, theta, v, n_eff=n_eff, nd=1.0, lr=lr,
-                                    should_sample=True, generator=gen, **kw),
-        BYTES_PER_ELEM["csghmc_update"] * d, OPS_PER_ELEM["csghmc_update"] * d,
-        flush, "noise gate off")
+        def csghmc(gate, g=g, theta=theta, v=v, lr=lr, pref=pref):
+            step[0] += 1
+            kernels.csghmc_update(g, theta, v, lr, noise_pref=pref, gate=gate,
+                                  seed=0, step=step[0], **kw)
 
-    vecs = sg_inputs(target, lr_body=1e-4, lr_head=2e-4)
+        out["csghmc_update"] = kernel_times(
+            smi, "csghmc_update", csghmc,
+            lambda g=g, theta=theta, v=v, lr=lr, n_eff=n_eff: fused.csghmc_update(
+                g, theta, v, n_eff=n_eff, nd=1.0, lr=lr, should_sample=True,
+                generator=gen, **kw),
+            BYTES_PER_ELEM["csghmc_update"] * d,
+            OPS_PER_ELEM["csghmc_update"] * d, flush, "noise gate off")
+        out["csghmc_update"]["dim"] = d
+        del g, theta, v, lr
+
+    d = mlp_target.dim
+    n_eff = float(mlp_target.nd_size)
+    vecs = sg_inputs(mlp_target, lr_body=1e-4, lr_head=2e-4)
     for name in SG_ALPHA:
         args = sg_operands(name, *vecs)
 
@@ -541,6 +744,7 @@ def phase_kernel_times(smi, target):
                                                   n_eff=n_eff, generator=gen),
             BYTES_PER_ELEM[name] * d, OPS_PER_ELEM[name] * d, flush,
             "nd = 0, no draw")
+        out[name]["dim"] = d
     return out
 
 
@@ -572,14 +776,48 @@ def phase_step_time(smi, method, runner, loaders):
     print(f"phase 4: [{smi}] {method} training step mlp_mnist batch "
           f"{xs.shape[1]}: {ms_step:.3f} ms/step over {STEPS_TIMED} run_steps "
           f"steps = {gevals:.0f} gradient-evals/s", flush=True)
-    phase_profile(smi, method, runner, xs[:PROFILED_STEPS],
-                  ys[:PROFILED_STEPS], ms_step)
+    phase_profile(smi, f"{method} mlp_mnist", runner, xs[:PROFILED_STEPS],
+                  ys[:PROFILED_STEPS], ms_step, f"{method}_update")
 
 
-def phase_profile(smi, method, runner, xs, ys, ms_step):
+def phase_resnet_step_time(smi, runner, loaders):
+    """The ResNet-101 cSGHMC step through run_steps on the run's two train
+    batches, copied to the card once before the timed window (the
+    per-batch pinned copy of a host batch, 154 MB, stays out of it); then
+    its profile."""
+    bs = runner.cfg.batch_size
+    dev = [(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+           for x, y, _ in loaders[0]]
+    xs = [dev[i % len(dev)][0] for i in range(RESNET_STEPS_TIMED)]
+    ys = [dev[i % len(dev)][1] for i in range(RESNET_STEPS_TIMED)]
+    ep = runner.cfg.epochs - 1
+    runner.run_steps(ep, xs[:2], ys[:2], runner.bi)  # warm-up
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    loss_k, _ = runner.run_steps(ep, xs, ys, runner.bi)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - tic
+    check(bool(torch.isfinite(loss_k).all()),
+          "resnet101: finite losses in the timed steps")
+    sec = dt / RESNET_STEPS_TIMED
+    flops = 3 * RESNET101_FWD_FLOPS * bs
+    tflops = flops / sec / 1e12
+    print(f"phase 4: [{smi}] csghmc training step resnet101 bf16 batch {bs}: "
+          f"{sec * 1e3:.2f} ms/step over {RESNET_STEPS_TIMED} run_steps steps "
+          f"on {len(dev)} distinct batches = {bs / sec:.1f} gradient-evals/s; "
+          f"{tflops:.1f} TFLOP/s (3 x 15.7 GFLOP x {bs} per step); "
+          f"resnet101_mfu_bf16={tflops * 1e12 / BF16_PEAK:.2%} of the H100 "
+          f"SXM bf16 dense peak (989 TFLOP/s)", flush=True)
+    phase_profile(smi, "csghmc resnet101", runner,
+                  xs[:RESNET_PROFILED_STEPS], ys[:RESNET_PROFILED_STEPS],
+                  sec * 1e3, "csghmc_update")
+
+
+def phase_profile(smi, what, runner, xs, ys, ms_step, sampler):
     """Where a training step's device time goes: torch.profiler over a few
     run_steps steps, device time summed by kernel name.  The busy share
-    divides the device time per step by the unprofiled ms/step."""
+    divides the device time per step by the unprofiled ms/step; the
+    sampler's share is that of the kernels named after `sampler`."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -595,15 +833,38 @@ def phase_profile(smi, method, runner, xs, ys, ms_step):
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / len(xs)
     total = sum(per_kernel.values())
     if total <= 0:
-        print(f"phase 5: {method}: profiler recorded no device time: "
+        print(f"phase 5: {what}: profiler recorded no device time: "
               "breakdown not measured", flush=True)
         return
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     shares = "; ".join(f"{name[:60]} {us:.1f} us ({us / total:.1%})"
                        for name, us in top)
-    print(f"phase 5: [{smi}] {method} profile over {len(xs)} steps: device time "
+    samp = sum(us for name, us in per_kernel.items() if sampler in name)
+    families = {}
+    for name, us in per_kernel.items():
+        fam = next((f for f, keys in KERNEL_FAMILIES if any(
+            k in name.lower() for k in keys)), "other")
+        families[fam] = families.get(fam, 0.0) + us
+    fam_shares = ", ".join(f"{f} {us / total:.1%}" for f, us in sorted(
+        families.items(), key=lambda kv: -kv[1]))
+    print(f"phase 5: [{smi}] {what} profile over {len(xs)} steps: device time "
           f"{total:.1f} us/step = {total / (ms_step * 1e3):.1%} busy of "
-          f"{ms_step:.3f} ms/step; by kernel: {shares}", flush=True)
+          f"{ms_step:.3f} ms/step; {sampler} {samp:.1f} us/step "
+          f"({samp / total:.2%} of device time); by family: {fam_shares}; "
+          f"by kernel: {shares}", flush=True)
+
+
+# kernel families of the profile, by substrings of the kernel's name, the
+# first that matches
+KERNEL_FAMILIES = (
+    ("sampler", ("_update_kernel",)),
+    ("batch norm", ("batch_norm",)),
+    ("conv and gemm", ("conv", "gemm", "xmma", "cutlass", "cudnn", "wgrad",
+                       "dgrad", "fprop")),
+    ("elementwise", ("elementwise",)),
+    ("reduce", ("reduce",)),
+    ("pooling", ("pool",)),
+)
 
 
 def main() -> int:
@@ -612,24 +873,40 @@ def main() -> int:
               file=sys.stderr)
         return 1
     smi = phase_device()
-    errs = {"csghmc_update": phase_kernels(), **phase_sg_kernels()}
-    runners, launches = {}, {}
+    mlp_target = full_width_target(nd_size=1000)[0]
+    resnet, resnet_loaders = resnet_runner()
+    errs = {"csghmc_update": max(phase_kernels(mlp_target, "mlp_mnist"),
+                                 phase_kernels(resnet.target, "resnet101")),
+            **phase_sg_kernels()}
+    runners, by_path = {}, {}
     for method, hp, lr, kernel in PATHS:
         runner, loaders, n = phase_path(method, hp, lr, kernel)
         runners[method] = (runner, loaders)
-        launches.setdefault(kernel, n)  # sgld_update: the SGLD path's count
+        by_path[f"{method} mlp_mnist"] = {kernel: n}
+    by_path["csghmc resnet101"] = {
+        "csghmc_update": phase_resnet_path(resnet, resnet_loaders)}
+    # each kernel's launches on its main path: this slice's ResNet-101 path
+    # for csghmc_update, the SGLD and SGHMC paths for the others
+    launches = {"csghmc_update": by_path["csghmc resnet101"]["csghmc_update"],
+                "sgld_update": by_path["sgld mlp_mnist"]["sgld_update"],
+                "sghmc_update": by_path["sghmc mlp_mnist"]["sghmc_update"]}
     phase_reference("csghmc", HP)
     phase_reference("sgld", SG_HP, momentum=0.5)
     phase_reference("sghmc", SG_HP, momentum=0.5)
-    times = phase_kernel_times(smi, runners["csghmc"][0].target)
+    phase_resnet_reference("csghmc", HP)
+    phase_resnet_reference("sgld", SG_HP)
+    times = phase_kernel_times(smi, mlp_target, resnet.target)
     for method in ("csghmc", "sghmc"):
         phase_step_time(smi, method, *runners[method])
+    phase_resnet_step_time(smi, resnet, resnet_loaders)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"bayesdll_tpu_torch/csrc/{name}.cu",
         "replaces": f"bayesdll_tpu/ops/pallas_kernels.py:{REPLACES[name]}",
         "launches": launches[name], "max_abs_err": errs[name], **times[name],
-        "library_ms": None} for name in REPLACES]}))
+        "library_ms": None,
+        "launches_by_path": {p: c[name] for p, c in by_path.items()
+                             if name in c}} for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

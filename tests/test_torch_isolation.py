@@ -1,5 +1,6 @@
-"""The PyTorch port and chip_smoke.py stand alone: they import nothing of
-JAX, flax or the JAX package (the machine with the card has none of them)."""
+"""The PyTorch port, chip_smoke.py and resnet_sweep.py stand alone: they
+import nothing of JAX, flax or the JAX package (the machine with the card
+has none of them)."""
 
 import ast
 import json
@@ -12,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "bayesdll_tpu")
-SOURCES = sorted((ROOT / "bayesdll_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "bayesdll_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "resnet_sweep.py"]
 
 
 def _imported_roots(path: Path):
@@ -37,7 +39,9 @@ def test_importing_the_port_loads_no_jax():
         "import bayesdll_tpu_torch.methods.csghmc, bayesdll_tpu_torch.cli.demo\n"
         "import bayesdll_tpu_torch.methods.sgld, bayesdll_tpu_torch.methods.sghmc\n"
         "import bayesdll_tpu_torch.methods.csgld\n"
-        "import bayesdll_tpu_torch.interop, chip_smoke\n"
+        "import bayesdll_tpu_torch.models.resnet, bayesdll_tpu_torch.models.cnn\n"
+        "import bayesdll_tpu_torch.models.convert, bayesdll_tpu_torch.models.layers\n"
+        "import bayesdll_tpu_torch.interop, chip_smoke, resnet_sweep\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         f"    if m.split('.')[0] in {FORBIDDEN!r})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -54,3 +58,12 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_resnet_sweep_refuses_to_run_without_a_card():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "resnet_sweep.py"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "resnet101 csghmc" not in out.stdout

@@ -115,7 +115,7 @@ def test_unported_names_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_runner_cls("adam_sghmc")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_backbone("resnet50")
+        create_backbone("vit_l_32")
 
 
 def test_cli_runs_on_cpu(tmp_path):
