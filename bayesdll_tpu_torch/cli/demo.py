@@ -13,6 +13,11 @@ bayesdll_tpu.cli.demo).
       --compute_dtype bfloat16 --epochs 4 --num_cycles 2 --lr 1e-3 \\
       --hparams prior_sig=1.0,Ninflate=1.0,nd=1.0,thin=2,bias=informative,nst=2 \\
       [--pretrained resnet101.pth]
+  python -m bayesdll_tpu_torch.cli.demo --method csghmc --backbone vit_l_32 \\
+      --dataset synthetic --num_classes 37 --batch_size 128 \\
+      --compute_dtype bfloat16 --epochs 16 --num_cycles 2 --lr LR \\
+      --hparams prior_sig=SIG,Ninflate=1.0,nd=1.0,thin=2,bias=informative,nst=2 \\
+      [--remat --remat_policy names]
 
 --pretrained takes a local torchvision state_dict: its body with a zeroed
 head is the prior mean, and its body with the random head is the starting
@@ -44,7 +49,8 @@ def parse_args(argv=None):
     p.add_argument("--dataset", type=str, default="mnist",
                    help="mnist|synthetic")
     p.add_argument("--backbone", type=str, default="mlp_mnist",
-                   help="mlp_mnist|cnn_mnist|resnet50|resnet101")
+                   help="mlp_mnist|cnn_mnist|resnet50|resnet101|vit_l_32|"
+                        "vit_b_16|vit_tiny")
     p.add_argument("--val_heldout", type=float, default=0.1)
     p.add_argument("--ece_num_bins", type=int, default=15)
     p.add_argument("--num_cycles", type=int, default=4)
@@ -58,9 +64,22 @@ def parse_args(argv=None):
     p.add_argument("--log_dir", type=str, default="results")
     p.add_argument("--test_eval_freq", type=int, default=1)
     p.add_argument("--data_root", type=str, default="data")
+    p.add_argument("--num_classes", type=int, default=10,
+                   help="classes of the synthetic set (MNIST has 10)")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="forward-pass dtype (bfloat16 for big backbones)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute ViT encoder blocks in the backward pass "
+                        "(memory for FLOPs)")
+    p.add_argument("--remat_policy", type=str, default="",
+                   choices=["", "dots", "names"],
+                   help="remat policy: '' full, 'dots' save matmul outputs, "
+                        "'names' save qkv, attn_out and mlp_hidden")
+    p.add_argument("--fused_attention", type=int, default=1,
+                   help="1 = F.scaled_dot_product_attention core (default)")
+    p.add_argument("--gelu_approx", type=int, default=0,
+                   help="1 = tanh GELU in the ViT MLP; 0 = exact erf")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--resume", type=str, default=None,
@@ -79,7 +98,7 @@ def build_all(cfg, logger, workdir=None):
     logger.info("dataset %s prepared: ND=%d, num_classes=%d",
                 cfg.dataset, nd, cfg.num_classes)
     model, _input_shape, meta = create_backbone(
-        cfg.backbone, num_classes=cfg.num_classes, dtype=cfg.compute_dtype)
+        cfg.backbone, num_classes=cfg.num_classes, **cfg.backbone_kw())
 
     theta0_params = None
     if cfg.pretrained is not None:
@@ -116,7 +135,11 @@ def main(argv=None):
         epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
         lr_head=args.lr_head, momentum=args.momentum, seed=args.seed,
         log_dir=args.log_dir, test_eval_freq=args.test_eval_freq, data_root=args.data_root,
-        compute_dtype=args.compute_dtype, device=args.device)
+        num_classes=args.num_classes,
+        compute_dtype=args.compute_dtype, remat=args.remat,
+        remat_policy=args.remat_policy,
+        fused_attention=bool(args.fused_attention),
+        gelu_approx=bool(args.gelu_approx), device=args.device)
 
     workdir = os.path.join(cfg.log_dir, cfg.run_name())
     os.makedirs(workdir, exist_ok=True)

@@ -1,8 +1,9 @@
 """Configuration surface (counterpart of bayesdll_tpu.config).
 
 The reference CLI's flags and its ``--hparams`` 'k1=v1,k2=v2' string as a
-dataclass, plus `compute_dtype` (the forward's dtype) and `device`: every
-run goes to the CUDA card unless the caller asks for "cpu".
+dataclass, plus `compute_dtype` (the forward's dtype), the ViT knobs of the
+JAX package's config, and `device`: every run goes to the CUDA card unless
+the caller asks for "cpu".
 """
 
 from __future__ import annotations
@@ -49,7 +50,19 @@ class Config:
     data_root: str = "data"
     num_classes: int = 10
     compute_dtype: str = "float32"  # "bfloat16" for the big backbones
+    # ViT knobs (models/vit.py); the other backbones ignore them
+    remat: bool = False        # recompute each encoder block in backward
+    remat_policy: str = ""     # '' (full) | 'dots' | 'names'
+    fused_attention: bool = True  # F.scaled_dot_product_attention core
+    gelu_approx: bool = False  # tanh GELU; exact erf by default
     device: str = "cuda"
+
+    def backbone_kw(self) -> dict:
+        """The keyword arguments of `create_backbone` this config sets."""
+        return dict(dtype=self.compute_dtype, remat=self.remat,
+                    remat_policy=self.remat_policy,
+                    fused_attention=self.fused_attention,
+                    gelu_approx=self.gelu_approx)
 
     def __post_init__(self):
         if isinstance(self.hparams, str):

@@ -8,7 +8,7 @@ and the module whose forward runs on views into θ.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable
 
 import numpy as np
 import torch
@@ -29,6 +29,13 @@ class FlatTarget:
       n_params: true parameter count; dim is the padded vector length.
       has_batch_stats: the module's forward takes and returns the
         `batch_stats` collection of net_state (BatchNorm running averages).
+      fwd_cast: "" or a torch dtype name ("bfloat16"): the forward casts θ
+        to it once, at the unravel (`leaves`), in place of a cast of each
+        weight at each use inside the model (`auto_fwd_cast` sets it).  For
+        the MLP that is the same rounding of the same values, so its numbers
+        do not change; the ViT's LayerNorm leaves, which the model would
+        use in fp32, are rounded too, as in the JAX package's whole-vector
+        cast.  The gradient comes back to the fp32 θ through the cast.
     """
 
     theta0: torch.Tensor
@@ -40,6 +47,7 @@ class FlatTarget:
     num_classes: int = 10
     n_params: int = 0
     has_batch_stats: bool = False
+    fwd_cast: str = ""
 
     @property
     def dim(self) -> int:
@@ -49,12 +57,30 @@ class FlatTarget:
     def device(self) -> torch.device:
         return self.theta0.device
 
+    def leaves(self, theta: torch.Tensor) -> dict:
+        """The backbone's parameters, {"a.b": leaf}, as views of `theta`; with
+        fwd_cast, each leaf cast once into its own allocation.  The JAX
+        package casts the whole vector in one op and unravels views of the
+        result; here a view would start at θ's offset, which for most class
+        counts leaves every leaf after the head 2 or 4 bytes off the 16-byte
+        alignment that Hopper's matrix-product kernels need, and cuBLAS
+        then falls back to kernels of an older architecture (PERF.md gives
+        the ViT-L/32 step both ways on an H100).  One cast per leaf writes
+        the same values to aligned memory: 20 casts for a ViT, whose
+        encoder leaves are stacked, against one per use of each weight
+        inside the model."""
+        params = flat_util.dotted(self.unravel(theta))
+        if not self.fwd_cast:
+            return params
+        dt = getattr(torch, self.fwd_cast)
+        return {name: leaf.to(dt) for name, leaf in params.items()}
+
     def forward(self, theta: torch.Tensor, net_state, x, train: bool = False):
-        """Apply the backbone with parameters taken as views of `theta`.
+        """Apply the backbone with parameters taken from `theta` (`leaves`).
         Returns (logits, net_state'), as the JAX package's apply_fn does: in
         train mode a model with batch stats returns its updated
         `batch_stats`; otherwise net_state comes back as it was given."""
-        params = flat_util.dotted(self.unravel(theta))
+        params = self.leaves(theta)
         if not self.has_batch_stats:
             return functional_call(self.module, params, (x,)), net_state
         logits, stats = functional_call(
@@ -85,6 +111,16 @@ def pad_vector(vec: np.ndarray, pad_to: int) -> np.ndarray:
     return np.concatenate([vec, np.zeros(pad, vec.dtype)]) if pad else vec
 
 
+def auto_fwd_cast(model: nn.Module) -> str:
+    """The whole-vector cast of a backbone: its dtype when that is not fp32,
+    unless the backbone declares `prefer_half_flat = False` (the ResNet: its
+    layers cast each leaf)."""
+    dt = getattr(model, "dtype", torch.float32)
+    enabled = getattr(model, "prefer_half_flat", True)
+    return str(dt).removeprefix("torch.") if enabled and dt != torch.float32 \
+        else ""
+
+
 def make_flat_target(
     model: nn.Module,
     *,
@@ -108,8 +144,8 @@ def make_flat_target(
     `var`); else {}.
 
     The forward dtype is the backbone's own (`create_backbone(...,
-    dtype=)`): its layers cast each leaf, as the JAX package's ResNet does
-    (`prefer_half_flat = False`), so no whole-vector cast is made here.
+    dtype=)`); `auto_fwd_cast` resolves the whole-vector cast from it, as
+    the JAX package does.
     """
     params = model.init_params(rng)
     theta_init, unravel = flat_util.flatten_params(params)
@@ -127,6 +163,7 @@ def make_flat_target(
         num_classes=num_classes,
         n_params=n_params,
         has_batch_stats=has_batch_stats,
+        fwd_cast=auto_fwd_cast(model),
     )
     theta = torch.from_numpy(pad_vector(theta_init.numpy(), pad_to))
     net_state = {}

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from bayesdll_tpu_torch.core import flat as flat_util
-from bayesdll_tpu_torch.core.prior import FlatTarget, tree_to
+from bayesdll_tpu_torch.core.prior import FlatTarget, auto_fwd_cast, tree_to
 
 
 def flat_from_param_dict(params, pad_to: int = 1) -> torch.Tensor:
@@ -30,7 +30,8 @@ def target_from_arrays(theta, theta0, is_head, is_bias, *, model,
     architecture: its parameter shapes give the unravel.  `batch_stats`,
     the JAX package's collection of that name as nested numpy arrays,
     becomes net_state["batch_stats"] and marks the target as one with
-    batch statistics."""
+    batch statistics.  The cast of θ is `auto_fwd_cast`'s, as in
+    core/prior.make_flat_target."""
     nested: dict = {}
     for name, p in model.named_parameters():
         *outer, leaf = name.split(".")
@@ -52,6 +53,7 @@ def target_from_arrays(theta, theta0, is_head, is_bias, *, model,
         num_classes=num_classes,
         n_params=sum(p.numel() for p in model.parameters()),
         has_batch_stats=batch_stats is not None,
+        fwd_cast=auto_fwd_cast(model),
     )
     net_state = {} if batch_stats is None else {
         "batch_stats": tree_to(batch_stats, device)}

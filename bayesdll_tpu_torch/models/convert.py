@@ -1,5 +1,5 @@
-"""torchvision state_dict -> the port's parameter tree (counterpart of the
-ResNet half of bayesdll_tpu.models.convert).
+"""torchvision state_dict -> the port's parameter tree (counterpart of
+bayesdll_tpu.models.convert).
 
 Pretrained torchvision weights serve as the prior mean: the prior copy gets
 a ZEROED head, while the workhorse copy keeps a freshly initialised head
@@ -9,7 +9,8 @@ nothing is downloaded.  Layout transforms, to the JAX package's layout:
   * Conv OIHW -> HWIO
   * Linear [out, in] -> [in, out]
   * BatchNorm weight/bias -> scale/bias; running_mean/var -> batch_stats
-The ViT half comes with the ViT backbone (ROADMAP.md queue 1 item 11).
+  * ViT packed in_proj [3D, D] -> qkv kernel [D, 3D], every encoder-layer
+    tensor stacked over depth (models/vit.py's scanned layout)
 """
 
 from __future__ import annotations
@@ -87,33 +88,85 @@ def resnet_params_from_torch(sd: Dict[str, np.ndarray], stage_sizes,
     return params, stats
 
 
-def _stages(backbone: str):
-    if backbone.startswith("vit"):
+def vit_params_from_torch(sd: Dict[str, np.ndarray], depth: int, dim: int,
+                          num_classes: int, zero_head: bool):
+    """(params, {}) nested numpy dicts for models/vit.py::ViT: torchvision's
+    per-layer encoder tensors stacked along a leading depth axis."""
+    def stacked(fmt, transform=lambda a: a):
+        return np.stack([transform(sd[fmt.format(i=i)]) for i in range(depth)])
+
+    tp = "encoder.layers.encoder_layer_{i}"
+    params: Dict = {
+        "conv_proj": {"kernel": _conv(sd["conv_proj.weight"]),
+                      "bias": sd["conv_proj.bias"]},
+        "class_token": sd["class_token"].reshape(1, 1, dim),
+        "pos_embedding": sd["encoder.pos_embedding"],
+        "layers": {
+            "ln_1": {"scale": stacked(tp + ".ln_1.weight"),
+                     "bias": stacked(tp + ".ln_1.bias")},
+            "attention": {
+                "qkv": {"kernel": stacked(
+                            tp + ".self_attention.in_proj_weight", _linear),
+                        "bias": stacked(tp + ".self_attention.in_proj_bias")},
+                "out": {"kernel": stacked(
+                            tp + ".self_attention.out_proj.weight", _linear),
+                        "bias": stacked(tp + ".self_attention.out_proj.bias")},
+            },
+            "ln_2": {"scale": stacked(tp + ".ln_2.weight"),
+                     "bias": stacked(tp + ".ln_2.bias")},
+            "mlp_dense_0": {"kernel": stacked(tp + ".mlp.0.weight", _linear),
+                            "bias": stacked(tp + ".mlp.0.bias")},
+            "mlp_dense_1": {"kernel": stacked(tp + ".mlp.3.weight", _linear),
+                            "bias": stacked(tp + ".mlp.3.bias")},
+        },
+        "ln": {"scale": sd["encoder.ln.weight"], "bias": sd["encoder.ln.bias"]},
+    }
+    # head: torchvision's `heads.head`, zeroed as the ResNet's `fc` is
+    if zero_head or "heads.head.weight" not in sd \
+            or sd["heads.head.weight"].shape[0] != num_classes:
+        params["head"] = {"kernel": np.zeros((dim, num_classes), np.float32),
+                          "bias": np.zeros((num_classes,), np.float32)}
+    else:
+        params["head"] = {"kernel": _linear(sd["heads.head.weight"]),
+                          "bias": sd["heads.head.bias"]}
+    return params, {}
+
+
+_ARCH = {
+    "resnet101": dict(kind="resnet", stage_sizes=STAGE_SIZES["resnet101"]),
+    "resnet50": dict(kind="resnet", stage_sizes=STAGE_SIZES["resnet50"]),
+    "vit_l_32": dict(kind="vit", depth=24, dim=1024),
+    "vit_b_16": dict(kind="vit", depth=12, dim=768),
+}
+
+
+def _convert(path: str, backbone: str, num_classes: int, zero_head: bool):
+    if backbone not in _ARCH:
         raise NotImplementedError(
-            f"pretrained conversion for '{backbone}' comes with the ViT "
-            "backbone (ROADMAP.md queue 1 item 11)")
-    if backbone not in STAGE_SIZES:
-        raise NotImplementedError(
-            f"pretrained conversion not implemented for '{backbone}'")
-    return STAGE_SIZES[backbone]
+            f"pretrained conversion not implemented for '{backbone}'; "
+            f"known: {sorted(_ARCH)}")
+    a = _ARCH[backbone]
+    sd = _load_state_dict(path)
+    if a["kind"] == "resnet":
+        return resnet_params_from_torch(sd, a["stage_sizes"], num_classes,
+                                        zero_head)
+    return vit_params_from_torch(sd, a["depth"], a["dim"], num_classes,
+                                 zero_head)
 
 
 def load_pretrained_params(path: str, backbone: str, num_classes: int,
                            zero_head: bool = True):
     """Parameter tree with the pretrained body and a zeroed (or, where the
     file's head does not fit the task, zero) head: the prior-mean copy."""
-    stages = _stages(backbone)
-    params, _stats = resnet_params_from_torch(
-        _load_state_dict(path), stages, num_classes, zero_head)
-    return params
+    return _convert(path, backbone, num_classes, zero_head)[0]
 
 
 def load_pretrained_batch_stats(path: str, backbone: str):
-    """The `batch_stats` collection from the file's running statistics."""
-    stages = _stages(backbone)
-    _params, stats = resnet_params_from_torch(
-        _load_state_dict(path), stages, 1, zero_head=True)
-    return stats
+    """The `batch_stats` collection from the file's running statistics ({}
+    for a ViT, which has none: its file is not read)."""
+    if _ARCH.get(backbone, {}).get("kind") == "vit":
+        return {}
+    return _convert(path, backbone, 1, zero_head=True)[1]
 
 
 def pretrained_workhorse_theta(path: str, backbone: str, target, theta_init,

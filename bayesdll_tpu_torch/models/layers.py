@@ -10,7 +10,8 @@ Layouts follow the JAX package's flat vector: Dense kernels [in, out],
 Conv kernels HWIO.  Activations are NCHW tensors laid out channels_last, so
 an NHWC input becomes one by a `permute` and no copy.  A module built with
 a half-precision `dtype` casts its input and weights to it, as flax's
-`dtype=` does; BatchNorm takes its statistics in fp32 whatever the dtype.
+`dtype=` does (a no-op where core/prior.py has cast θ already);
+BatchNorm and LayerNorm take their statistics in fp32 whatever the dtype.
 """
 
 from __future__ import annotations
@@ -39,23 +40,69 @@ def variance_scaling(shape, scale: float, generator: torch.Generator):
                                  generator=generator)
 
 
-def _shape_only(*shape) -> nn.Parameter:
+def stacked_variance_scaling(shape, scale: float,
+                             generator: torch.Generator):
+    """`variance_scaling` of a leaf with a leading layer axis, as flax's
+    `nn.scan` initialises it: each layer's slice drawn with its own shape,
+    so fan_in leaves the layer axis out (`in` for a [depth, in, out]
+    kernel, not depth * in)."""
+    return torch.stack([variance_scaling(shape[1:], scale, generator)
+                        for _ in range(shape[0])])
+
+
+def shape_only(*shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, device="meta"))
 
 
+def dense(x, kernel, bias, dt: torch.dtype):
+    """flax nn.Dense: `x @ kernel + bias` in dt."""
+    return x.to(dt) @ kernel.to(dt) + bias.to(dt)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-6):
+    """flax nn.LayerNorm over the last axis with x's dtype as `dtype`: the
+    statistics and the affine map in fp32 (flax promotes a half-precision
+    input to fp32 for both), the output rounded to x's dtype.  The library
+    kernel computes in fp32 for a half-precision x and leaves of its dtype;
+    fp32 leaves under a half-precision x (per-leaf casts) go through fp32."""
+    if scale.dtype == x.dtype:
+        return F.layer_norm(x, (x.shape[-1],), scale, bias, eps)
+    return F.layer_norm(x.float(), (x.shape[-1],), scale.float(),
+                        bias.float(), eps).to(x.dtype)
+
+
 class Dense(nn.Module):
-    """flax nn.Dense: `x @ kernel + bias` in `dtype`."""
+    """flax nn.Dense: `x @ kernel + bias` in `dtype`.  With `depth`, the
+    leaves carry a leading layer axis ([depth, in, out] and [depth, out]),
+    the layout of a flax module under `nn.scan`; the owner applies one
+    layer's slice with `dense`."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, depth=None):
         super().__init__()
         self.dtype = dtype
-        self.kernel = _shape_only(in_features, out_features)
-        self.bias = _shape_only(out_features)
+        self.depth = depth
+        lead = () if depth is None else (depth,)
+        self.kernel = shape_only(*lead, in_features, out_features)
+        self.bias = shape_only(*lead, out_features)
 
     def forward(self, x):
-        dt = self.dtype
-        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+        return dense(x, self.kernel, self.bias, self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm(epsilon=1e-6): leaves `scale` and `bias` [features],
+    or [depth, features] with `depth` (see Dense)."""
+
+    def __init__(self, features: int, eps: float = 1e-6, depth=None):
+        super().__init__()
+        self.eps = eps
+        lead = () if depth is None else (depth,)
+        self.scale = shape_only(*lead, features)
+        self.bias = shape_only(*lead, features)
+
+    def forward(self, x):
+        return layer_norm(x, self.scale, self.bias, self.eps)
 
 
 class Conv(nn.Module):
@@ -69,9 +116,9 @@ class Conv(nn.Module):
         self.dtype = dtype
         self.stride = stride
         self.padding = padding
-        self.kernel = _shape_only(k, k, in_ch, out_ch)
+        self.kernel = shape_only(k, k, in_ch, out_ch)
         if use_bias:
-            self.bias = _shape_only(out_ch)
+            self.bias = shape_only(out_ch)
         else:
             self.register_parameter("bias", None)
 
@@ -100,8 +147,8 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
-        self.scale = _shape_only(features)
-        self.bias = _shape_only(features)
+        self.scale = shape_only(features)
+        self.bias = shape_only(features)
 
     def forward(self, x, stats, train: bool):
         if not train:
@@ -129,22 +176,23 @@ def _put(tree: dict, path: str, leaf):
 
 def init_params(module: nn.Module, generator: torch.Generator,
                 readout_name: str = "head") -> dict:
-    """Fresh weights of every Dense, Conv and BatchNorm in `module`, as a
-    nested dict of CPU fp32 tensors keyed by module path, initialised as
-    flax does: kernels lecun_normal, the readout's kernel he_normal, biases
-    and BatchNorm shifts 0, BatchNorm scales 1.  Draws follow the modules'
-    registration order."""
+    """Fresh weights of every Dense, Conv, BatchNorm and LayerNorm in
+    `module`, as a nested dict of CPU fp32 tensors keyed by module path,
+    initialised as flax does: kernels lecun_normal (layer by layer for a
+    stacked Dense), the readout's kernel he_normal, biases and norm shifts
+    0, norm scales 1.  Draws follow the modules' registration order."""
     params: dict = {}
     for path, m in module.named_modules():
         if isinstance(m, (Dense, Conv)):
             scale = 2.0 if path == readout_name else 1.0
-            leaf = {"kernel": variance_scaling(tuple(m.kernel.shape), scale,
-                                               generator)}
+            draw = (variance_scaling if getattr(m, "depth", None) is None
+                    else stacked_variance_scaling)
+            leaf = {"kernel": draw(tuple(m.kernel.shape), scale, generator)}
             if m.bias is not None:
                 leaf["bias"] = torch.zeros(tuple(m.bias.shape))
-        elif isinstance(m, BatchNorm):
-            n = m.scale.shape[0]
-            leaf = {"scale": torch.ones(n), "bias": torch.zeros(n)}
+        elif isinstance(m, (BatchNorm, LayerNorm)):
+            shape = tuple(m.scale.shape)
+            leaf = {"scale": torch.ones(shape), "bias": torch.zeros(shape)}
         else:
             continue
         _put(params, path, leaf)

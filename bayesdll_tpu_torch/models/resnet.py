@@ -65,6 +65,10 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
+    # the flat vector stays fp32 and each layer casts its own leaves, as the
+    # JAX package's ResNet asks (its `prefer_half_flat = False`)
+    prefer_half_flat = False
+
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
                  dtype: str = "float32"):
         super().__init__()

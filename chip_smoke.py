@@ -10,32 +10,47 @@ Phases, one line each:
   2. every kernel (csghmc_update, sgld_update, sghmc_update) against its
      plain PyTorch version at the main paths' shapes (full-width
      mlp_mnist: D = 2,797,568; csghmc_update also at ResNet-101's
-     D = 42,576,896), with its noise checked against the closed form;
+     D = 42,576,896 and ViT-L/32's D = 305,549,312), with its noise checked
+     against the closed form;
   3. the paths: cSGHMC, SGLD, SGHMC and cSGLD training of the full-width
      MNIST MLP (784 -> 3x1000 -> 10) on synthetic data, batch 128, 2
-     epochs, and cSGHMC training of the full-width ResNet-101 (37 classes,
-     bf16 forward, batch 256, 224x224x3 synthetic images), through the
-     entry points a user calls, every kernel's launches counted from 0 just
+     epochs; cSGHMC training of the full-width ResNet-101 (37 classes,
+     bf16 forward, batch 256, 224x224x3 synthetic images); and cSGHMC
+     training of the full-width ViT-L/32 (37 classes, bf16 forward through
+     the whole-vector cast, batch 128, 224x224x3 synthetic images,
+     checkpoints written to a temporary directory), all through the entry
+     points a user calls, every kernel's launches counted from 0 just
      before each run and read just after; then small runs on the card held
      against the same runs on the CPU (MLP width 32; a ResNet with one
-     bottleneck per stage);
-  4. times with CUDA events: each kernel, its plain version, its bound,
-     and the cSGHMC and SGHMC training steps of the MLP and the cSGHMC
-     step of ResNet-101 (ms/step, gradient-evals/s, TFLOP/s, the share of
-     the bf16 peak);
-  5. those training steps' device time by kernel (torch.profiler).
-The line before the last is a JSON record of the kernels; the last line is
+     bottleneck per stage; vit_tiny, and its remat gradient);
+  4. times with CUDA events: each kernel, its plain version, its bound, at
+     each main path's D (all three at ViT-L/32's), and the training steps:
+     the MLP's cSGHMC (fp32 and bf16) and SGHMC steps, ResNet-101's and
+     ViT-L/32's cSGHMC steps (without remat and with remat_policy="names")
+     and ViT-B/16's (ms/step, gradient-evals/s, TFLOP/s, the share of the
+     bf16 peak, peak device memory);
+  5. those training steps' device time by kernel and by family
+     (torch.profiler); for ViT-L/32 also the shares of the whole-vector
+     cast and its backward, the per-step lr vector and the Welford update.
+The MLP and ResNet runners are freed before the ViT-L/32 phases.  The line
+before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.  Any failure raises, and the script exits
 non-zero with no result line; with no CUDA card it stops at once.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -92,6 +107,32 @@ RESNET_TRAIN_ERR = 0.5  # the last epoch's training error, against 0.973
 RESNET_PARAMS = 42_575_973
 RESNET_STEPS_TIMED = 10
 RESNET_PROFILED_STEPS = 3
+
+# the JAX package's ViT bench (tools/big_model_bench.py as tools/hw_sweep.sh
+# runs it): cSGHMC on vit_l_32, 37 classes (Pets), batch 128, bf16 forward
+# on an fp32 theta, the bench's hparams, 2 cycles; synthetic data, 16 epochs
+# of 3 steps, evaluated every 5th epoch (the last included).  lr 1e-3 in
+# place of the bench's 1e-2, at which the run does not fit (PERF.md section
+# 4 gives the sweep).  Unlike the ResNet, the ViT tells the synthetic
+# classes apart (a position-wise linear readout of the patches suffices),
+# so the run is held to its test error as well as its training error.
+VIT = dict(backbone="vit_l_32", num_classes=37, batch_size=128,
+           compute_dtype="bfloat16", epochs=16, num_cycles=2,
+           test_eval_freq=5)
+VIT_HP = dict(HP)
+VIT_LR = 1e-3
+VIT_ERR = 0.5  # last epoch's training error and the test error, vs 0.973
+VIT_PARAMS = 305_548_325
+VIT_DIM = 305_549_312
+# forward FLOPs of one 224x224 example (2 x parameters x tokens), as
+# bayesdll_tpu/utils/profiling.py counts them
+VIT_FWD_FLOPS = {"vit_l_32": 30.5e9, "vit_b_16": 33.8e9}
+# timed steps, profiled again from the same step (section 5's busy share
+# needs the same collect steps in both)
+VIT_STEPS = 6
+# checkpoints of the ViT-L/32 run go to a temporary directory here (build/
+# is in .gitignore); each holds several 1.22 GB vectors
+SCRATCH = Path(__file__).resolve().parent / "build"
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -388,7 +429,7 @@ def make_runner(cfg, width=None, depth=None):
     *loaders, nd = loaders
     kw = {} if width is None else dict(width=width, depth=depth)
     model, _, meta = create_backbone(cfg.backbone, num_classes=cfg.num_classes,
-                                     dtype=cfg.compute_dtype, **kw)
+                                     **cfg.backbone_kw(), **kw)
     target, theta, ns = make_flat_target(
         model, nd_size=nd, num_classes=cfg.num_classes,
         rng=torch.Generator().manual_seed(cfg.seed),
@@ -683,6 +724,8 @@ def kernel_times(smi, name, kern, plain, nbytes, nops, flush, on_off):
                 bound_by=bound_by)
 
 
+# the line of each TPU kernel's wrapper in the JAX package
+REPLACES = {"csghmc_update": 80, "sgld_update": 122, "sghmc_update": 164}
 # bytes each launch must move per element: every operand read once, every
 # output written once (fp32)
 BYTES_PER_ELEM = {"csghmc_update": 24,  # read g, theta, v, lr; write theta, v
@@ -694,42 +737,40 @@ BYTES_PER_ELEM = {"csghmc_update": 24,  # read g, theta, v, lr; write theta, v
 OPS_PER_ELEM = {"csghmc_update": 45, "sgld_update": 45, "sghmc_update": 50}
 
 
-def phase_kernel_times(smi, mlp_target, resnet_target):
-    """Each kernel cold against its bound and its plain version: csghmc_update
-    at both main paths' D (the ResNet-101 numbers go into the kernels
-    line), sgld_update and sghmc_update at the MLP's."""
+def kernel_times_at(smi, target, names=tuple(REPLACES)):
+    """Each kernel in `names` cold against its bound and its plain version
+    at `target`'s D, the operands freed before the next."""
     from bayesdll_tpu_torch.ops import fused, kernels
     flush = torch.zeros(64 * 2**20, device="cuda")  # 256 MB, 5x the L2
     gen = torch.Generator(device="cuda").manual_seed(0)
     step = [0]
     out = {}
     kw = dict(prior_sig=1.0, alpha=0.05)
+    d = target.dim
+    n_eff = float(target.nd_size)
 
-    for target in (mlp_target, resnet_target):
-        d = target.dim
-        n_eff = float(target.nd_size)
+    if "csghmc_update" in names:
         g, theta, v, lr = csghmc_inputs(target, lr_body=1e-4, lr_head=2e-4)
         pref = kernels.noise_prefactor(1.0, kw["alpha"], n_eff)
 
-        def csghmc(gate, g=g, theta=theta, v=v, lr=lr, pref=pref):
+        def csghmc(gate):
             step[0] += 1
             kernels.csghmc_update(g, theta, v, lr, noise_pref=pref, gate=gate,
                                   seed=0, step=step[0], **kw)
 
         out["csghmc_update"] = kernel_times(
             smi, "csghmc_update", csghmc,
-            lambda g=g, theta=theta, v=v, lr=lr, n_eff=n_eff: fused.csghmc_update(
+            lambda: fused.csghmc_update(
                 g, theta, v, n_eff=n_eff, nd=1.0, lr=lr, should_sample=True,
                 generator=gen, **kw),
             BYTES_PER_ELEM["csghmc_update"] * d,
             OPS_PER_ELEM["csghmc_update"] * d, flush, "noise gate off")
-        out["csghmc_update"]["dim"] = d
         del g, theta, v, lr
+        free_device()
 
-    d = mlp_target.dim
-    n_eff = float(mlp_target.nd_size)
-    vecs = sg_inputs(mlp_target, lr_body=1e-4, lr_head=2e-4)
-    for name in SG_ALPHA:
+    sg_names = [n for n in names if n in SG_ALPHA]
+    vecs = sg_inputs(target, lr_body=1e-4, lr_head=2e-4) if sg_names else ()
+    for name in sg_names:
         args = sg_operands(name, *vecs)
 
         def sg(noise, name=name, args=args):
@@ -744,11 +785,21 @@ def phase_kernel_times(smi, mlp_target, resnet_target):
                                                   n_eff=n_eff, generator=gen),
             BYTES_PER_ELEM[name] * d, OPS_PER_ELEM[name] * d, flush,
             "nd = 0, no draw")
-        out[name]["dim"] = d
+    for t in out.values():
+        t["dim"] = d
+    del vecs, flush
+    free_device()
     return out
 
 
-def phase_step_time(smi, method, runner, loaders):
+def free_device():
+    """Hand the caching allocator's free blocks back, so the next phase's
+    peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_step_time(smi, method, runner, loaders, label="mlp_mnist"):
     """The training step at batch 128 through run_steps, on batches already
     on the card; then its profile."""
     train = loaders[0]
@@ -770,62 +821,181 @@ def phase_step_time(smi, method, runner, loaders):
     torch.cuda.synchronize()
     dt = time.perf_counter() - tic
     check(bool(torch.isfinite(loss_k).all()),
-          f"{method}: finite losses in the timed steps")
+          f"{method} {label}: finite losses in the timed steps")
     ms_step = dt / STEPS_TIMED * 1e3
     gevals = STEPS_TIMED * xs.shape[1] / dt
-    print(f"phase 4: [{smi}] {method} training step mlp_mnist batch "
+    print(f"phase 4: [{smi}] {method} training step {label} batch "
           f"{xs.shape[1]}: {ms_step:.3f} ms/step over {STEPS_TIMED} run_steps "
           f"steps = {gevals:.0f} gradient-evals/s", flush=True)
-    phase_profile(smi, f"{method} mlp_mnist", runner, xs[:PROFILED_STEPS],
+    phase_profile(smi, f"{method} {label}", runner, xs[:PROFILED_STEPS],
                   ys[:PROFILED_STEPS], ms_step, f"{method}_update")
 
 
-def phase_resnet_step_time(smi, runner, loaders):
-    """The ResNet-101 cSGHMC step through run_steps on the run's two train
-    batches, copied to the card once before the timed window (the
-    per-batch pinned copy of a host batch, 154 MB, stays out of it); then
-    its profile."""
+def phase_mlp_bf16_step_time(smi):
+    """The MLP cSGHMC step with the bf16 forward through the whole-vector
+    cast, the JAX bench headline's dtype, beside the fp32 step."""
+    from bayesdll_tpu_torch.config import Config
+    cfg = Config(method="csghmc", hparams=dict(HP), dataset="synthetic",
+                 backbone="mlp_mnist", epochs=2, batch_size=128, lr=1e-3,
+                 num_cycles=2, seed=0, device="cuda", compute_dtype="bfloat16")
+    runner, loaders = make_runner(cfg)
+    check(runner.target.fwd_cast == "bfloat16", "mlp bf16: whole-vector cast")
+    runner._ensure_sched(len(loaders[0]))
+    phase_step_time(smi, "csghmc", runner, loaders, label="mlp_mnist bf16")
+
+
+def big_step_time(smi, label, runner, xs, ys, steps, profiled):
+    """A big backbone's cSGHMC step through run_steps on batches already on
+    the card (the per-batch pinned copy of a host batch stays out of the
+    window): ms/step, gradient-evals/s, TFLOP/s, the share of the bf16
+    peak, and the peak device memory of the steps; then the profile of the
+    first `profiled` steps of the window, run again from the same step (so
+    with the same collect steps, which cost a Welford update each)."""
+    name = runner.cfg.backbone
     bs = runner.cfg.batch_size
-    dev = [(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
-           for x, y, _ in loaders[0]]
-    xs = [dev[i % len(dev)][0] for i in range(RESNET_STEPS_TIMED)]
-    ys = [dev[i % len(dev)][1] for i in range(RESNET_STEPS_TIMED)]
+    xs = [xs[i % len(xs)] for i in range(steps)]
+    ys = [ys[i % len(ys)] for i in range(steps)]
+    torch.cuda.reset_peak_memory_stats()
+    sec, bi0 = host_s_per_step(runner, xs, ys, label)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd = RESNET101_FWD_FLOPS if name == "resnet101" else VIT_FWD_FLOPS[name]
+    tflops = 3 * fwd * bs / sec / 1e12
+    print(f"phase 4: [{smi}] csghmc training step {label} bf16 batch {bs}: "
+          f"{sec * 1e3:.2f} ms/step over {steps} run_steps steps on "
+          f"{len(set(map(id, xs)))} distinct batches = {bs / sec:.1f} "
+          f"gradient-evals/s; {tflops:.1f} TFLOP/s (3 x {fwd / 1e9:.1f} GFLOP "
+          f"x {bs} per step); {name}_mfu_bf16={tflops * 1e12 / BF16_PEAK:.2%} "
+          f"of the H100 SXM bf16 dense peak (989 TFLOP/s); peak device memory "
+          f"{peak_gb:.2f} GB (max_memory_allocated)", flush=True)
+    phase_profile(smi, f"csghmc {label}", runner, xs[:profiled],
+                  ys[:profiled], sec * 1e3, "csghmc_update",
+                  pieces=name.startswith("vit"), bi0=bi0)
+    return dict(ms=sec * 1e3, gevals=bs / sec, tflops=tflops, peak_gb=peak_gb)
+
+
+def host_s_per_step(runner, xs, ys, label, warmup=2):
+    """(seconds per run_steps step on the host clock, the window's first
+    step), after `warmup` steps, the window closed by a synchronize."""
     ep = runner.cfg.epochs - 1
-    runner.run_steps(ep, xs[:2], ys[:2], runner.bi)  # warm-up
+    runner.run_steps(ep, xs[:warmup], ys[:warmup], runner.bi)
     torch.cuda.synchronize()
+    bi0 = runner.bi
     tic = time.perf_counter()
-    loss_k, _ = runner.run_steps(ep, xs, ys, runner.bi)
+    loss_k, _ = runner.run_steps(ep, xs, ys, bi0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - tic
     check(bool(torch.isfinite(loss_k).all()),
-          "resnet101: finite losses in the timed steps")
-    sec = dt / RESNET_STEPS_TIMED
-    flops = 3 * RESNET101_FWD_FLOPS * bs
-    tflops = flops / sec / 1e12
-    print(f"phase 4: [{smi}] csghmc training step resnet101 bf16 batch {bs}: "
-          f"{sec * 1e3:.2f} ms/step over {RESNET_STEPS_TIMED} run_steps steps "
-          f"on {len(dev)} distinct batches = {bs / sec:.1f} gradient-evals/s; "
-          f"{tflops:.1f} TFLOP/s (3 x 15.7 GFLOP x {bs} per step); "
-          f"resnet101_mfu_bf16={tflops * 1e12 / BF16_PEAK:.2%} of the H100 "
-          f"SXM bf16 dense peak (989 TFLOP/s)", flush=True)
-    phase_profile(smi, "csghmc resnet101", runner,
-                  xs[:RESNET_PROFILED_STEPS], ys[:RESNET_PROFILED_STEPS],
-                  sec * 1e3, "csghmc_update")
+          f"{label}: finite losses in the timed steps")
+    return dt / len(xs), bi0
 
 
-def phase_profile(smi, what, runner, xs, ys, ms_step, sampler):
+def device_batches(loader):
+    """The loader's batches, copied to the card once."""
+    return ([torch.from_numpy(x).cuda() for x, _, _ in loader],
+            [torch.from_numpy(y).cuda() for _, y, _ in loader])
+
+
+def phase_resnet_step_time(smi, runner, loaders):
+    """The ResNet-101 cSGHMC step on the run's two train batches; then its
+    profile."""
+    big_step_time(smi, "resnet101", runner, *device_batches(loaders[0]),
+                  RESNET_STEPS_TIMED, RESNET_PROFILED_STEPS)
+
+
+@contextlib.contextmanager
+def labelled_pieces(runner):
+    """Marks, for the profiler, the pieces of a step that the ViT profile
+    reports on their own: the cast of theta at the unravel (its backward is
+    autograd's ToCopyBackward0 nodes, the unravel's SplitWithSizesBackward0),
+    the per-step lr vector and the Welford update.  The step computes what it
+    computes unmarked."""
+    from torch.profiler import record_function
+    target = runner.target
+
+    def leaves(theta):
+        with record_function(PIECE + "fwd_cast"):
+            return target.leaves(theta)
+
+    marked = dataclasses.replace(target)
+    marked.leaves = leaves
+    lr_vec = runner.cyclical_lr_vec
+
+    def cyclical_lr_vec(lr_t):
+        with record_function(PIECE + "cyclical_lr_vec"):
+            return lr_vec(lr_t)
+
+    moments = runner.state.moments
+    update = moments.update
+
+    def welford(theta):
+        with record_function(PIECE + "welford_update"):
+            return update(theta)
+
+    runner.target, runner.cyclical_lr_vec = marked, cyclical_lr_vec
+    moments.update = welford
+    try:
+        yield
+    finally:
+        runner.target = target
+        del runner.cyclical_lr_vec, moments.update
+
+
+PIECE = "piece: "
+# autograd nodes whose device time the ViT profile reports
+PIECE_NODES = ("ToCopyBackward0", "SplitWithSizesBackward0", "UnbindBackward0")
+
+
+def piece_name(key: str):
+    """The piece a profiler event stands for, or None."""
+    if key.startswith(PIECE):
+        return key[len(PIECE):]
+    return next((n for n in PIECE_NODES if key.endswith(n)), None)
+
+
+def collect_steps(runner, bi0: int, n: int) -> int:
+    """How many of the steps bi0 .. bi0 + n - 1 collect a sample."""
+    bi = runner.bi
+    flags = []
+    for k in range(n):
+        runner.bi = bi0 + k
+        flags.append(runner.step_scalars(0)["collect"])
+    runner.bi = bi
+    return sum(flags)
+
+
+def _device_total(e) -> float:
+    us = getattr(e, "device_time_total", None)
+    return e.cuda_time_total if us is None else us
+
+
+def phase_profile(smi, what, runner, xs, ys, ms_step, sampler, pieces=False,
+                  bi0=None):
     """Where a training step's device time goes: torch.profiler over a few
     run_steps steps, device time summed by kernel name.  The busy share
     divides the device time per step by the unprofiled ms/step; the
-    sampler's share is that of the kernels named after `sampler`."""
+    sampler's share is that of the kernels named after `sampler`.  With
+    `pieces`, also the device time under each labelled piece
+    (`labelled_pieces`) and autograd node of PIECE_NODES.  The steps run
+    from step bi0 (default: the runner's next)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        runner.run_steps(runner.cfg.epochs - 1, xs, ys, runner.bi)
+    bi0 = runner.bi if bi0 is None else bi0
+    collects = collect_steps(runner, bi0, len(xs)) if pieces else 0
+    with contextlib.ExitStack() as stack:
+        if pieces:
+            stack.enter_context(labelled_pieces(runner))
+        prof = stack.enter_context(profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        runner.run_steps(runner.cfg.epochs - 1, xs, ys, bi0)
         torch.cuda.synchronize()
-    per_kernel = {}
+    per_kernel, piece_us = {}, {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        on_card = e.device_type == torch.autograd.DeviceType.CUDA
+        name = piece_name(e.key)
+        if name and not on_card:
+            # a node and its evaluate_function wrapper hold the same
+            # kernels: keep the larger, do not add
+            piece_us[name] = max(piece_us.get(name, 0.0), _device_total(e))
+        if not on_card or e.key.startswith(PIECE):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -847,24 +1017,244 @@ def phase_profile(smi, what, runner, xs, ys, ms_step, sampler):
         families[fam] = families.get(fam, 0.0) + us
     fam_shares = ", ".join(f"{f} {us / total:.1%}" for f, us in sorted(
         families.items(), key=lambda kv: -kv[1]))
+    extra = ""
+    if pieces:
+        per = {k: v / max(collects, 1) if k == "welford_update" else
+               v / len(xs) for k, v in piece_us.items()}
+        extra = "; pieces: " + (", ".join(
+            f"{k} {us:.1f} us/{'collect ' if k == 'welford_update' else ''}"
+            f"step ({us / total:.2%})" for k, us in sorted(per.items()))
+            if any(piece_us.values()) else "not measured (no device time "
+            "under the labels)") + f"; {collects} collect steps of {len(xs)}"
     print(f"phase 5: [{smi}] {what} profile over {len(xs)} steps: device time "
           f"{total:.1f} us/step = {total / (ms_step * 1e3):.1%} busy of "
           f"{ms_step:.3f} ms/step; {sampler} {samp:.1f} us/step "
           f"({samp / total:.2%} of device time); by family: {fam_shares}; "
-          f"by kernel: {shares}", flush=True)
+          f"by kernel: {shares}{extra}", flush=True)
 
 
 # kernel families of the profile, by substrings of the kernel's name, the
 # first that matches
 KERNEL_FAMILIES = (
     ("sampler", ("_update_kernel",)),
+    ("attention", ("flash", "fmha", "sdpa", "attention", "attn")),
+    ("layer norm", ("layer_norm", "layernorm")),
     ("batch norm", ("batch_norm",)),
     ("conv and gemm", ("conv", "gemm", "xmma", "cutlass", "cudnn", "wgrad",
-                       "dgrad", "fprop")),
+                       "dgrad", "fprop", "sm90_", "nvjet")),
     ("elementwise", ("elementwise",)),
     ("reduce", ("reduce",)),
     ("pooling", ("pool",)),
+    ("copy and cat", ("cat", "copy", "stack")),
 )
+
+
+# ---- ViT-L/32 ---------------------------------------------------------------
+
+def vit_runner():
+    """The ViT-L/32 cSGHMC runner of the main path and its loaders, through
+    prepare, create_backbone, make_flat_target and get_runner_cls."""
+    from bayesdll_tpu_torch.config import Config
+
+    cfg = Config(method="csghmc", hparams=dict(VIT_HP), dataset="synthetic",
+                 lr=VIT_LR, seed=0, device="cuda", **VIT)
+    tic = time.perf_counter()
+    runner, loaders = make_runner(cfg)
+    secs = time.perf_counter() - tic
+    t = runner.target
+    check(t.n_params == VIT_PARAMS and t.dim == VIT_DIM,
+          f"vit_l_32 at 37 classes: {t.n_params} parameters, D={t.dim}")
+    check(t.fwd_cast == "bfloat16", "vit_l_32: the whole-vector bf16 cast")
+    print(f"phase 3: vit_l_32 runner built in {secs:.1f} s (synthetic data, "
+          f"{len(loaders[0])} train batches; init of {t.n_params} parameters "
+          "on the host; copy to the card)", flush=True)
+    return runner, loaders
+
+
+def phase_vit_path(runner, loaders) -> int:
+    """ViT-L/32 cSGHMC through `train`, the counts set to 0 just before and
+    read just after; checkpoints in a temporary directory, deleted after."""
+    cfg = runner.cfg
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    runner.workdir = tempfile.mkdtemp(prefix="vit_l_32_ckpt_", dir=SCRATCH)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        tic = time.perf_counter()
+        res = runner.train(*loaders)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - tic
+        counts = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ckpts = {p.name: p.stat().st_size / 1e9
+                 for p in Path(runner.workdir).glob("*ckpt.pkl")}
+    finally:
+        shutil.rmtree(runner.workdir, ignore_errors=True)
+        runner.workdir = None
+    steps = cfg.epochs * len(loaders[0])
+    losses, errs = res["train_losses"], res["train_errors"]
+    done = sorted(c for c, st in runner.cycle_stats.items() if "likelihoods" in st)
+    chance = 1.0 - 1.0 / cfg.num_classes
+    every = max(1, cfg.epochs // 8)
+    print(f"phase 3: [{CARD}] csghmc vit_l_32 bf16 D={runner.target.dim} "
+          f"({runner.target.n_params} params) batch {cfg.batch_size} "
+          f"lr={cfg.lr} prior_sig={runner.prior_sig}, {steps} steps "
+          f"({len(loaders[0])} per epoch) in {secs:.2f} s incl. eval and "
+          f"checkpoints; launches {counts}; train loss of every {every} "
+          f"epochs {[round(x, 4) for x in losses[::every]]} and error "
+          f"{[round(x, 4) for x in errs[::every]]}, last epoch {losses[-1]:.4f} "
+          f"and {errs[-1]:.4f}; nll={res.get('nll', math.nan):.4f} "
+          f"ece={res.get('ece', math.nan):.4f} mce={res.get('mce', math.nan):.4f} "
+          f"test_err={res.get('test_err', math.nan):.4f} (chance {chance:.4f}) "
+          f"at epoch {res.get('best_epoch')}; collected="
+          f"{[runner.cycle_stats[c]['n'] for c in done]}; checkpoints (GB) "
+          f"{ {k: round(v, 3) for k, v in sorted(ckpts.items())} }, deleted; "
+          f"peak device memory {peak_gb:.2f} GB (max_memory_allocated)",
+          flush=True)
+    check(counts["csghmc_update"] == steps,
+          f"vit_l_32: csghmc_update launches {counts['csghmc_update']} == "
+          f"steps {steps}")
+    check(all(n == 0 for k, n in counts.items() if k != "csghmc_update"),
+          f"vit_l_32: no other kernel launched: {counts}")
+    check(all(math.isfinite(x) for x in losses), "vit_l_32: finite losses")
+    check(losses[-1] < losses[0], f"vit_l_32: train loss falls: {losses}")
+    check(errs[-1] < VIT_ERR,
+          f"vit_l_32: training error {errs[-1]} below {VIT_ERR}")
+    check(res["test_err"] < VIT_ERR,
+          f"vit_l_32: test error {res['test_err']} below {VIT_ERR}")
+    for key in ("nll", "ece", "mce"):
+        check(key in res and math.isfinite(res[key]), f"vit_l_32: result {key}")
+    check(bool(torch.isfinite(runner.state.theta).all()), "vit_l_32: finite theta")
+    check(done == [1, 2], f"vit_l_32: two completed cycles, got {done}")
+    theta_gb = runner.target.dim * 4 / 1e9
+    check(len(ckpts) >= 3 and min(ckpts.values()) >= theta_gb,
+          f"vit_l_32: per-cycle and best checkpoints, each holding theta: "
+          f"{ckpts}")
+    return counts["csghmc_update"]
+
+
+# vit_tiny's widths, 32x32 inputs, batch 8, fp32
+MINI_VIT = dict(arch=dict(patch=8, dim=64, depth=2, heads=4, mlp_dim=128,
+                          image_size=32), classes=5, batch=8, steps=3)
+
+
+def phase_vit_reference():
+    """Three cSGHMC steps of a small ViT on the card against the same steps
+    on the CPU, fp32 with TF32 off, nd = 0: element for element within
+    rtol 1e-4, atol 1e-5, and the gap within 2% of the distance walked, as
+    the mini ResNet.  Then one gradient with remat_policy="names" against
+    the gradient with no remat, on the card."""
+    from bayesdll_tpu_torch.config import Config
+    from bayesdll_tpu_torch.core.prior import make_flat_target
+    from bayesdll_tpu_torch.methods import base, get_runner_cls
+    from bayesdll_tpu_torch.models.vit import ViT
+
+    m = MINI_VIT
+    side = m["arch"]["image_size"]
+    rng = np.random.RandomState(1)
+    xs = rng.randn(m["steps"], m["batch"], side, side, 3).astype(np.float32)
+    ys = rng.randint(0, m["classes"], (m["steps"], m["batch"])).astype(np.int32)
+    x_eval = torch.from_numpy(rng.randn(m["batch"], side, side, 3)
+                              .astype(np.float32))
+
+    def target_on(device, **kw):
+        return make_flat_target(
+            ViT(**m["arch"], num_classes=m["classes"], **kw), nd_size=64,
+            num_classes=m["classes"], rng=torch.Generator().manual_seed(0),
+            device=device)
+
+    out = {}
+    for device in REF_DEVICES:
+        cfg = Config(method="csghmc", hparams=dict(HP, nd="0.0", nst="0"),
+                     dataset="synthetic", backbone="vit_tiny", epochs=1,
+                     batch_size=m["batch"], lr=1e-2, num_cycles=1, seed=0,
+                     device=device)
+        target, theta, ns = target_on(device)
+        runner = get_runner_cls("csghmc")(target, theta, ns, cfg)
+        runner._ensure_sched(m["steps"])
+        start = theta.cpu().double()
+        runner.run_steps(0, xs, ys, 0)
+        logits, _ = target.forward(runner.state.theta, {}, x_eval.to(device))
+        out[device] = {"theta": runner.state.theta.cpu().double(),
+                       "v": runner.state.v.cpu().double(),
+                       "logits": logits.cpu()}
+    ref, card = (out[d] for d in REF_DEVICES)
+    shown = []
+    for key, s0 in (("theta", start), ("v", 0 * start)):
+        p, r = card[key], ref[key]
+        walked, gap = float((r - s0).norm()), float((p - r).norm())
+        err = float((p - r).abs().max())
+        check(walked > 0 and gap <= 2e-2 * walked
+              and torch.allclose(p, r, rtol=1e-4, atol=1e-5),
+              f"mini vit card vs CPU {key}: gap {gap:.3g}, walked {walked:.3g}, "
+              f"max abs err {err:.3g}")
+        shown.append(f"{key} gap/walked {gap / walked:.3g}, max abs err "
+                     f"{err:.3g}")
+    lg, lc = card["logits"], ref["logits"]
+    check(bool(torch.isfinite(lg).all()) and torch.allclose(lg, lc, rtol=1e-4,
+                                                            atol=1e-4),
+          f"mini vit: eval logits card vs CPU {float((lg - lc).abs().max())}")
+
+    grads = []
+    for kw in ({}, dict(remat=True, remat_policy="names")):
+        target, theta, _ = target_on("cuda", **kw)
+        leaf = theta.requires_grad_()
+        logits, _ = target.forward(leaf, {}, torch.from_numpy(xs[0]).cuda(),
+                                   train=True)
+        loss = base.ce_loss(logits, torch.from_numpy(ys[0]).cuda())
+        grads.append(torch.autograd.grad(loss, leaf)[0])
+    gerr = float((grads[1] - grads[0]).abs().max())
+    check(torch.allclose(grads[1], grads[0], rtol=1e-5, atol=1e-7),
+          f"mini vit: remat names gradient vs no remat: max abs err {gerr}")
+    print(f"phase 3b: csghmc vit_tiny ({m['arch']}) batch {m['batch']} fp32, "
+          f"{m['steps']} steps at nd=0, card vs CPU (every element within rtol "
+          f"1e-4 atol 1e-5, gap <= 2% of the walk): {'; '.join(shown)}; eval "
+          f"logits max abs err {float((lg - lc).abs().max()):.3g}; remat "
+          f"'names' gradient vs no remat on the card: max abs err {gerr:.3g} "
+          f"({'bitwise equal' if gerr == 0 else 'within rtol 1e-5'})",
+          flush=True)
+
+
+def phase_vit_steps(smi, runner, xs, ys):
+    """ViT-L/32's step without remat and with remat_policy="names" (the
+    setting the JAX sweep ran), on the run's batches already on the card;
+    each with its profile."""
+    from bayesdll_tpu_torch.models import create_backbone
+
+    out = {"vit_l_32": big_step_time(smi, "vit_l_32", runner, xs, ys,
+                                     VIT_STEPS, VIT_STEPS)}
+    # the same runner through a module built with remat: the module holds
+    # no weights, so only the forward changes and the peaks compare
+    cfg, target = runner.cfg, runner.target
+    model, _, _ = create_backbone("vit_l_32", num_classes=cfg.num_classes,
+                                  **dict(cfg.backbone_kw(), remat=True,
+                                         remat_policy="names"))
+    runner.target = dataclasses.replace(target, module=model)
+    try:
+        out["vit_l_32 remat names"] = big_step_time(
+            smi, "vit_l_32 remat names", runner, xs, ys, VIT_STEPS, VIT_STEPS)
+    finally:
+        runner.target = target
+    return out
+
+
+def phase_vit_b_16(smi, cfg, nd_size, sched, xs, ys):
+    """ViT-B/16 (197 tokens) at batch 128, with the ViT-L/32 run's config
+    and batches, alone on the card."""
+    from bayesdll_tpu_torch.core.prior import make_flat_target
+    from bayesdll_tpu_torch.methods import get_runner_cls
+    from bayesdll_tpu_torch.models import create_backbone
+
+    cfg = dataclasses.replace(cfg, backbone="vit_b_16")
+    model, _, _ = create_backbone("vit_b_16", num_classes=cfg.num_classes,
+                                  **cfg.backbone_kw())
+    target, theta, ns = make_flat_target(
+        model, nd_size=nd_size, num_classes=cfg.num_classes,
+        rng=torch.Generator().manual_seed(0), device="cuda")
+    runner = get_runner_cls("csghmc")(target, theta, ns, cfg)
+    runner.sched = sched
+    return big_step_time(smi, "vit_b_16", runner, xs, ys, VIT_STEPS,
+                         VIT_STEPS)
 
 
 def main() -> int:
@@ -885,36 +1275,58 @@ def main() -> int:
         by_path[f"{method} mlp_mnist"] = {kernel: n}
     by_path["csghmc resnet101"] = {
         "csghmc_update": phase_resnet_path(resnet, resnet_loaders)}
-    # each kernel's launches on its main path: this slice's ResNet-101 path
-    # for csghmc_update, the SGLD and SGHMC paths for the others
-    launches = {"csghmc_update": by_path["csghmc resnet101"]["csghmc_update"],
-                "sgld_update": by_path["sgld mlp_mnist"]["sgld_update"],
-                "sghmc_update": by_path["sghmc mlp_mnist"]["sghmc_update"]}
     phase_reference("csghmc", HP)
     phase_reference("sgld", SG_HP, momentum=0.5)
     phase_reference("sghmc", SG_HP, momentum=0.5)
     phase_resnet_reference("csghmc", HP)
     phase_resnet_reference("sgld", SG_HP)
-    times = phase_kernel_times(smi, mlp_target, resnet.target)
+    times = {"mlp_mnist": kernel_times_at(smi, mlp_target),
+             "resnet101": kernel_times_at(smi, resnet.target,
+                                          ("csghmc_update",))}
     for method in ("csghmc", "sghmc"):
         phase_step_time(smi, method, *runners[method])
+    phase_mlp_bf16_step_time(smi)
     phase_resnet_step_time(smi, resnet, resnet_loaders)
+    del resnet, resnet_loaders, runners, runner, loaders
+    free_device()
+
+    # this slice: ViT-L/32, alone on the card
+    vit, vit_loaders = vit_runner()
+    errs["csghmc_update"] = max(errs["csghmc_update"],
+                                phase_kernels(vit.target, "vit_l_32"))
+    free_device()
+    by_path["csghmc vit_l_32"] = {
+        "csghmc_update": phase_vit_path(vit, vit_loaders)}
+    phase_vit_reference()
+    times["vit_l_32"] = kernel_times_at(smi, vit.target)
+    xs, ys = device_batches(vit_loaders[0])
+    phase_vit_steps(smi, vit, xs, ys)
+    cfg, nd_size, sched = vit.cfg, vit.target.nd_size, vit.sched
+    del vit, vit_loaders
+    free_device()
+    phase_vit_b_16(smi, cfg, nd_size, sched, xs, ys)
+
+    # each kernel's launches and times on its main path: this slice's
+    # ViT-L/32 path for csghmc_update, the SGLD and SGHMC paths for the
+    # others; every D each was timed at under "times_by_path"
+    main_path = {"csghmc_update": ("csghmc vit_l_32", "vit_l_32"),
+                 "sgld_update": ("sgld mlp_mnist", "mlp_mnist"),
+                 "sghmc_update": ("sghmc mlp_mnist", "mlp_mnist")}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"bayesdll_tpu_torch/csrc/{name}.cu",
         "replaces": f"bayesdll_tpu/ops/pallas_kernels.py:{REPLACES[name]}",
-        "launches": launches[name], "max_abs_err": errs[name], **times[name],
+        "launches": by_path[main_path[name][0]][name],
+        "max_abs_err": errs[name], **times[main_path[name][1]][name],
         "library_ms": None,
         "launches_by_path": {p: c[name] for p, c in by_path.items()
-                             if name in c}} for name in REPLACES]}))
+                             if name in c},
+        "times_by_path": {p: t[name] for p, t in times.items() if name in t},
+    } for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-# the line of each TPU kernel's wrapper in the JAX package
-REPLACES = {"csghmc_update": 80, "sgld_update": 122, "sghmc_update": 164}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """The ResNet half of the port's models/convert.py against the JAX
-package's, on a state_dict with torchvision's ResNet key names built here
-and saved with `torch.save`; `--pretrained` through the CLI; and the
+package's (the ViT half is in tests/test_torch_vit.py), on a state_dict
+with torchvision's ResNet key names built here and saved with
+`torch.save`; `--pretrained` through the CLI; and the
 synthetic data at ResNet-101's input shape against the JAX package's.
 
 Every comparison is exact: the conversion only transposes and copies, and
@@ -84,9 +85,10 @@ def mini_file(tmp_path, monkeypatch):
     path = tmp_path / "mini.pth"
     torch.save({k: torch.from_numpy(v) for k, v in
                 _torchvision_state_dict().items()}, path)
-    monkeypatch.setitem(convert.STAGE_SIZES, "resnet_mini", MINI)
-    monkeypatch.setattr(jconvert, "_ARCH", dict(
-        jconvert._ARCH, resnet_mini=dict(kind="resnet", stage_sizes=MINI)))
+    arch = dict(kind="resnet", stage_sizes=MINI)
+    monkeypatch.setitem(convert._ARCH, "resnet_mini", arch)
+    monkeypatch.setattr(jconvert, "_ARCH", dict(jconvert._ARCH,
+                                                resnet_mini=arch))
     return str(path)
 
 
@@ -145,10 +147,16 @@ def test_pretrained_prior_workhorse_and_stats_match_jax(mini_file):
 
 
 def test_unported_and_missing_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.load_pretrained_params(str(tmp_path / "x.pth"), "vit_l_32", 10)
-    with pytest.raises(FileNotFoundError):
-        convert.load_pretrained_params(str(tmp_path / "x.pth"), "resnet101", 10)
+    """A backbone neither package converts raises; a missing file raises
+    before anything is read."""
+    with pytest.raises(NotImplementedError, match="vit_h_14"):
+        convert.load_pretrained_params(str(tmp_path / "x.pth"), "vit_h_14", 10)
+    with pytest.raises(NotImplementedError):
+        jconvert.load_pretrained_params(str(tmp_path / "x.pth"), "vit_h_14",
+                                        10)
+    for name in ("resnet101", "vit_l_32"):
+        with pytest.raises(FileNotFoundError):
+            convert.load_pretrained_params(str(tmp_path / "x.pth"), name, 10)
 
 
 def test_cli_pretrained_mini_resnet_on_cpu(mini_file, tmp_path, monkeypatch):

@@ -112,10 +112,12 @@ def test_artifacts_with_and_without_matplotlib(monkeypatch, tmp_path,
 
 
 def test_unported_names_raise():
+    """A method the port does not have yet, and a backbone that neither
+    package has, raise and point at the roadmap."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_runner_cls("adam_sghmc")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_backbone("vit_l_32")
+        create_backbone("vit_h_14")
 
 
 def test_cli_runs_on_cpu(tmp_path):
