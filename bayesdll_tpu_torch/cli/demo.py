@@ -18,6 +18,18 @@ bayesdll_tpu.cli.demo).
       --compute_dtype bfloat16 --epochs 16 --num_cycles 2 --lr LR \\
       --hparams prior_sig=SIG,Ninflate=1.0,nd=1.0,thin=2,bias=informative,nst=2 \\
       [--remat --remat_policy names]
+  python -m bayesdll_tpu_torch.cli.demo --method adam_csghmc --dataset synthetic \\
+      --epochs 2 --num_cycles 2 --batch_size 64 --lr 1e-3 \\
+      --hparams prior_sig=1.0,nd=0.01,thin=2,nst=2,perform_cold_restarts=1
+  python -m bayesdll_tpu_torch.cli.demo --method la --backbone resnet50 \\
+      --dataset synthetic --batch_size 32 --compute_dtype bfloat16 \\
+      --epochs 1 --lr 2e-2 \\
+      --hparams prior_sig=0.1,Ninflate=1.0,bias=informative,nst=2,fisher_microbatch=8
+
+With perform_cold_restarts=1, Adam-cSGHMC and cSGHMC-FS re-draw θ at each
+cycle boundary from the backbone's own initialisers (`make_reinit_fn`).
+--full_sample keeps every θ a cyclical method collects, in
+`all_samples.pkl`.
 
 --pretrained takes a local torchvision state_dict: its body with a zeroed
 head is the prior mean, and its body with the random head is the starting
@@ -40,7 +52,9 @@ import torch
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="bayesdll-tpu PyTorch demo driver")
-    p.add_argument("--method", type=str, default="csghmc")
+    p.add_argument("--method", type=str, default="csghmc",
+                   help="vanilla|vi|mc_dropout|sgld|sghmc|adam_sghmc|csgld|"
+                        "csghmc|adam_csghmc|csghmc_fs|la")
     p.add_argument("--hparams", type=str, default="",
                    help="comma-separated key=val string")
     p.add_argument("--pretrained", type=str, default=None,
@@ -55,6 +69,8 @@ def parse_args(argv=None):
     p.add_argument("--ece_num_bins", type=int, default=15)
     p.add_argument("--num_cycles", type=int, default=4)
     p.add_argument("--proportion_exploration", type=float, default=0.5)
+    p.add_argument("--full_sample", action="store_true",
+                   help="cyclical methods: archive every collected θ")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--lr", type=float, default=1e-2)
@@ -119,7 +135,25 @@ def build_all(cfg, logger, workdir=None):
     logger.info("backbone %s: %d parameters", cfg.backbone, target.n_params)
     runner = get_runner_cls(cfg.method)(target, theta_init, net_state, cfg,
                                         logger=logger, workdir=workdir)
+    if hasattr(runner, "set_reinit_fn"):
+        runner.set_reinit_fn(make_reinit_fn(model, target, cfg.seed))
     return runner, (train, val, test)
+
+
+def make_reinit_fn(model, target, seed: int):
+    """The cold restart's fresh θ: fn(cycle) draws the backbone's own
+    initialisers from the generator keyed (seed, REINIT, cycle) on the host,
+    zero-padded to target.dim, on the target's device."""
+    from bayesdll_tpu_torch.core import flat as flat_util
+    from bayesdll_tpu_torch.core import rng
+
+    def reinit_fn(cycle: int) -> torch.Tensor:
+        gen = rng.generator("cpu", seed, rng.REINIT, cycle)
+        theta, _ = flat_util.flatten_params(model.init_params(gen))
+        theta = torch.cat([theta, torch.zeros(target.dim - theta.shape[0])])
+        return theta.to(target.device)
+
+    return reinit_fn
 
 
 def main(argv=None):
@@ -132,7 +166,7 @@ def main(argv=None):
         val_heldout=args.val_heldout,
         ece_num_bins=args.ece_num_bins, num_cycles=args.num_cycles,
         proportion_exploration=args.proportion_exploration,
-        epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+        full_sample=args.full_sample, epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
         lr_head=args.lr_head, momentum=args.momentum, seed=args.seed,
         log_dir=args.log_dir, test_eval_freq=args.test_eval_freq, data_root=args.data_root,
         num_classes=args.num_classes,

@@ -39,6 +39,7 @@ class Config:
     ece_num_bins: int = 15
     num_cycles: int = 4
     proportion_exploration: float = 0.5
+    full_sample: bool = False  # cyclical methods: keep every collected θ
     epochs: int = 100
     batch_size: int = 128
     lr: float = 1e-2

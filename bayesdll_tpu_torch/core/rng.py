@@ -18,6 +18,10 @@ _MASK64 = (1 << 64) - 1
 EVAL = 1
 LIKELIHOOD = 2
 TRAIN_CPU = 3
+ADAM = 4          # Adam-SGHMC's and Adam-cSGHMC's momentum noise
+VI = 5            # VI's reparameterisation draw
+MC_DROPOUT = 6    # MC-dropout's keep-mask during training
+REINIT = 7        # the fresh θ of a cold restart (per cycle)
 
 
 def _splitmix64(x: int) -> int:

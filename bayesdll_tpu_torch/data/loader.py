@@ -1,5 +1,6 @@
 """Host-side array loader (copy of bayesdll_tpu.data.loader, without the
-multi-chain and augmentation hooks that later slices bring).
+multi-chain view that a later slice brings; the port loads no dataset that
+augments, so there is no augmentation hook).
 
 Training batches share one shape (`drop_last=True`).  Eval batches are
 padded to the batch size with a `valid` 0/1 mask, which the metric code
@@ -28,6 +29,13 @@ class ArrayLoader:
         if self.drop_last:
             return self.n // self.batch_size
         return (self.n + self.batch_size - 1) // self.batch_size
+
+    def eval_view(self):
+        """An unshuffled view over the same examples that drops no batch
+        (the last one padded, with its `valid` mask): the pass that must see
+        every training example once, LA's Fisher."""
+        return ArrayLoader(self.x, self.y, self.batch_size, shuffle=False,
+                           drop_last=False)
 
     @property
     def num_examples(self):

@@ -8,18 +8,12 @@ from __future__ import annotations
 
 import importlib
 
-_METHODS = {
-    "csghmc": "bayesdll_tpu_torch.methods.csghmc",
-    "csgld": "bayesdll_tpu_torch.methods.csgld",
-    "sghmc": "bayesdll_tpu_torch.methods.sghmc",
-    "sgld": "bayesdll_tpu_torch.methods.sgld",
-}
+_METHODS = {name: f"bayesdll_tpu_torch.methods.{name}" for name in (
+    "vanilla", "vi", "mc_dropout", "sgld", "sghmc", "adam_sghmc", "csgld",
+    "csghmc", "adam_csghmc", "csghmc_fs", "la")}
 
-# where each method of the JAX package stands in ROADMAP.md queue 1
-_PENDING = {
-    "adam_sghmc": 9, "adam_csghmc": 9, "csghmc_fs": 9,
-    "vanilla": 10, "vi": 10, "mc_dropout": 10, "la": 10,
-}
+# methods of the JAX package still to be ported (ROADMAP.md queue 1 item)
+_PENDING: dict = {}
 
 
 def get_runner_cls(method: str):
@@ -27,6 +21,6 @@ def get_runner_cls(method: str):
         where = (f"ROADMAP.md queue 1 item {_PENDING[method]}"
                  if method in _PENDING else "not a method of bayesdll_tpu")
         raise NotImplementedError(
-            f"method '{method}' is not ported yet ({where}); "
+            f"method '{method}' is not ported ({where}); "
             f"ported: {sorted(_METHODS)}")
     return importlib.import_module(_METHODS[method]).Runner

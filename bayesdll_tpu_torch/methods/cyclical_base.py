@@ -11,12 +11,19 @@ bayesdll_tpu.methods.cyclical_base):
   * GMM weights w_c = 1 / mean_i(1/p_i), normalised;
   * the mixture predictive: per component the Monte-Carlo averaged log-prob
     vector (raw logits when nst = 0), mixed as a weighted sum on the host;
-  * per-cycle checkpoints `{cycle}_ckpt.pkl`.
+  * per-cycle checkpoints `{cycle}_ckpt.pkl`;
+  * the cycle-boundary hooks: the moments reset (`_reset_cycle_state`) and
+    `on_cycle_start(cycle + 1)`, where Adam-cSGHMC and cSGHMC-FS reset
+    their sampler state and may cold-restart θ;
+  * with `full_sample`, every collected θ archived on the host
+    (`all_samples`, pickled as `all_samples.pkl` at each completed cycle).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
 from typing import Dict
 
 import numpy as np
@@ -46,11 +53,17 @@ class CyclicalRunnerBase(base.BaseRunner):
         self.ninflate = float(hp.get("Ninflate", 1.0))
         self.nd = float(hp.get("nd", 1.0))
         self.thin = max(1, int(hp.get("thin", 1)))
+        # read by the methods that offer cold restarts (Adam-cSGHMC and
+        # cSGHMC-FS, with their `set_reinit_fn`); the others ignore it
+        self.cold_restarts = str(hp.get("perform_cold_restarts", "0")) \
+            in ("1", "true", "True")
+        self._reinit_fn = None
         super().__init__(target, theta_init, net_state, cfg, **kw)
         self.sched: CyclicalSchedule | None = None
         self.current_cycle = 0
         # cycle -> dict(mean, var, n, theta[, likelihoods]) on the host
         self.cycle_stats: Dict[int, dict] = {}
+        self.all_samples: Dict[str, np.ndarray] = {}  # the full_sample archive
 
     # ---- cyclical plumbing --------------------------------------------------
 
@@ -70,14 +83,16 @@ class CyclicalRunnerBase(base.BaseRunner):
         return super().train(train_loader, val_loader, test_loader,
                              start_epoch=start_epoch)
 
-    def step_scalars(self, ep: int) -> dict:
+    def _should_sample(self, step: int) -> bool:
+        """One flag gates both sample collection and the noise: the
+        exploitation phase AND the within-epoch thinning stride."""
         s = self.sched
-        step = self.bi
-        # one flag gates both sample collection and the noise: the
-        # exploitation phase AND the within-epoch thinning stride
-        should_sample = s.should_sample_py(step) and \
+        return s.should_sample_py(step) and \
             ((step % s.batches_per_epoch) % self.thin == 0)
-        return {"lr": s.lr_py(step), "should_sample": should_sample,
+
+    def step_scalars(self, ep: int) -> dict:
+        should_sample = self._should_sample(self.bi)
+        return {"lr": self.sched.lr_py(self.bi), "should_sample": should_sample,
                 "collect": should_sample}
 
     def cyclical_lr_vec(self, lr_t: float) -> torch.Tensor:
@@ -90,8 +105,15 @@ class CyclicalRunnerBase(base.BaseRunner):
 
     def after_batch(self, ep: int):
         step = self.bi - 1  # the step that just ran
+        if self.cfg.full_sample and self._should_sample(step):
+            bpe = self.sched.batches_per_epoch
+            self.collect_full_sample(self.state.theta, step // bpe, step % bpe)
         if self.sched.last_in_cycle_py(step):
             self._end_of_cycle(self.sched.cycle_number_py(step))
+
+    def collect_full_sample(self, theta, ep: int, batch_idx: int):
+        """The full_sample archive: a host copy of θ under "{ep}_{batch}"."""
+        self.all_samples[f"{ep}_{batch_idx}"] = base.to_host(theta)
 
     def eval_ready(self, ep: int) -> bool:
         # the GMM predictive needs one completed cycle; before that the
@@ -129,9 +151,45 @@ class CyclicalRunnerBase(base.BaseRunner):
             self.logger.info("Cycle %d full batch likelihood: %.6e",
                              cycle, float(np.mean(lik)))
             self.save_ckpt(cycle, fname=f"{cycle}_ckpt.pkl")
-        self.state = dataclasses.replace(
+            if self.cfg.full_sample and self.workdir:
+                with open(os.path.join(self.workdir, "all_samples.pkl"),
+                          "wb") as f:
+                    pickle.dump(self.all_samples, f)
+        self.state = self._reset_cycle_state(self.state)
+        self.on_cycle_start(cycle + 1)
+
+    def _reset_cycle_state(self, state):
+        """The state with fresh, empty moments for the next cycle."""
+        return dataclasses.replace(
             state, moments=type(state.moments).zeros(self.target.dim,
                                                      self.device))
+
+    def on_cycle_start(self, cycle: int):
+        """Entering `cycle` (1-based).  cSGLD and cSGHMC carry their sampler
+        state across cycles; Adam-cSGHMC and cSGHMC-FS override."""
+
+    def _restart_allowed(self, cycle: int) -> bool:
+        """The cold-restart gate, `cycle` the cycle being entered.  The
+        reference guards with `cycle_number >= 1` and the comment 'Don't
+        restart after cycle 0' (`methods/csghmc_fs.py:594`,
+        `methods/adam_csghmc.py:408`), but its `get_cycle_number` is 1-based
+        (`(k-1)//cycle_length + 1`, `methods/cyclical.py:69-74`), so at the
+        first boundary cycle_number is 1 and the guard always holds: the
+        reference restarts at every cycle boundary, after the first and
+        after the final cycle too (the restart sits inside `cycle_number >
+        self.current_cycle`, which the final boundary also passes).  The JAX
+        package reproduces that trace, and so does the port."""
+        return True
+
+    def _cold_restart_theta(self, cycle: int):
+        """A fresh θ for `cycle` from the re-init function, or None when cold
+        restarts are off or no function is set."""
+        if not (self.cold_restarts and self._reinit_fn is not None
+                and self._restart_allowed(cycle)):
+            return None
+        self.logger.info("Cold restart: network re-initialised for cycle %d",
+                         cycle)
+        return self._reinit_fn(cycle).to(self.device, torch.float32)
 
     # ---- full-batch likelihoods --------------------------------------------
 

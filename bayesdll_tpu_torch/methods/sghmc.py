@@ -49,11 +49,11 @@ class Runner(sgld.Runner):
 
     def _crafted_gradient(self, state, g, step):
         """g -> g + v' and v -> v', both in place."""
-        fused.sghmc_update_(g, state.theta, self.target.theta0, state.v,
-                            self.prior_mask, self.lr_vec,
-                            prior_sig=self.prior_sig, n_eff=self.n_eff,
-                            nd=self.nd, alpha=self.momentum_decay,
-                            seed=self.cfg.seed, step=step)
+        return fused.sghmc_update_(
+            g, state.theta, self.target.theta0, state.v, self.prior_mask,
+            self.lr_vec, prior_sig=self.prior_sig, n_eff=self.n_eff,
+            nd=self.nd, alpha=self.momentum_decay, seed=self.cfg.seed,
+            step=step)[0]
 
     def extra_ckpt(self):
         return {**super().extra_ckpt(), "momentum_decay": self.momentum_decay}

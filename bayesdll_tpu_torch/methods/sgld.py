@@ -72,11 +72,11 @@ class Runner(base.BaseRunner):
         return ep >= self.burnin
 
     def _crafted_gradient(self, state, g, step):
-        """g -> g' in place (the sampler's update before SGD)."""
-        fused.sgld_update_(g, state.theta, self.target.theta0, self.prior_mask,
-                           self.lr_vec, prior_sig=self.prior_sig,
-                           n_eff=self.n_eff, nd=self.nd, seed=self.cfg.seed,
-                           step=step)
+        """The gradient SGD takes: here g' written over g in place."""
+        return fused.sgld_update_(
+            g, state.theta, self.target.theta0, self.prior_mask, self.lr_vec,
+            prior_sig=self.prior_sig, n_eff=self.n_eff, nd=self.nd,
+            seed=self.cfg.seed, step=step)
 
     def _step(self, state, ns, x, y, step, scalars):
         # the views into this leaf carry the forward, so the gradient comes
@@ -87,9 +87,9 @@ class Runner(base.BaseRunner):
         g, = torch.autograd.grad(loss, theta_leaf)
         logits = logits.detach()
 
-        # g, then theta and buf, change IN PLACE; theta_leaf shares theta's
-        # storage, which is safe because its graph has been consumed above
-        self._crafted_gradient(state, g, step)
+        # theta and buf change IN PLACE; theta_leaf shares theta's storage,
+        # which is safe because its graph has been consumed above
+        g = self._crafted_gradient(state, g, step)
         sgd_step(state.theta, g, state.buf, self.lr_vec, self.cfg.momentum,
                  state.step)
         if scalars["collect"]:  # a host bool: no device sync

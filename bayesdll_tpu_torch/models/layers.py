@@ -152,8 +152,11 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, stats, train: bool):
         if not train:
-            return F.batch_norm(x, stats["mean"], stats["var"], self.scale,
-                                self.bias, training=False, eps=self.eps), stats
+            # fp32 in and rounded back: the values of the mixed-dtype call,
+            # which torch.func.vmap (LA's per-example Fisher) refuses
+            y = F.batch_norm(x.float(), stats["mean"], stats["var"],
+                             self.scale, self.bias, training=False, eps=self.eps)
+            return y.to(x.dtype), stats
         # saves for backward what the library's batch norm saves: the input
         # and the per-channel mean and 1/std
         y, mean, invstd = torch.native_batch_norm(

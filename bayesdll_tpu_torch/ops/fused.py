@@ -6,7 +6,9 @@ versions, with the JAX package's formulas and contracts; they are the
 oracles the tests and chip_smoke.py hold the kernels against.  The
 versions with a trailing underscore are what the runners call: on CUDA
 tensors they launch the hand-written kernel (ops/kernels.py) and nothing
-else; on CPU tensors they run the plain version.
+else; on CPU tensors they run the plain version.  `adam_sghmc_update` (and
+its momentum, `adam_sghmc_momentum`) has no kernel in either package: it
+is plain PyTorch on every device.
 
 SGLD and SGHMC clamp the per-element lr at LR_FLOOR inside the noise scale
 and the drift, as the Pallas kernels do (bayesdll_tpu/ops/pallas_kernels.py
@@ -17,6 +19,7 @@ gives NaN or inf, and the port stays finite.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from bayesdll_tpu_torch.core import rng
@@ -92,6 +95,53 @@ def csghmc_update(g, theta, v, *, prior_sig: float, n_eff: float, nd: float,
         v_new = v_new + nd * torch.sqrt(2.0 * alpha * lr) / n_eff \
             * _normal(g, noise, generator)
     return theta + v_new, v_new
+
+
+def adam_sghmc_momentum(g, theta, theta0, v_mom, m, v2, t: int, prior_mask,
+                        lr, *, prior_sig: float, n_eff: float, nd: float,
+                        alpha: float, beta1: float, beta2: float,
+                        eps_adam: float, temperature: float = 1.0, noise=None,
+                        generator: torch.Generator | None = None):
+    """Adam-preconditioned SGHMC momentum (reference
+    `methods/adam_sghmc.py:508-553`; with a temperature,
+    `methods/adam_csghmc.py:829-858`):
+
+        grad_U = g / T + mask * (theta - theta0) / prior_sig^2 / N
+        m'  = b1 m + (1-b1) grad_U;  v2' = b2 v2 + (1-b2) grad_U^2
+        m^  = m' / (1 - b1^t);       v^  = v2' / (1 - b2^t)
+        P   = 1 / (sqrt(v^) + eps)
+        v_mom' = (1-alpha) v_mom + lr * m^ * P + nd * sqrt(2 alpha P / N) * z
+
+    in the JAX package's operation order.  `t` is the already-incremented
+    Adam step; b^t is taken in fp32, as the JAX package takes it on the
+    device.  z is `noise` when given, else drawn from `generator`; at
+    nd = 0 nothing is drawn.  Plain PyTorch on any device: the JAX package
+    has no Pallas kernel for this update.  Returns new tensors
+    (v_mom', m', v2')."""
+    grad_u = g / temperature if temperature != 1.0 else g
+    grad_u = grad_u + prior_mask * (theta - theta0) / (prior_sig ** 2) / n_eff
+    m_new = beta1 * m + (1.0 - beta1) * grad_u
+    v2_new = beta2 * v2 + (1.0 - beta2) * grad_u * grad_u
+    tf = np.float32(t)
+    bc1 = float(np.float32(1.0) - np.float32(beta1) ** tf)
+    bc2 = float(np.float32(1.0) - np.float32(beta2) ** tf)
+    precond = 1.0 / (torch.sqrt(v2_new / bc2) + eps_adam)
+    v_new = (1.0 - alpha) * v_mom + lr * (m_new / bc1) * precond
+    if nd != 0.0:
+        v_new = v_new + nd * torch.sqrt(2.0 * alpha * precond / n_eff) \
+            * _normal(g, noise, generator)
+    return v_new, m_new, v2_new
+
+
+def adam_sghmc_update(g, theta, theta0, v_mom, m, v2, t: int, prior_mask, lr,
+                      **kw):
+    """Adam-SGHMC's crafted gradient (counterpart of
+    bayesdll_tpu.ops.fused.adam_sghmc_update): `adam_sghmc_momentum`, then
+    g' = g + v_mom'.  SGD then applies lr a second time, as in SGHMC.
+    Returns new tensors (g', v_mom', m', v2')."""
+    v_new, m_new, v2_new = adam_sghmc_momentum(g, theta, theta0, v_mom, m, v2,
+                                               t, prior_mask, lr, **kw)
+    return g + v_new, v_new, m_new, v2_new
 
 
 def _cpu_generator(t: torch.Tensor, name: str, seed: int, step: int):

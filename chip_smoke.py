@@ -14,28 +14,38 @@ Phases, one line each:
      against the closed form;
   3. the paths: cSGHMC, SGLD, SGHMC and cSGLD training of the full-width
      MNIST MLP (784 -> 3x1000 -> 10) on synthetic data, batch 128, 2
-     epochs; cSGHMC training of the full-width ResNet-101 (37 classes,
-     bf16 forward, batch 256, 224x224x3 synthetic images); and cSGHMC
-     training of the full-width ViT-L/32 (37 classes, bf16 forward through
-     the whole-vector cast, batch 128, 224x224x3 synthetic images,
-     checkpoints written to a temporary directory), all through the entry
-     points a user calls, every kernel's launches counted from 0 just
-     before each run and read just after; then small runs on the card held
-     against the same runs on the CPU (MLP width 32; a ResNet with one
-     bottleneck per stage; vit_tiny, and its remat gradient);
+     epochs; the other seven methods (Adam-SGHMC, Adam-cSGHMC with cold
+     restarts, cSGHMC-FS, vanilla, VI, MC-dropout, Laplace) on the same MLP
+     with the JAX package's smoke-matrix settings (batch 64); cSGHMC
+     training of the full-width ResNet-101 (37 classes, bf16 forward,
+     batch 256, 224x224x3 synthetic images); Laplace on the full-width
+     ResNet-50 (bf16, batch 32, its per-example Fisher over every training
+     image); and cSGHMC training of the full-width ViT-L/32 (37 classes,
+     bf16 forward through the whole-vector cast, batch 128, 224x224x3
+     synthetic images, checkpoints written to a temporary directory), all
+     through the entry points a user calls, every kernel's launches counted
+     from 0 just before each run and read just after; then small runs on
+     the card held against the same runs on the CPU (MLP width 32 for
+     every method but cSGLD and cSGHMC-FS, VI and MC-dropout with the same
+     draws on both; a ResNet with one bottleneck per stage, and its
+     vmapped Fisher against the one-example loop; vit_tiny, and its remat
+     gradient);
   4. times with CUDA events: each kernel, its plain version, its bound, at
      each main path's D (all three at ViT-L/32's), and the training steps:
-     the MLP's cSGHMC (fp32 and bf16) and SGHMC steps, ResNet-101's and
-     ViT-L/32's cSGHMC steps (without remat and with remat_policy="names")
-     and ViT-B/16's (ms/step, gradient-evals/s, TFLOP/s, the share of the
-     bf16 peak, peak device memory);
+     the MLP's cSGHMC (fp32 and bf16) and SGHMC steps and the seven other
+     methods' steps, ResNet-101's and ViT-L/32's cSGHMC steps (without
+     remat and with remat_policy="names"), ViT-L/32's Adam-cSGHMC step and
+     ViT-B/16's cSGHMC step (ms/step, gradient-evals/s, TFLOP/s, the share
+     of the bf16 peak, peak device memory);
   5. those training steps' device time by kernel and by family
      (torch.profiler); for ViT-L/32 also the shares of the whole-vector
-     cast and its backward, the per-step lr vector and the Welford update.
-The MLP and ResNet runners are freed before the ViT-L/32 phases.  The line
-before the last is a JSON record of the kernels; the last line is
-{"ok": true, "device": {...}}.  Any failure raises, and the script exits
-non-zero with no result line; with no CUDA card it stops at once.
+     cast and its backward, the per-step lr vector, the moments update and,
+     for Adam-cSGHMC, its Adam momentum and SGD step.
+The MLP and ResNet runners are freed before the ViT-L/32 phases.  The
+script prints its total time; the line before the last is a JSON record of
+the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
+raises, and the script exits non-zero with no result line; with no CUDA
+card it stops at once.
 """
 
 from __future__ import annotations
@@ -420,7 +430,11 @@ def phase_sg_kernels():
     return errs
 
 
-def make_runner(cfg, width=None, depth=None):
+def make_runner(cfg, width=None, depth=None, workdir=None):
+    """The runner and loaders of `cfg` through prepare, create_backbone,
+    make_flat_target and get_runner_cls, with the cold-restart re-init
+    function wired as the CLI wires it."""
+    from bayesdll_tpu_torch.cli.demo import make_reinit_fn
     from bayesdll_tpu_torch.core.prior import make_flat_target
     from bayesdll_tpu_torch.data import prepare
     from bayesdll_tpu_torch.methods import get_runner_cls
@@ -434,7 +448,12 @@ def make_runner(cfg, width=None, depth=None):
         model, nd_size=nd, num_classes=cfg.num_classes,
         rng=torch.Generator().manual_seed(cfg.seed),
         has_batch_stats=meta["has_batch_stats"], device=cfg.device)
-    return get_runner_cls(cfg.method)(target, theta, ns, cfg), loaders
+    runner = get_runner_cls(cfg.method)(target, theta, ns, cfg,
+                                        workdir=workdir)
+    if hasattr(runner, "set_reinit_fn"):
+        runner.set_reinit_fn(make_reinit_fn(model, target, cfg.seed))
+    return runner, loaders
+
 
 
 def reset_launches():
@@ -511,30 +530,57 @@ def phase_path(method, hp, lr, kernel):
 REF_DEVICES = ("cpu", "cuda")
 
 
-def phase_reference(method, hp, momentum=0.0):
+def state_field(runner, name) -> torch.Tensor:
+    """A field of the runner's state, or else of the runner (LA's
+    post_vars)."""
+    return getattr(runner.state, name) if hasattr(runner.state, name) \
+        else getattr(runner, name)
+
+
+def phase_reference(method, hp, momentum=0.0, lr=2e-2, fields=("theta",),
+                    in_norm=(), hand=None):
     """A small run on the card against the same run on the CPU (nd = 0: no
-    noise, so the two agree up to fp32 rounding)."""
+    noise, so the two agree up to fp32 rounding): each of `fields` element
+    for element within rtol 1e-4, atol 1e-5; those in `in_norm` as the mini
+    ResNet's, within 2% of the distance walked with 99% of the elements
+    that close.  `hand(runner, device)` hands both runs the same draws."""
     from bayesdll_tpu_torch.config import Config
 
     out = {}
     for device in REF_DEVICES:
         cfg = Config(method=method, hparams=dict(hp, nd="0.0", nst="0"),
                      dataset="synthetic", backbone="mlp_mnist", epochs=2,
-                     batch_size=64, lr=2e-2, momentum=momentum, num_cycles=2,
+                     batch_size=64, lr=lr, momentum=momentum, num_cycles=2,
                      seed=0, val_heldout=0.15, device=device)
         cfg.synthetic_n_train = 512
         cfg.synthetic_n_test = 256
         runner, loaders = make_runner(cfg, width=32, depth=2)
+        if hand is not None:
+            hand(runner, device)
+        start = {f: state_field(runner, f).cpu().double() for f in in_norm}
         res = runner.train(*loaders)
-        out[device] = (res, runner.state.theta.cpu())
+        out[device] = (res, {f: state_field(runner, f).cpu().double()
+                             for f in fields + in_norm})
     (rc, tc), (rg, tg) = (out[d] for d in REF_DEVICES)
-    err = float((tg - tc).abs().max())
-    check(torch.allclose(tg, tc, rtol=1e-4, atol=1e-5),
-          f"{method}: card vs CPU theta after training: max abs err {err}")
+    shown = []
+    for f in fields:
+        err = float((tg[f] - tc[f]).abs().max())
+        check(torch.allclose(tg[f], tc[f], rtol=1e-4, atol=1e-5),
+              f"{method}: card vs CPU {f} after training: max abs err {err}")
+        shown.append(f"{f} max abs err {err:.3g}")
+    for f in in_norm:
+        p, r = tg[f], tc[f]
+        walked, gap = float((r - start[f]).norm()), float((p - r).norm())
+        close = float(((p - r).abs() <= 1e-5 + 1e-4 * r.abs()).double().mean())
+        check(walked > 0 and gap <= 2e-2 * walked and close >= 0.99,
+              f"{method}: card vs CPU {f}: gap {gap:.3g}, walked {walked:.3g}, "
+              f"{close:.4%} within rtol 1e-4 atol 1e-5")
+        shown.append(f"{f} gap/walked {gap / walked:.3g}, {close:.4%} of "
+                     "elements within rtol 1e-4 atol 1e-5")
     for key in ("nll", "ece"):
         check(abs(rg[key] - rc[key]) < 1e-3, f"{method}: card vs CPU {key}")
     print(f"phase 3b: {method} width-32 run, momentum {momentum}, card vs CPU: "
-          f"theta max abs err {err:.3g} (rtol 1e-4, atol 1e-5); nll "
+          f"{'; '.join(shown)} (rtol 1e-4, atol 1e-5); nll "
           f"{rg['nll']:.5f} vs {rc['nll']:.5f}; ece {rg['ece']:.5f} vs "
           f"{rc['ece']:.5f}", flush=True)
 
@@ -799,9 +845,11 @@ def free_device():
     torch.cuda.empty_cache()
 
 
-def phase_step_time(smi, method, runner, loaders, label="mlp_mnist"):
-    """The training step at batch 128 through run_steps, on batches already
-    on the card; then its profile."""
+def phase_step_time(smi, method, runner, loaders, label="mlp_mnist",
+                    sampler=None):
+    """The training step at the run's batch size through run_steps, on
+    batches already on the card; then its profile, with the share of the
+    kernels named after `sampler` (default: the method's own)."""
     train = loaders[0]
     xs, ys = [], []
     for x, y, _ in train:
@@ -828,7 +876,7 @@ def phase_step_time(smi, method, runner, loaders, label="mlp_mnist"):
           f"{xs.shape[1]}: {ms_step:.3f} ms/step over {STEPS_TIMED} run_steps "
           f"steps = {gevals:.0f} gradient-evals/s", flush=True)
     phase_profile(smi, f"{method} {label}", runner, xs[:PROFILED_STEPS],
-                  ys[:PROFILED_STEPS], ms_step, f"{method}_update")
+                  ys[:PROFILED_STEPS], ms_step, sampler or f"{method}_update")
 
 
 def phase_mlp_bf16_step_time(smi):
@@ -845,12 +893,12 @@ def phase_mlp_bf16_step_time(smi):
 
 
 def big_step_time(smi, label, runner, xs, ys, steps, profiled):
-    """A big backbone's cSGHMC step through run_steps on batches already on
-    the card (the per-batch pinned copy of a host batch stays out of the
+    """A big backbone's training step through run_steps on batches already
+    on the card (the per-batch pinned copy of a host batch stays out of the
     window): ms/step, gradient-evals/s, TFLOP/s, the share of the bf16
     peak, and the peak device memory of the steps; then the profile of the
     first `profiled` steps of the window, run again from the same step (so
-    with the same collect steps, which cost a Welford update each)."""
+    with the same collect steps, which cost a moments update each)."""
     name = runner.cfg.backbone
     bs = runner.cfg.batch_size
     xs = [xs[i % len(xs)] for i in range(steps)]
@@ -860,14 +908,15 @@ def big_step_time(smi, label, runner, xs, ys, steps, profiled):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fwd = RESNET101_FWD_FLOPS if name == "resnet101" else VIT_FWD_FLOPS[name]
     tflops = 3 * fwd * bs / sec / 1e12
-    print(f"phase 4: [{smi}] csghmc training step {label} bf16 batch {bs}: "
+    print(f"phase 4: [{smi}] {runner.method_name} training step {label} bf16 "
+          f"batch {bs}: "
           f"{sec * 1e3:.2f} ms/step over {steps} run_steps steps on "
           f"{len(set(map(id, xs)))} distinct batches = {bs / sec:.1f} "
           f"gradient-evals/s; {tflops:.1f} TFLOP/s (3 x {fwd / 1e9:.1f} GFLOP "
           f"x {bs} per step); {name}_mfu_bf16={tflops * 1e12 / BF16_PEAK:.2%} "
           f"of the H100 SXM bf16 dense peak (989 TFLOP/s); peak device memory "
           f"{peak_gb:.2f} GB (max_memory_allocated)", flush=True)
-    phase_profile(smi, f"csghmc {label}", runner, xs[:profiled],
+    phase_profile(smi, f"{runner.method_name} {label}", runner, xs[:profiled],
                   ys[:profiled], sec * 1e3, "csghmc_update",
                   pieces=name.startswith("vit"), bi0=bi0)
     return dict(ms=sec * 1e3, gevals=bs / sec, tflops=tflops, peak_gb=peak_gb)
@@ -902,45 +951,51 @@ def phase_resnet_step_time(smi, runner, loaders):
                   RESNET_STEPS_TIMED, RESNET_PROFILED_STEPS)
 
 
+def labelled(name, fn):
+    """fn, its calls marked as the piece `name` for the profiler."""
+    from torch.profiler import record_function
+
+    def marked(*args, **kw):
+        with record_function(PIECE + name):
+            return fn(*args, **kw)
+    return marked
+
+
 @contextlib.contextmanager
 def labelled_pieces(runner):
     """Marks, for the profiler, the pieces of a step that the ViT profile
     reports on their own: the cast of theta at the unravel (its backward is
     autograd's ToCopyBackward0 nodes, the unravel's SplitWithSizesBackward0),
-    the per-step lr vector and the Welford update.  The step computes what it
-    computes unmarked."""
-    from torch.profiler import record_function
+    the per-step lr vector and the moments update (Welford for cSGHMC); for
+    Adam-cSGHMC also its Adam momentum and its SGD step.  The step computes
+    what it computes unmarked."""
+    from bayesdll_tpu_torch.methods import adam_csghmc
+    from bayesdll_tpu_torch.ops import fused
     target = runner.target
-
-    def leaves(theta):
-        with record_function(PIECE + "fwd_cast"):
-            return target.leaves(theta)
-
     marked = dataclasses.replace(target)
-    marked.leaves = leaves
-    lr_vec = runner.cyclical_lr_vec
-
-    def cyclical_lr_vec(lr_t):
-        with record_function(PIECE + "cyclical_lr_vec"):
-            return lr_vec(lr_t)
-
+    marked.leaves = labelled("fwd_cast", target.leaves)
     moments = runner.state.moments
-    update = moments.update
+    adam = runner.method_name == "adam_csghmc"
+    momentum, sgd = fused.adam_sghmc_momentum, adam_csghmc.sgd_step
 
-    def welford(theta):
-        with record_function(PIECE + "welford_update"):
-            return update(theta)
-
-    runner.target, runner.cyclical_lr_vec = marked, cyclical_lr_vec
-    moments.update = welford
+    runner.target = marked
+    runner.cyclical_lr_vec = labelled("cyclical_lr_vec", runner.cyclical_lr_vec)
+    moments.update = labelled("welford_update" if not adam else
+                              "moments_update", moments.update)
+    if adam:
+        fused.adam_sghmc_momentum = labelled("adam_momentum", momentum)
+        adam_csghmc.sgd_step = labelled("sgd_step", sgd)
     try:
         yield
     finally:
         runner.target = target
         del runner.cyclical_lr_vec, moments.update
+        fused.adam_sghmc_momentum, adam_csghmc.sgd_step = momentum, sgd
 
 
 PIECE = "piece: "
+# pieces that run on collect steps only, reported per collect step
+COLLECT_PIECES = ("welford_update", "moments_update")
 # autograd nodes whose device time the ViT profile reports
 PIECE_NODES = ("ToCopyBackward0", "SplitWithSizesBackward0", "UnbindBackward0")
 
@@ -1006,23 +1061,14 @@ def phase_profile(smi, what, runner, xs, ys, ms_step, sampler, pieces=False,
         print(f"phase 5: {what}: profiler recorded no device time: "
               "breakdown not measured", flush=True)
         return
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    shares = "; ".join(f"{name[:60]} {us:.1f} us ({us / total:.1%})"
-                       for name, us in top)
+    fam_shares, shares = breakdown(per_kernel)
     samp = sum(us for name, us in per_kernel.items() if sampler in name)
-    families = {}
-    for name, us in per_kernel.items():
-        fam = next((f for f, keys in KERNEL_FAMILIES if any(
-            k in name.lower() for k in keys)), "other")
-        families[fam] = families.get(fam, 0.0) + us
-    fam_shares = ", ".join(f"{f} {us / total:.1%}" for f, us in sorted(
-        families.items(), key=lambda kv: -kv[1]))
     extra = ""
     if pieces:
-        per = {k: v / max(collects, 1) if k == "welford_update" else
+        per = {k: v / max(collects, 1) if k in COLLECT_PIECES else
                v / len(xs) for k, v in piece_us.items()}
         extra = "; pieces: " + (", ".join(
-            f"{k} {us:.1f} us/{'collect ' if k == 'welford_update' else ''}"
+            f"{k} {us:.1f} us/{'collect ' if k in COLLECT_PIECES else ''}"
             f"step ({us / total:.2%})" for k, us in sorted(per.items()))
             if any(piece_us.values()) else "not measured (no device time "
             "under the labels)") + f"; {collects} collect steps of {len(xs)}"
@@ -1031,6 +1077,66 @@ def phase_profile(smi, what, runner, xs, ys, ms_step, sampler, pieces=False,
           f"{ms_step:.3f} ms/step; {sampler} {samp:.1f} us/step "
           f"({samp / total:.2%} of device time); by family: {fam_shares}; "
           f"by kernel: {shares}{extra}", flush=True)
+
+
+def breakdown(per_kernel: dict):
+    """(by family, top six kernels) of device times keyed by kernel name,
+    as text."""
+    total = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    shares = "; ".join(f"{name[:60]} {us:.1f} us ({us / total:.1%})"
+                       for name, us in top)
+    families = {}
+    for name, us in per_kernel.items():
+        fam = next((f for f, keys in KERNEL_FAMILIES if any(
+            k in name.lower() for k in keys)), "other")
+        families[fam] = families.get(fam, 0.0) + us
+    fam_shares = ", ".join(f"{f} {us / total:.1%}" for f, us in sorted(
+        families.items(), key=lambda kv: -kv[1]))
+    return fam_shares, shares
+
+
+def phase_fisher_profile(label, runner, loader):
+    """Where LA's vmapped Fisher spends its time: the first batch of the
+    training set's eval view through `fisher_accumulate` at the MAP, on the
+    host clock and under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from bayesdll_tpu_torch.methods.la import fisher_accumulate
+
+    x, y, v = next(iter(loader.eval_view()))
+    xd, yd, vd = (runner._to_device(a) for a in (x, y, v))
+    prec = torch.zeros_like(runner.map_theta)
+
+    def run():
+        with torch.no_grad():
+            fisher_accumulate(runner.target, runner.map_theta,
+                              runner.net_state, prec, xd, yd.long(), vd,
+                              runner.fisher_microbatch)
+        torch.cuda.synchronize()
+
+    run()
+    tic = time.perf_counter()
+    run()
+    host_ms = (time.perf_counter() - tic) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    per_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            per_kernel[e.key] = e.self_cuda_time_total if us is None else us
+    total = sum(per_kernel.values())
+    if total <= 0:
+        print(f"phase 5: {label} Fisher: profiler recorded no device time: "
+              "breakdown not measured", flush=True)
+        return
+    fam_shares, shares = breakdown(per_kernel)
+    print(f"phase 5: [{CARD}] {label} Fisher, one batch of {len(y)} examples "
+          f"in microbatches of {runner.fisher_microbatch}: {host_ms:.2f} ms on "
+          f"the host clock, device time {total / 1e3:.2f} ms "
+          f"({total / 1e3 / host_ms:.1%} busy); by family: {fam_shares}; by "
+          f"kernel: {shares}", flush=True)
 
 
 # kernel families of the profile, by substrings of the kernel's name, the
@@ -1257,11 +1363,375 @@ def phase_vit_b_16(smi, cfg, nd_size, sched, xs, ys):
                          VIT_STEPS)
 
 
+# ---- the other seven methods ------------------------------------------------
+
+# the JAX package's hardware smoke matrix (tools/tpu_smoke_all_methods.py):
+# each method on the full-width MLP with its hparams (:24-47) and lr (:49),
+# 2 epochs of batch 64 in 2 cycles.  Two deviations: Adam-cSGHMC restarts
+# cold (perform_cold_restarts=1, with the CLI's re-init function), so that a
+# restart runs on the card; cSGHMC-FS runs 8 epochs, since in 2 epochs of 2
+# cycles its snapshot window (the 3rd- and 2nd-last epochs of each cycle) is
+# empty and no model average would be taken.  method -> (hparams, lr, epochs)
+SMOKE = {
+    "adam_sghmc": ("prior_sig=1.0,Ninflate=1.0,nd=0.01,burnin=0,thin=2,"
+                   "bias=informative,nst=2,momentum_decay=0.05,beta1=0.9,"
+                   "beta2=0.999,epsilon=1e-8", 1e-3, 2),
+    "adam_csghmc": ("prior_sig=1.0,Ninflate=1.0,nd=0.01,thin=2,"
+                    "bias=informative,nst=2,momentum_decay=0.05,beta1=0.9,"
+                    "beta2=0.999,epsilon=1e-8,temperature=1.0,"
+                    "perform_cold_restarts=1", 1e-3, 2),
+    "csghmc_fs": ("prior_sig=0.05,Ninflate=1.0,nd=0.01,thin=2,"
+                  "bias=informative,nst=2,momentum_decay=0.05", 2e-2, 8),
+    "vanilla": ("wd=1e-4,bias=penalty", 2e-2, 2),
+    "vi": ("prior_sig=1.0,kld=1e-5,bias=informative,nst=2", 2e-2, 2),
+    "mc_dropout": ("prior_sig=1.0,p_drop=0.1,kld=1e-5,bias=gaussian,nst=2",
+                   2e-2, 2),
+    "la": ("prior_sig=0.02,Ninflate=1.0,bias=informative,nst=2,"
+           "fisher_microbatch=16", 2e-2, 2),
+}
+# Laplace at the matrix's prior_sig 0.1: stage 1 fits the set, so the
+# per-example gradients at the MAP are ~0 and every variance is the prior's
+# 0.01; a draw with std 0.1 on every weight of a 1000-wide layer then
+# predicts at chance.  The path runs at 0.02, near the hidden layers' init
+# scale (1/sqrt(1000)), and `phase_la_prior_sig` reports the matrix's 0.1.
+LA_MATRIX_HP = ("prior_sig=0.1,Ninflate=1.0,bias=informative,nst=2,"
+                "fisher_microbatch=16")
+SMOKE_BATCH = 64
+# the kernel a path's step launches; the others launch none
+SMOKE_KERNEL = {"csghmc_fs": "csghmc_update"}
+# cSGHMC-FS's snapshot epochs at 8 epochs in 2 cycles (ep % 4 in {1, 2})
+FS_SNAPSHOTS = [1, 2, 5, 6]
+
+
+def watch_restarts(runner) -> list:
+    """Records each cycle boundary of Adam-cSGHMC: whether θ was re-drawn
+    (the re-init function called, θ changed) and the sampler state zeroed."""
+    seen = []
+    start, reinit = runner.on_cycle_start, runner._reinit_fn
+    calls = []
+
+    def reinit_fn(cycle):
+        calls.append(cycle)
+        return reinit(cycle)
+
+    def on_cycle_start(cycle):
+        before = runner.state.theta.clone()
+        n = len(calls)
+        start(cycle)
+        s = runner.state
+        seen.append(dict(cycle=cycle, redrawn=len(calls) == n + 1,
+                         moved=not torch.equal(s.theta, before),
+                         zeroed=s.t == 0 and all(
+                             float(getattr(s, k).abs().max()) == 0.0
+                             for k in ("buf", "v_mom", "m", "v2"))))
+    runner._reinit_fn, runner.on_cycle_start = reinit_fn, on_cycle_start
+    return seen
+
+
+def watch_fisher(runner) -> dict:
+    """Records LA's stage 2: its time, its peak device memory, the examples
+    it saw, and whether it left the running statistics as they were."""
+    seen = {}
+    estimate = runner.estimate_variance
+
+    def estimate_variance(loader):
+        before = tree_clone(runner.net_state.get("batch_stats", {}))
+        seen["moved_in_stage1"] = any(
+            not torch.equal(a, b) for a, b in zip(
+                tree_leaves(before), tree_leaves(seen["stats0"])))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tic = time.perf_counter()
+        out = estimate(loader)
+        torch.cuda.synchronize()
+        seen["secs"] = time.perf_counter() - tic
+        seen["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        seen["examples"] = loader.num_examples
+        seen["stats_same"] = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(before),
+            tree_leaves(runner.net_state.get("batch_stats", {}))))
+        return out
+    seen["stats0"] = tree_clone(runner.net_state.get("batch_stats", {}))
+    runner.estimate_variance = estimate_variance
+    return seen
+
+
+def check_post_vars(runner, what: str) -> str:
+    """LA's posterior variance: finite, positive, at most prior_sig^2 (the
+    Fisher only adds precision) up to rounding."""
+    pv = runner.post_vars
+    sig2 = runner.prior_sig ** 2
+    check(bool(torch.isfinite(pv).all()), f"{what}: post_vars finite")
+    lo, hi = float(pv.min()), float(pv.max())
+    check(0.0 < lo and hi <= sig2 + 1e-8,
+          f"{what}: 0 < post_vars <= prior_sig^2 = {sig2}: [{lo}, {hi}]")
+    return (f"post_vars in [{lo:.4g}, {hi:.4g}] (prior_sig^2 {sig2:.4g}), "
+            f"mean {float(pv.mean()):.4g}")
+
+
+def phase_method_path(method):
+    """One of the seven through `train` on the full-width MLP with the smoke
+    matrix's settings, every kernel's count set to 0 just before and read
+    just after; artifacts in a temporary directory, deleted after."""
+    from bayesdll_tpu_torch.config import Config
+    from bayesdll_tpu_torch.methods.vi import S_CLAMP
+    from bayesdll_tpu_torch.ops import kernels
+
+    hp, lr, epochs = SMOKE[method]
+    cfg = Config(method=method, hparams=hp, dataset="synthetic",
+                 backbone="mlp_mnist", epochs=epochs, batch_size=SMOKE_BATCH,
+                 lr=lr, num_cycles=2, seed=0, device="cuda")
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix=f"{method}_", dir=SCRATCH))
+    try:
+        runner, loaders = make_runner(cfg, workdir=str(work))
+        check(runner.target.n_params == 2_797_010, "full-width mlp_mnist")
+        restarts = watch_restarts(runner) if method == "adam_csghmc" else None
+        fisher = watch_fisher(runner) if method == "la" else None
+        reset_launches()
+        tic = time.perf_counter()
+        res = runner.train(*loaders)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - tic
+        counts = read_launches()
+        files = {p.relative_to(work).as_posix() for p in work.rglob("*")
+                 if p.is_file()}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    runner.workdir = None
+    steps = epochs * len(loaders[0])
+    want = {k: 0 for k in kernels.KERNELS}
+    if method in SMOKE_KERNEL:
+        want[SMOKE_KERNEL[method]] = steps
+    check(counts == want, f"{method}: launches {counts}, want {want}")
+    check(all(math.isfinite(x) for x in res["train_losses"]),
+          f"{method}: finite losses")
+    for key in ("nll", "ece", "mce"):
+        check(key in res and math.isfinite(res[key]), f"{method}: result {key}")
+    check(res["test_err"] < 0.5, f"{method}: test error {res['test_err']} "
+          "well below chance (0.9)")
+    extra = ""
+    if method == "csghmc_fs":
+        snaps = sorted(runner.full_samples)
+        check(snaps == FS_SNAPSHOTS, f"csghmc_fs: snapshots {snaps}")
+        need = {"bma_evaluation_results.pkl", "logits_test_bma.pkl",
+                "collected_models/model_metadata.pkl",
+                *(f"full_samples_net_ep{ep}.pkl" for ep in snaps)}
+        check(need <= files, f"csghmc_fs: artifacts {sorted(files)}")
+        bma = res["bma"]
+        check(bma["test_ensemble_err"] < 0.5,
+              f"csghmc_fs: BMA test error {bma['test_ensemble_err']}")
+        extra = (f"snapshots at epochs {snaps}; BMA " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(bma.items())))
+    elif method == "adam_csghmc":
+        check([r["cycle"] for r in restarts] == [2, 3]
+              and all(r["redrawn"] and r["moved"] and r["zeroed"]
+                      for r in restarts),
+              f"adam_csghmc: a cold restart at each boundary: {restarts}")
+        extra = f"boundaries {restarts}"
+    elif method == "vi":
+        s_ = runner.state.s_
+        s = torch.clamp(s_, min=S_CLAMP)
+        check(bool(torch.isfinite(s_).all()) and float(s.min()) >= S_CLAMP,
+              "vi: s_ finite, s >= 1e-8")
+        extra = (f"s_ in [{float(s_.min()):.4g}, {float(s_.max()):.4g}], mean "
+                 f"{float(s_.mean()):.4g}")
+    elif method == "la":
+        extra = (f"{check_post_vars(runner, 'la mlp_mnist')}; stage 1 "
+                 f"{res['map_time']:.2f} s, Fisher over {fisher['examples']} "
+                 f"examples {fisher['secs']:.2f} s = "
+                 f"{fisher['examples'] / fisher['secs']:.0f} examples/s")
+    print(f"phase 3: [{CARD}] {method} mlp_mnist D={runner.target.dim} lr={lr} "
+          f"batch {SMOKE_BATCH}, {epochs} epochs = {steps} steps in {secs:.2f} "
+          f"s incl. eval; launches {counts}; losses="
+          f"{[round(x, 4) for x in res['train_losses']]}; nll={res['nll']:.4f} "
+          f"ece={res['ece']:.4f} mce={res['mce']:.4f} "
+          f"test_err={res['test_err']:.4f}; {extra}", flush=True)
+    return runner, loaders, counts
+
+
+def phase_la_prior_sig():
+    """Laplace on the full-width MLP at the smoke matrix's prior_sig 0.1:
+    the MAP's test error and the Laplace predictive's, side by side (the
+    latter not gated: see LA_MATRIX_HP)."""
+    from bayesdll_tpu_torch.config import Config
+    _, lr, epochs = SMOKE["la"]
+    cfg = Config(method="la", hparams=LA_MATRIX_HP, dataset="synthetic",
+                 backbone="mlp_mnist", epochs=epochs, batch_size=SMOKE_BATCH,
+                 lr=lr, seed=0, device="cuda")
+    runner, loaders = make_runner(cfg)
+    res = runner.train(*loaders)
+    shown = check_post_vars(runner, "la mlp_mnist prior_sig 0.1")
+    post_vars, runner.post_vars = runner.post_vars, None  # the MAP predictive
+    runner.state.theta = runner.map_theta
+    map_loss, map_err, *_ = runner.evaluate(loaders[2])
+    runner.post_vars = post_vars
+    check(map_err < 0.5, f"la prior_sig 0.1: MAP test error {map_err}")
+    print(f"phase 3: [{CARD}] la mlp_mnist at prior_sig 0.1: MAP test error "
+          f"{map_err:.4f} (loss {map_loss:.4f}); Laplace predictive (nst=2) "
+          f"test error {res['test_err']:.4f}, nll {res['nll']:.4f}; {shown}",
+          flush=True)
+
+
+# tools/tpu_smoke_all_methods.py:63-70 (la_multichain_fisher) on one chain:
+# Laplace on resnet50 (10 synthetic classes, the CLI's default), bf16
+# forward, batch 32, 1 epoch, its hparams; the Fisher in microbatches of 8
+LA_RESNET = dict(backbone="resnet50", batch_size=32, compute_dtype="bfloat16",
+                 epochs=1)
+LA_RESNET_HP = ("prior_sig=0.1,Ninflate=1.0,bias=informative,nst=2,"
+                "fisher_microbatch=8")
+LA_RESNET_LR = 2e-2
+RESNET50_PARAMS = 23_528_522  # at 10 classes
+
+
+def phase_la_resnet50():
+    """Laplace on the full-width ResNet-50 through `train`: stage 1 (MAP),
+    stage 2 (the vmapped per-example Fisher over every training example,
+    BatchNorm on its running statistics), the Laplace eval.  The counts set
+    to 0 just before and read just after."""
+    from bayesdll_tpu_torch.config import Config
+    from bayesdll_tpu_torch.ops import kernels
+
+    cfg = Config(method="la", hparams=LA_RESNET_HP, dataset="synthetic",
+                 lr=LA_RESNET_LR, seed=0, device="cuda", **LA_RESNET)
+    runner, loaders = make_runner(cfg)
+    check(runner.target.n_params == RESNET50_PARAMS,
+          f"resnet50 at 10 classes: {runner.target.n_params} parameters")
+    fisher = watch_fisher(runner)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tic = time.perf_counter()
+    res = runner.train(*loaders)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - tic
+    counts = read_launches()
+    peak_stage2 = fisher["peak_gb"]
+    check(counts == {k: 0 for k in kernels.KERNELS},
+          f"la resnet50: no kernel launched: {counts}")
+    check(all(math.isfinite(x) for x in res["train_losses"]),
+          "la resnet50: finite losses")
+    for key in ("nll", "ece", "mce"):
+        check(key in res and math.isfinite(res[key]), f"la resnet50: {key}")
+    check(fisher["moved_in_stage1"], "la resnet50: stage 1 moved batch_stats")
+    check(fisher["stats_same"], "la resnet50: stage 2 left batch_stats as "
+          "they were")
+    check(fisher["examples"] == loaders[0].num_examples,
+          "la resnet50: the Fisher saw every training example")
+    shown = check_post_vars(runner, "la resnet50")
+    print(f"phase 3: [{CARD}] la resnet50 bf16 D={runner.target.dim} "
+          f"({runner.target.n_params} params) batch {cfg.batch_size} lr="
+          f"{cfg.lr}, {len(loaders[0])} steps: stage 1 {res['map_time']:.2f} s "
+          f"incl. eval, stage 2 (Fisher, microbatch "
+          f"{runner.fisher_microbatch}) {fisher['secs']:.2f} s over "
+          f"{fisher['examples']} examples = "
+          f"{fisher['examples'] / fisher['secs']:.1f} examples/s, peak device "
+          f"memory {peak_stage2:.2f} GB in stage 2; {secs:.2f} s in all; "
+          f"launches {counts}; train loss {res['train_losses']}; "
+          f"nll={res['nll']:.4f} ece={res['ece']:.4f} mce={res['mce']:.4f} "
+          f"test_err={res['test_err']:.4f} (chance 0.9); {shown}",
+          flush=True)
+    phase_fisher_profile("la resnet50", runner, loaders[0])
+    return counts
+
+
+def hand_normal(runner, device):
+    """VI's reparameterisation draws from one CPU generator in call order:
+    the same numbers on both devices."""
+    gen = torch.Generator().manual_seed(0)
+    runner._train_normal = lambda step: torch.randn(
+        runner.target.dim, generator=gen).to(device)
+
+
+def hand_uniform(runner, device):
+    """MC-dropout's uniforms (training and predictive keep-masks) from one
+    CPU generator in call order: the same masks on both devices."""
+    gen = torch.Generator().manual_seed(0)
+    runner._uniform = lambda _generator: torch.rand(
+        runner.target.dim, generator=gen).to(device)
+
+
+def phase_new_references():
+    """The seven methods' small runs on the card against the CPU."""
+    from bayesdll_tpu_torch.config import parse_hparams
+    hp = {m: parse_hparams(SMOKE[m][0]) for m in SMOKE}
+    phase_reference("vanilla", hp["vanilla"], momentum=0.5)
+    phase_reference("adam_sghmc", hp["adam_sghmc"], lr=1e-3,
+                    fields=("theta", "v_mom", "m", "v2"))
+    phase_reference("adam_csghmc", dict(hp["adam_csghmc"],
+                                        perform_cold_restarts="0"),
+                    lr=1e-3, fields=("theta", "v_mom", "m", "v2"))
+    phase_reference("la", parse_hparams(LA_MATRIX_HP), momentum=0.5,
+                    fields=("theta", "post_vars"))
+    phase_reference("vi", hp["vi"], fields=("m",), in_norm=("s_",),
+                    hand=hand_normal)
+    phase_reference("mc_dropout", hp["mc_dropout"], fields=("m",),
+                    hand=hand_uniform)
+
+
+def phase_fisher_reference():
+    """LA's vmapped Fisher against the one-example loop, on the card, on the
+    mini ResNet (fp32, TF32 off, BatchNorm on its running statistics):
+    rtol 2e-3, as tests/test_la.py holds them.  11 examples in microbatches
+    of 4: two whole ones and a remainder of 3, whose last is padding."""
+    from bayesdll_tpu_torch.core.prior import make_flat_target
+    from bayesdll_tpu_torch.methods import base
+    from bayesdll_tpu_torch.methods.la import fisher_accumulate
+    from bayesdll_tpu_torch.models.resnet import ResNet
+
+    m = MINI
+    target, theta, ns = make_flat_target(
+        ResNet(m["stages"], m["classes"]), nd_size=64,
+        num_classes=m["classes"], rng=torch.Generator().manual_seed(0),
+        has_batch_stats=True, device="cuda")
+    rng = np.random.RandomState(2)
+    n = 11
+    x = torch.from_numpy(rng.randn(n, m["hw"], m["hw"], 3)
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, m["classes"], n)).long().cuda()
+    valid = torch.ones(n, device="cuda")
+    valid[-1] = 0.0
+    got = fisher_accumulate(target, theta, ns, torch.zeros_like(theta), x, y,
+                            valid, 4)
+    want = torch.zeros_like(theta)
+    for i in range(n - 1):
+        leaf = theta.detach().clone().requires_grad_()
+        logits, _ = target.forward(leaf, ns, x[i:i + 1], train=False)
+        g, = torch.autograd.grad(base.ce_loss(logits, y[i:i + 1]), leaf)
+        want += g * g
+    scale = float(want.max())
+    rel = float(((got - want).abs() / (want.abs() + 1e-6 * scale)).max())
+    check(scale > 0 and torch.allclose(got, want, rtol=2e-3, atol=1e-6 * scale),
+          f"mini resnet Fisher: vmapped vs loop on the card: max rel err {rel}")
+    print(f"phase 3b: la mini resnet {m['hw']}x{m['hw']} fp32, {n - 1} examples "
+          f"and one padded: vmapped Fisher (microbatch 4 and a remainder) vs "
+          f"the one-example loop on the card: max rel err {rel:.3g} (rtol "
+          f"2e-3, atol 1e-6 of max {scale:.3g})", flush=True)
+
+
+def phase_vit_adam_step(smi, vit, xs, ys):
+    """The ViT-L/32 Adam-cSGHMC step beside the cSGHMC step: the same
+    target, config and batches (bf16, batch 128), the smoke matrix's Adam
+    hparams; its profile gives the Adam momentum's and the SGD step's own
+    device time."""
+    from bayesdll_tpu_torch.config import parse_hparams
+    from bayesdll_tpu_torch.methods import get_runner_cls
+
+    hp = {**vit.cfg.hparams, **parse_hparams(SMOKE["adam_csghmc"][0]),
+          "perform_cold_restarts": "0"}
+    cfg = dataclasses.replace(vit.cfg, method="adam_csghmc", hparams=hp)
+    runner = get_runner_cls("adam_csghmc")(vit.target, vit.state.theta,
+                                           vit.net_state, cfg)
+    runner.sched = vit.sched
+    return big_step_time(smi, "vit_l_32", runner, xs, ys, VIT_STEPS,
+                         VIT_STEPS)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
+    tic0 = time.perf_counter()
     smi = phase_device()
     mlp_target = full_width_target(nd_size=1000)[0]
     resnet, resnet_loaders = resnet_runner()
@@ -1273,24 +1743,37 @@ def main() -> int:
         runner, loaders, n = phase_path(method, hp, lr, kernel)
         runners[method] = (runner, loaders)
         by_path[f"{method} mlp_mnist"] = {kernel: n}
+    for method in SMOKE:
+        runner, loaders, counts = phase_method_path(method)
+        runners[method] = (runner, loaders)
+        by_path[f"{method} mlp_mnist"] = counts
+    phase_la_prior_sig()
     by_path["csghmc resnet101"] = {
         "csghmc_update": phase_resnet_path(resnet, resnet_loaders)}
     phase_reference("csghmc", HP)
     phase_reference("sgld", SG_HP, momentum=0.5)
     phase_reference("sghmc", SG_HP, momentum=0.5)
+    phase_new_references()
     phase_resnet_reference("csghmc", HP)
     phase_resnet_reference("sgld", SG_HP)
+    phase_fisher_reference()
     times = {"mlp_mnist": kernel_times_at(smi, mlp_target),
              "resnet101": kernel_times_at(smi, resnet.target,
                                           ("csghmc_update",))}
     for method in ("csghmc", "sghmc"):
         phase_step_time(smi, method, *runners[method])
+    for method in SMOKE:
+        phase_step_time(smi, method, *runners[method],
+                        sampler=SMOKE_KERNEL.get(method, "_update_kernel"))
+    phase_fisher_profile("la mlp_mnist", runners["la"][0], runners["la"][1][0])
     phase_mlp_bf16_step_time(smi)
     phase_resnet_step_time(smi, resnet, resnet_loaders)
     del resnet, resnet_loaders, runners, runner, loaders
     free_device()
+    by_path["la resnet50"] = phase_la_resnet50()
+    free_device()
 
-    # this slice: ViT-L/32, alone on the card
+    # ViT-L/32, alone on the card
     vit, vit_loaders = vit_runner()
     errs["csghmc_update"] = max(errs["csghmc_update"],
                                 phase_kernels(vit.target, "vit_l_32"))
@@ -1301,10 +1784,13 @@ def main() -> int:
     times["vit_l_32"] = kernel_times_at(smi, vit.target)
     xs, ys = device_batches(vit_loaders[0])
     phase_vit_steps(smi, vit, xs, ys)
+    phase_vit_adam_step(smi, vit, xs, ys)
     cfg, nd_size, sched = vit.cfg, vit.target.nd_size, vit.sched
     del vit, vit_loaders
     free_device()
     phase_vit_b_16(smi, cfg, nd_size, sched, xs, ys)
+    print(f"chip_smoke: [{smi}] every phase passed in "
+          f"{time.perf_counter() - tic0:.1f} s", flush=True)
 
     # each kernel's launches and times on its main path: this slice's
     # ViT-L/32 path for csghmc_update, the SGLD and SGHMC paths for the

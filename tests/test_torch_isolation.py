@@ -40,6 +40,13 @@ def test_importing_the_port_loads_no_jax():
         "import bayesdll_tpu_torch.methods.csghmc, bayesdll_tpu_torch.cli.demo\n"
         "import bayesdll_tpu_torch.methods.sgld, bayesdll_tpu_torch.methods.sghmc\n"
         "import bayesdll_tpu_torch.methods.csgld\n"
+        "import bayesdll_tpu_torch.methods.adam_sghmc\n"
+        "import bayesdll_tpu_torch.methods.adam_csghmc\n"
+        "import bayesdll_tpu_torch.methods.csghmc_fs\n"
+        "import bayesdll_tpu_torch.methods.vanilla\n"
+        "import bayesdll_tpu_torch.methods.vi\n"
+        "import bayesdll_tpu_torch.methods.mc_dropout\n"
+        "import bayesdll_tpu_torch.methods.la\n"
         "import bayesdll_tpu_torch.models.resnet, bayesdll_tpu_torch.models.cnn\n"
         "import bayesdll_tpu_torch.models.vit\n"
         "import bayesdll_tpu_torch.models.convert, bayesdll_tpu_torch.models.layers\n"

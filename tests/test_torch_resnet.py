@@ -199,9 +199,20 @@ def test_train_forward_and_batch_stats_match_jax(mini):
 
 
 def test_gradient_matches_jax(mini):
+    """The train-mode gradient on a batch of 8 drawn for it.  Train-mode
+    BatchNorm normalises layer4 over batch x 1 x 1 values per channel,
+    which turns a change of summation order (oneDNN's thread count, XLA's
+    fusion) into ReLU flips where a pre-activation lies within rounding of
+    0, and a flip moves its weights' gradient by its full value.  On the
+    fixture's batch of 4 that happened under OMP_NUM_THREADS=1 (max error
+    1.2% of max |g|).  This batch has no such pre-activation: the two
+    packages agree within 2e-5 of max |g| at 1, 2, 3, 4, 6 and 8 threads,
+    so the bound stays 1e-4 of max |g| and a wrong gradient fails it."""
     _, jt, jth = mini["jax"]["float32"]
     tt, tth, tns = mini["port"]["float32"]
-    x, y = mini["x"], mini["y"]
+    rng = np.random.RandomState(1)
+    x = rng.randn(8, HW, HW, 3).astype(np.float32)
+    y = rng.randint(0, K, 8).astype(np.int32)
 
     def loss_fn(theta):
         logits, _ = jt.forward(theta, {"batch_stats": mini["stats"]},

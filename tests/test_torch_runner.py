@@ -112,12 +112,19 @@ def test_artifacts_with_and_without_matplotlib(monkeypatch, tmp_path,
 
 
 def test_unported_names_raise():
-    """A method the port does not have yet, and a backbone that neither
-    package has, raise and point at the roadmap."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_runner_cls("adam_sghmc")
+    """A method and a backbone that neither package has raise: the method
+    says it is not one of the JAX package's, the backbone points at the
+    roadmap.  Every method of the JAX package has a runner."""
+    from bayesdll_tpu_torch import methods
+    with pytest.raises(NotImplementedError,
+                       match="not a method of bayesdll_tpu"):
+        get_runner_cls("hmc_nuts")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_backbone("vit_h_14")
+    assert methods._PENDING == {}
+    assert len(methods._METHODS) == 11
+    for name in methods._METHODS:
+        assert get_runner_cls(name).method_name == name
 
 
 def test_cli_runs_on_cpu(tmp_path):

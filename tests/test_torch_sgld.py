@@ -51,6 +51,27 @@ def _close(t, j):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
 
 
+def _lockstep(jr, tr, jl, tl, ep, n, hand_draws=None):
+    """n steps of both runners from epoch `ep` on the same batches, the
+    losses within rtol 1e-5.  hand_draws(key, tr), when given, hands the
+    port the draws the JAX step takes from `key`."""
+    for step, ((jx, jy, _), (tx, ty, _)) in enumerate(zip(jl[0], tl[0])):
+        if step == n:
+            break
+        np.testing.assert_array_equal(jx, tx)
+        sc = jr.step_scalars(ep)
+        assert tr.step_scalars(ep) == sc
+        key = jax.random.fold_in(jr.train_key, jr.bi)
+        if hand_draws is not None:
+            hand_draws(key, tr)
+        jr.state, jr.net_state, (jloss, _) = jr._jit_step(
+            jr.target, jr.state, jr.net_state, jnp.asarray(jx),
+            jnp.asarray(jy), key, sc)
+        jr.bi += 1
+        tloss, _ = tr._one_step(ep, tx, ty)
+        np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+
+
 @pytest.mark.parametrize("momentum", [0.0, 0.5], ids=["mu0", "mu0.5"])
 @pytest.mark.parametrize("method", ["sgld", "sghmc", "csgld"])
 def test_five_steps_match_jax(method, momentum):
@@ -61,19 +82,7 @@ def test_five_steps_match_jax(method, momentum):
     ep = 1  # past burn-in: the moments collect on SGLD's and SGHMC's side
     jr.epoch_begin(ep)
     tr.epoch_begin(ep)
-    for step, ((jx, jy, _), (tx, ty, _)) in enumerate(zip(jl[0], tl[0])):
-        if step == 5:
-            break
-        np.testing.assert_array_equal(jx, tx)
-        sc = jr.step_scalars(ep)
-        assert tr.step_scalars(ep) == sc
-        key = jax.random.fold_in(jr.train_key, jr.bi)
-        jr.state, jr.net_state, (jloss, _) = jr._jit_step(
-            jr.target, jr.state, jr.net_state, jnp.asarray(jx),
-            jnp.asarray(jy), key, sc)
-        jr.bi += 1
-        tloss, _ = tr._one_step(ep, tx, ty)
-        np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    _lockstep(jr, tr, jl, tl, ep, 5)
     assert tr.state.step == int(jr.state.step) == 5
     _close(tr.state.theta, jr.state.theta)
     if momentum:
