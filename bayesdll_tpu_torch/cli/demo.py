@@ -1,4 +1,5 @@
-"""CLI driver: train one chain of a ported method (counterpart of
+"""The command line: train a ported method on one chain or, with
+--num_chains C, on C chains one after another on the card (counterpart of
 bayesdll_tpu.cli.demo).
 
   python -m bayesdll_tpu_torch.cli.demo --method csghmc --backbone mlp_mnist \\
@@ -25,6 +26,16 @@ bayesdll_tpu.cli.demo).
       --dataset synthetic --batch_size 32 --compute_dtype bfloat16 \\
       --epochs 1 --lr 2e-2 \\
       --hparams prior_sig=0.1,Ninflate=1.0,bias=informative,nst=2,fisher_microbatch=8
+
+  python -m bayesdll_tpu_torch.cli.demo --method csghmc --backbone resnet50 \\
+      --num_chains 2 --dataset synthetic --batch_size 32 \\
+      --compute_dtype bfloat16 --epochs 2 --num_cycles 1 --lr 2e-2 \\
+      --hparams prior_sig=1.0,Ninflate=1.0,nd=0.01,thin=2,bias=informative,nst=2
+
+--num_chains C > 1 wraps the runner in parallel/runner.py::MultiChainRunner:
+C chains with their own jitter, data order and seed, a chain-mixture
+predictive, and `chains_ckpt.pkl`, which --resume takes.  --data_parallel
+and --fsdp need several cards and are not ported.
 
 With perform_cold_restarts=1, Adam-cSGHMC and cSGHMC-FS re-draw θ at each
 cycle boundary from the backbone's own initialisers (`make_reinit_fn`).
@@ -98,8 +109,15 @@ def parse_args(argv=None):
                    help="1 = tanh GELU in the ViT MLP; 0 = exact erf")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--num_chains", type=int, default=1,
+                   help="independent chains, one after another on the card")
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="batch sharding over cards (not ported)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="state sharding over cards (not ported)")
     p.add_argument("--resume", type=str, default=None,
-                   help="checkpoint path to resume training from")
+                   help="checkpoint path to resume training from (ckpt.pkl, "
+                        "or chains_ckpt.pkl with --num_chains)")
     return p.parse_args(argv)
 
 
@@ -137,17 +155,22 @@ def build_all(cfg, logger, workdir=None):
                                         logger=logger, workdir=workdir)
     if hasattr(runner, "set_reinit_fn"):
         runner.set_reinit_fn(make_reinit_fn(model, target, cfg.seed))
+    if cfg.num_chains > 1:
+        from bayesdll_tpu_torch.parallel import MultiChainRunner
+        runner = MultiChainRunner(runner, cfg.num_chains, logger=logger,
+                                  workdir=workdir)
     return runner, (train, val, test)
 
 
 def make_reinit_fn(model, target, seed: int):
-    """The cold restart's fresh θ: fn(cycle) draws the backbone's own
-    initialisers from the generator keyed (seed, REINIT, cycle) on the host,
-    zero-padded to target.dim, on the target's device."""
+    """The cold restart's fresh θ: fn(cycle, seed=seed) draws the backbone's
+    own initialisers from the generator keyed (seed, REINIT, cycle) on the
+    host, zero-padded to target.dim, on the target's device.  A multi-chain
+    run passes each chain's seed."""
     from bayesdll_tpu_torch.core import flat as flat_util
     from bayesdll_tpu_torch.core import rng
 
-    def reinit_fn(cycle: int) -> torch.Tensor:
+    def reinit_fn(cycle: int, seed: int = seed) -> torch.Tensor:
         gen = rng.generator("cpu", seed, rng.REINIT, cycle)
         theta, _ = flat_util.flatten_params(model.init_params(gen))
         theta = torch.cat([theta, torch.zeros(target.dim - theta.shape[0])])
@@ -158,6 +181,9 @@ def make_reinit_fn(model, target, seed: int):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.data_parallel > 1 or args.fsdp:
+        from bayesdll_tpu_torch.parallel.chains import MULTI_DEVICE
+        raise NotImplementedError(f"--data_parallel and --fsdp: {MULTI_DEVICE}")
     from bayesdll_tpu_torch.config import Config
 
     cfg = Config(
@@ -169,7 +195,7 @@ def main(argv=None):
         full_sample=args.full_sample, epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
         lr_head=args.lr_head, momentum=args.momentum, seed=args.seed,
         log_dir=args.log_dir, test_eval_freq=args.test_eval_freq, data_root=args.data_root,
-        num_classes=args.num_classes,
+        num_classes=args.num_classes, num_chains=args.num_chains,
         compute_dtype=args.compute_dtype, remat=args.remat,
         remat_policy=args.remat_policy,
         fused_attention=bool(args.fused_attention),

@@ -50,6 +50,7 @@ class Config:
     test_eval_freq: int = 1
     data_root: str = "data"
     num_classes: int = 10
+    num_chains: int = 1  # independent chains, run one after another per step
     compute_dtype: str = "float32"  # "bfloat16" for the big backbones
     # ViT knobs (models/vit.py); the other backbones ignore them
     remat: bool = False        # recompute each encoder block in backward

@@ -6,6 +6,12 @@ through splitmix64, so each draw is a pure function of the run's seed and
 where it happens (step, component, batch) — runs repeat exactly on the same
 device.  The streams differ from JAX's; tests compare distributions, or
 hand both sides the same numbers.
+
+Chain c of a multi-chain run (parallel/) draws everything from its own
+seed, `chain_seed(seed, c)`, in place of the run's seed: its kernels' noise,
+its VI, MC-dropout and Adam draws, its likelihood and eval draws, its
+initial jitter and its cold restarts.  A single-chain run keeps the run's
+seed.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ ADAM = 4          # Adam-SGHMC's and Adam-cSGHMC's momentum noise
 VI = 5            # VI's reparameterisation draw
 MC_DROPOUT = 6    # MC-dropout's keep-mask during training
 REINIT = 7        # the fresh θ of a cold restart (per cycle)
+CHAIN = 8         # a multi-chain run's per-chain seeds
+JITTER = 9        # the jitter of a chain's initial iterate
 
 
 def _splitmix64(x: int) -> int:
@@ -44,3 +52,8 @@ def generator(device, *ints: int) -> torch.Generator:
     g = torch.Generator(device=torch.device(device))
     g.manual_seed(mix(*ints))
     return g
+
+
+def chain_seed(seed: int, c: int) -> int:
+    """The seed of chain c of a multi-chain run with the run's `seed`."""
+    return mix(seed, CHAIN, c)

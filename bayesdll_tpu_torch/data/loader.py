@@ -1,6 +1,5 @@
-"""Host-side array loader (copy of bayesdll_tpu.data.loader, without the
-multi-chain view that a later slice brings; the port loads no dataset that
-augments, so there is no augmentation hook).
+"""Host-side array loader (copy of bayesdll_tpu.data.loader; the port loads
+no dataset that augments, so there is no augmentation hook).
 
 Training batches share one shape (`drop_last=True`).  Eval batches are
 padded to the batch size with a `valid` 0/1 mask, which the metric code
@@ -22,6 +21,7 @@ class ArrayLoader:
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self._seed = seed
         self._rng = np.random.RandomState(seed)
         self.n = len(x)
 
@@ -36,6 +36,17 @@ class ArrayLoader:
         every training example once, LA's Fisher."""
         return ArrayLoader(self.x, self.y, self.batch_size, shuffle=False,
                            drop_last=False)
+
+    def chain_view(self, c: int, epoch: int = 0):
+        """A view over the same examples whose order is a pure function of
+        (seed, chain, epoch), as the JAX package's: chain c of a multi-chain
+        run sees the same batches in both packages, and a resumed run the
+        same order with no replay of earlier epochs."""
+        return ArrayLoader(self.x, self.y, self.batch_size,
+                           shuffle=self.shuffle,
+                           seed=(self._seed + 7919 * (c + 1)
+                                 + 104729 * epoch) % (2 ** 31 - 1),
+                           drop_last=self.drop_last)
 
     @property
     def num_examples(self):

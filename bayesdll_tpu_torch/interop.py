@@ -1,17 +1,22 @@
 """Carry weights across from the JAX package, as numpy arrays only.
 
 The parity tests hand the JAX package's parameters (a nested dict, turned
-into numpy by the caller), its flat vectors and its `batch_stats` to the
-port through these two functions, so the port itself never imports JAX.
+into numpy by the caller), its flat vectors, its `batch_stats` and a
+multi-chain trainer's stacked chain states to the port through these
+functions, so the port itself never imports JAX.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
 
 import numpy as np
 import torch
 
 from bayesdll_tpu_torch.core import flat as flat_util
 from bayesdll_tpu_torch.core.prior import FlatTarget, auto_fwd_cast, tree_to
+from bayesdll_tpu_torch.methods import base
 
 
 def flat_from_param_dict(params, pad_to: int = 1) -> torch.Tensor:
@@ -58,3 +63,26 @@ def target_from_arrays(theta, theta0, is_head, is_bias, *, model,
     net_state = {} if batch_stats is None else {
         "batch_stats": tree_to(batch_stats, device)}
     return target, dev(theta, torch.float32), net_state
+
+
+def _chain_slice(tree, c: int):
+    """Row c of every leaf of a stacked state (dataclasses and mappings of
+    arrays), as a nested dict of numpy copies."""
+    if dataclasses.is_dataclass(tree):
+        return {f.name: _chain_slice(getattr(tree, f.name), c)
+                for f in dataclasses.fields(tree)}
+    if isinstance(tree, Mapping):
+        return {k: _chain_slice(v, c) for k, v in tree.items()}
+    return np.array(np.asarray(tree)[c])
+
+
+def chain_states(runner, states, net_states, n_chain: int, device="cuda"):
+    """(states, net_states), lists of `n_chain`, for the port's
+    MultiChainTrainer from the JAX trainer's stacked ones: `states` a state
+    whose leaves are [C, ...] arrays (field names as the port's), and
+    `net_states` a nested mapping of [C, ...] arrays.  `runner.state` gives
+    the structure."""
+    return ([base.from_host(runner.state, _chain_slice(states, c), device)
+             for c in range(n_chain)],
+            [tree_to(_chain_slice(net_states, c), device)
+             for c in range(n_chain)])

@@ -57,8 +57,9 @@ class Runner(CyclicalRunnerBase):
         self.prior_mask = target.prior_mask(self.bias_mode)
 
     def set_reinit_fn(self, fn):
-        """fn(cycle) -> a fresh flat θ of length target.dim, for cold
-        restarts (cli/demo.py::make_reinit_fn builds it)."""
+        """fn(cycle[, seed=]) -> a fresh flat θ of length target.dim, for
+        cold restarts; a multi-chain run passes each chain's seed
+        (cli/demo.py::make_reinit_fn builds it)."""
         self._reinit_fn = fn
 
     def init_state(self, theta_init):
@@ -67,11 +68,9 @@ class Runner(CyclicalRunnerBase):
             moments=RunningMoments.zeros(theta_init.shape[0],
                                          theta_init.device))
 
-    def on_cycle_start(self, cycle: int):
-        state = self.state
-        fresh = self._cold_restart_theta(cycle)
-        if fresh is not None:
-            state.theta = fresh
+    def _cycle_reset(self, state, theta):
+        if theta is not None:
+            state.theta = theta
         for name in ("buf", "v_mom", "m", "v2"):
             getattr(state, name).zero_()
         state.t = 0
@@ -88,7 +87,7 @@ class Runner(CyclicalRunnerBase):
 
         state.t += 1
         gen = None if self.nd == 0.0 else rng.generator(
-            self.device, self.cfg.seed, rng.ADAM, step)
+            self.device, self.seed, rng.ADAM, step)
         state.v_mom, state.m, state.v2 = fused.adam_sghmc_momentum(
             g, state.theta, self.target.theta0, state.v_mom, state.m,
             state.v2, state.t, self.prior_mask, lr_vec,

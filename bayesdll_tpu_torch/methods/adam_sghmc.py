@@ -74,7 +74,7 @@ class Runner(sgld.Runner):
         """g + v_mom', with the Adam state advanced."""
         state.t += 1
         gen = None if self.nd == 0.0 else rng.generator(
-            self.device, self.cfg.seed, rng.ADAM, step)
+            self.device, self.seed, rng.ADAM, step)
         g_out, state.v_mom, state.m, state.v2 = fused.adam_sghmc_update(
             g, state.theta, self.target.theta0, state.v_mom, state.m,
             state.v2, state.t, self.prior_mask, self.lr_vec,

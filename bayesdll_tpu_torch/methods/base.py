@@ -6,8 +6,13 @@ A method subclass provides:
   * `_step(state, ns, x, y, step, sc)`     -> (state', ns', (loss, err_count))
   * `pred_state()` and `_predict_logits(ps, x, generator)` -> [S, B, K]
 plus host hooks (`eval_ready`, `step_scalars`, `epoch_begin`,
-`after_batch`).  `step` is the global step index: with the run's seed it
-keys every random draw of that step.
+`after_batch`).  `step` is the global step index: with the runner's
+`seed` (the run's seed, or one chain's in a multi-chain run) it keys every
+random draw of that step.
+
+For the multi-chain trainer (parallel/chains.py), `iterate`/`with_iterate`
+name the primary vector of a state (θ, or the variational mean), and
+`bound` runs the runner on one chain's state, net_state and seed.
 
 Per-step loss and error stay on the device; the host reads them once per
 epoch, so the training loop never waits on the card.
@@ -19,6 +24,7 @@ the log of the Monte-Carlo averaged predictive probabilities.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -85,6 +91,8 @@ def from_host(template, saved, device):
     """Inverse of to_host: `template`'s structure filled from `saved`."""
     if isinstance(template, torch.Tensor):
         return torch.as_tensor(saved).to(device)
+    if isinstance(template, int):  # counts saved as numpy scalars
+        return int(saved)
     if dataclasses.is_dataclass(template):
         return dataclasses.replace(template, **{
             f.name: from_host(getattr(template, f.name), saved[f.name], device)
@@ -112,6 +120,7 @@ class BaseRunner:
             if "prior_sig" in cfg.hparams else 1.0
         self.bias_mode = cfg.hparams.get("bias", "informative")
         self.nst = int(cfg.hparams.get("nst", 0))
+        self.seed = cfg.seed  # keys every draw; a chain's own in `bound`
 
         self.state = self.init_state(
             torch.as_tensor(theta_init, dtype=torch.float32)
@@ -137,6 +146,35 @@ class BaseRunner:
 
     def eval_ready(self, ep: int) -> bool:
         return True
+
+    # ---- multi-chain hooks --------------------------------------------------
+
+    def iterate(self, state) -> torch.Tensor:
+        """The primary vector of `state`, which a chain's initial jitter
+        moves: θ (the variational mean for VI and MC-dropout)."""
+        return state.theta
+
+    def with_iterate(self, state, vec: torch.Tensor):
+        return dataclasses.replace(state, theta=vec)
+
+    @contextlib.contextmanager
+    def bound(self, state, net_state, seed: int):
+        """The runner on one chain: `state`, `net_state` and `seed` stand in
+        for its own inside the block (so `_step`, `pred_state`, the hooks
+        and every draw read them), and are put back after.  The block reads
+        what the runner leaves in self.state and self.net_state before it
+        ends."""
+        saved = self.state, self.net_state, self.seed
+        self.state, self.net_state, self.seed = state, net_state, seed
+        try:
+            yield self
+        finally:
+            self.state, self.net_state, self.seed = saved
+
+    def pred_state_from(self, state, net_state):
+        """`pred_state()` of another state (one chain's)."""
+        with self.bound(state, net_state, self.seed):
+            return self.pred_state()
 
     def step_scalars(self, ep: int) -> dict:
         """Host scalars of the step at self.bi (lr, collect flag, ...)."""
@@ -243,14 +281,20 @@ class BaseRunner:
         Returns (loss, err, targets, logits, logits_all), logits_all [N, S, K].
         """
         ps = self.pred_state()
+        return self._predictive_loop(loader, lambda x, i: self._predict_logits(
+            ps, x, rng.generator(self.device, self.seed, rng.EVAL, 0, i)))
+
+    def _predictive_loop(self, loader, pred_fn):
+        """The eval loop over `loader`: pred_fn(x, i) gives batch i's
+        logits_all [S, B, K] for x on the device; its Monte-Carlo average
+        gives the metrics and the artifacts."""
         loss_sum = torch.zeros((), device=self.device)
         err_sum = torch.zeros((), device=self.device)
         n = 0.0
         targets, logits_list, logits_all_list = [], [], []
         for i, (x, y, valid) in enumerate(loader):
-            gen = rng.generator(self.device, self.cfg.seed, rng.EVAL, 0, i)
             yd, vd = self._to_device(y).long(), self._to_device(valid)
-            la = self._predict_logits(ps, self._to_device(x), gen)
+            la = pred_fn(self._to_device(x), i)
             logits = combine_mc_logits(la)
             picked = torch.log_softmax(logits, -1).gather(1, yd[:, None])[:, 0]
             loss_sum += torch.sum(-picked * vd)

@@ -72,7 +72,7 @@ class Runner(CyclicalRunnerBase):
         fused.csghmc_update_(
             g, state.theta, state.v, prior_sig=self.prior_sig, n_eff=n_eff,
             nd=self.nd, alpha=self.momentum_decay, lr=lr_vec,
-            should_sample=scalars["should_sample"], seed=self.cfg.seed,
+            should_sample=scalars["should_sample"], seed=self.seed,
             step=step)
         if scalars["collect"]:  # a host bool: no device sync
             state.moments.update(state.theta)

@@ -14,7 +14,9 @@ csghmc_update kernel on the card), plus:
     of the snapshots' logits; pickled as `bma_evaluation_results.pkl` and
     `logits_test_bma.pkl`, and returned as results["bma"].
 
-The JAX package's multi-chain hooks come with the multi-chain slice.
+In a multi-chain run (parallel/runner.py) `multi_chain_epoch_end` takes
+the snapshots of every chain, keyed (chain, epoch), each with its chain's
+net_state, and the model average runs over all of them.
 
 hparams: cSGHMC's, and perform_cold_restarts.
 """
@@ -37,7 +39,9 @@ class Runner(csghmc.Runner):
 
     def __init__(self, target, theta_init, net_state, cfg, **kw):
         super().__init__(target, theta_init, net_state, cfg, **kw)
-        self.full_samples = {}  # epoch -> flat θ on the host
+        self.full_samples = {}  # epoch, or (chain, epoch) -> flat θ on the host
+        # (chain, epoch) -> that chain's net_state on the host
+        self.full_sample_net_states = {}
         self.all_model_metadata = []
         self.models_dir = None
         if self.workdir:
@@ -45,8 +49,9 @@ class Runner(csghmc.Runner):
             os.makedirs(self.models_dir, exist_ok=True)
 
     def set_reinit_fn(self, fn):
-        """fn(cycle) -> a fresh flat θ of length target.dim, for cold
-        restarts (cli/demo.py::make_reinit_fn builds it)."""
+        """fn(cycle[, seed=]) -> a fresh flat θ of length target.dim, for
+        cold restarts; a multi-chain run passes each chain's seed
+        (cli/demo.py::make_reinit_fn builds it)."""
         self._reinit_fn = fn
 
     def _near_cycle_end(self, ep: int) -> bool:
@@ -60,13 +65,12 @@ class Runner(csghmc.Runner):
         r = ep % epc
         return (r > epc - 4) and (r < epc - 1)
 
-    def on_cycle_start(self, cycle: int):
+    def _cycle_reset(self, state, theta):
         """The reference zeroes the momentum at every cycle boundary and
         optionally cold-restarts θ; plain cSGHMC does neither."""
-        fresh = self._cold_restart_theta(cycle)
-        if fresh is not None:
-            self.state.theta = fresh
-        self.state.v.zero_()
+        if theta is not None:
+            state.theta = theta
+        state.v.zero_()
         self.logger.info("Momentum buffer reset for new cycle.")
 
     def train_one_epoch(self, ep: int, train_loader):
@@ -91,6 +95,36 @@ class Runner(csghmc.Runner):
                     pickle.dump(self.all_model_metadata, f)
         return out
 
+    def multi_chain_epoch_end(self, mc_runner, ep: int):
+        """The snapshot hook of a multi-chain run: every chain's θ and
+        net_state near each cycle end, as `full_samples_net_chain{c}_ep{ep}
+        .pkl` with the metadata."""
+        if not self._near_cycle_end(ep):
+            return
+        tr = mc_runner.trainer
+        cycle = self.sched.cycle_number_py(tr.bi - 1)
+        for c in range(tr.n_chain):
+            theta_np = base.to_host(tr.states[c].theta)
+            self.full_samples[(c, ep)] = theta_np
+            self.full_sample_net_states[(c, ep)] = base.to_host(
+                tr.net_states[c])
+            if self.workdir:
+                path = os.path.join(self.workdir,
+                                    f"full_samples_net_chain{c}_ep{ep}.pkl")
+                with open(path, "wb") as f:
+                    pickle.dump(theta_np, f)
+                self.all_model_metadata.append({
+                    "model_id": len(self.all_model_metadata), "chain": c,
+                    "epoch": ep, "cycle": cycle, "path": path,
+                    "num_params": int(theta_np.shape[0]),
+                })
+        if self.workdir:
+            self.logger.info("Full snapshots saved for %d chains at epoch %d",
+                             tr.n_chain, ep)
+            with open(os.path.join(self.models_dir, "model_metadata.pkl"),
+                      "wb") as f:
+                pickle.dump(self.all_model_metadata, f)
+
     def train(self, train_loader, val_loader, test_loader, start_epoch=0):
         results = super().train(train_loader, val_loader, test_loader,
                                 start_epoch=start_epoch)
@@ -113,12 +147,16 @@ class Runner(csghmc.Runner):
             acc = None
             for ep in eps_sorted:
                 theta = self._to_device(self.full_samples[ep])
+                ns = self.net_state if ep not in self.full_sample_net_states \
+                    else base.from_host(self.net_state,
+                                        self.full_sample_net_states[ep],
+                                        self.device)
                 ls = torch.zeros((), device=self.device)
                 es = torch.zeros((), device=self.device)
                 logits_nb = []
                 for b in range(xs_d.shape[0]):
-                    logits, _ = self.target.forward(theta, self.net_state,
-                                                    xs_d[b], train=False)
+                    logits, _ = self.target.forward(theta, ns, xs_d[b],
+                                                    train=False)
                     picked = torch.log_softmax(logits, -1).gather(
                         1, ys_d[b][:, None])[:, 0]
                     ls += torch.sum(-picked * vs_d[b])

@@ -59,7 +59,7 @@ class Runner(CyclicalRunnerBase):
         # g, then theta and buf, change IN PLACE once the graph is consumed
         fused.sgld_update_(g, state.theta, self.target.theta0,
                            self.prior_mask, lr_vec, prior_sig=self.prior_sig,
-                           n_eff=self.n_eff, nd=self.nd, seed=self.cfg.seed,
+                           n_eff=self.n_eff, nd=self.nd, seed=self.seed,
                            step=step)
         if self.clip_grad is not None:
             norm = torch.linalg.vector_norm(g)

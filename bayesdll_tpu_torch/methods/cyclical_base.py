@@ -14,7 +14,8 @@ bayesdll_tpu.methods.cyclical_base):
   * per-cycle checkpoints `{cycle}_ckpt.pkl`;
   * the cycle-boundary hooks: the moments reset (`_reset_cycle_state`) and
     `on_cycle_start(cycle + 1)`, where Adam-cSGHMC and cSGHMC-FS reset
-    their sampler state and may cold-restart θ;
+    their sampler state (`_cycle_reset`) and may cold-restart θ, and their
+    multi-chain form `multi_chain_cycle_start`;
   * with `full_sample`, every collected θ archived on the host
     (`all_samples`, pickled as `all_samples.pkl` at each completed cycle).
 """
@@ -34,6 +35,22 @@ from bayesdll_tpu_torch.core import rng
 from bayesdll_tpu_torch.core.schedule import CyclicalSchedule
 from bayesdll_tpu_torch.data.stream import window_batches
 from bayesdll_tpu_torch.methods import base
+
+
+def gmm_weights_of(cycle_stats: Dict[int, dict]) -> Dict[int, float]:
+    """The GMM weight of each cycle with likelihoods in `cycle_stats`,
+    w_c = [mean_i 1/p_i]^-1, normalised ({0: 1.0} when there is none)."""
+    cycles = [c for c in cycle_stats if "likelihoods" in cycle_stats[c]]
+    if not cycles:
+        return {0: 1.0}
+    weights = {}
+    for c in cycles:
+        lik = np.maximum(cycle_stats[c]["likelihoods"], 1e-300)
+        weights[c] = 1.0 / np.mean(1.0 / lik)
+    total = sum(weights.values())
+    if total > 0:
+        return {c: w / total for c, w in weights.items()}
+    return {c: 1.0 / len(weights) for c in weights}
 
 
 class CyclicalRunnerBase(base.BaseRunner):
@@ -165,8 +182,21 @@ class CyclicalRunnerBase(base.BaseRunner):
                                                      self.device))
 
     def on_cycle_start(self, cycle: int):
-        """Entering `cycle` (1-based).  cSGLD and cSGHMC carry their sampler
-        state across cycles; Adam-cSGHMC and cSGHMC-FS override."""
+        """Entering `cycle` (1-based): `_cycle_reset` of the state, with a
+        cold-restart θ where the method offers one."""
+        self._cycle_reset(self.state, self._cold_restart_theta(cycle))
+
+    def multi_chain_cycle_start(self, trainer, cycle: int):
+        """on_cycle_start for every chain of a multi-chain trainer (its
+        `states`), each cold restart drawn from the chain's own seed."""
+        thetas = self._multi_chain_restart_thetas(trainer, cycle)
+        for c, state in enumerate(trainer.states):
+            self._cycle_reset(state, None if thetas is None else thetas[c])
+
+    def _cycle_reset(self, state, theta):
+        """The per-cycle reset of `state` (in place), θ replaced by `theta`
+        unless it is None.  cSGLD and cSGHMC carry their sampler state
+        across cycles; Adam-cSGHMC and cSGHMC-FS override."""
 
     def _restart_allowed(self, cycle: int) -> bool:
         """The cold-restart gate, `cycle` the cycle being entered.  The
@@ -181,80 +211,92 @@ class CyclicalRunnerBase(base.BaseRunner):
         package reproduces that trace, and so does the port."""
         return True
 
+    def _restarts_on(self, cycle: int) -> bool:
+        return self.cold_restarts and self._reinit_fn is not None \
+            and self._restart_allowed(cycle)
+
     def _cold_restart_theta(self, cycle: int):
         """A fresh θ for `cycle` from the re-init function, or None when cold
         restarts are off or no function is set."""
-        if not (self.cold_restarts and self._reinit_fn is not None
-                and self._restart_allowed(cycle)):
+        if not self._restarts_on(cycle):
             return None
         self.logger.info("Cold restart: network re-initialised for cycle %d",
                          cycle)
         return self._reinit_fn(cycle).to(self.device, torch.float32)
 
+    def _multi_chain_restart_thetas(self, trainer, cycle: int):
+        """Fresh θ for each chain of `trainer`, the re-init function keyed
+        by the chain's seed, or None as for `_cold_restart_theta`."""
+        if not self._restarts_on(cycle):
+            return None
+        self.logger.info("Cold restart: %d chains re-initialised for cycle %d",
+                         trainer.n_chain, cycle)
+        return [self._reinit_fn(cycle, seed=s).to(self.device, torch.float32)
+                for s in trainer.seeds]
+
     # ---- full-batch likelihoods --------------------------------------------
 
-    @torch.no_grad()
     def full_batch_likelihoods(self, train_loader) -> np.ndarray:
         """likelihood_s = exp(-mean CE over the train set) for nst samples
-        perturbed around LIK_CENTER with the current cycle's variance.
+        perturbed around LIK_CENTER with the current cycle's variance."""
+        return self.chains_likelihoods(
+            train_loader, [(self.state, self.net_state, self.seed)])[0]
 
-        One pass over the loader, in windows of stacked batches; within a
-        window every sample's CE accumulates.  Sample s is regenerated in
-        each window from the generator keyed (seed, LIKELIHOOD, s), so it is
-        the same sample in every window."""
+    @torch.no_grad()
+    def chains_likelihoods(self, train_loader, chains):
+        """full_batch_likelihoods of each (state, net_state, seed) in
+        `chains`, in one pass over the loader, so that every chain sees the
+        same examples.
+
+        The pass runs in windows of stacked batches; within a window every
+        sample's CE accumulates.  Sample s of a chain is regenerated in each
+        window from the generator keyed (seed, LIKELIHOOD, s), so it is the
+        same sample in every window."""
         self.logger.info(
             "Calculating full-batch likelihood for current cycle using %d "
             "samples...", max(1, self.nst))
-        state = self.state
-        mean, var = state.moments.mean_var()
-        n = self._moments_count(state)
-        # a cycle that collected nothing has an all-zero mean: centre on the
-        # live iterate instead
-        center = state.theta if (self.LIK_CENTER == "iterate" or n == 0) \
-            else mean
         nst = max(1, self.nst)
-        std = torch.sqrt(var) if (self.nst > 0 and n > 1) else None
+        setups = []
+        for state, ns, seed in chains:
+            mean, var = state.moments.mean_var()
+            n = self._moments_count(state)
+            # a cycle that collected nothing has an all-zero mean: centre on
+            # the live iterate instead
+            center = state.theta if (self.LIK_CENTER == "iterate" or n == 0) \
+                else mean
+            std = torch.sqrt(var) if (self.nst > 0 and n > 1) else None
+            setups.append((center, std, ns, seed))
 
-        tot = np.zeros(nst)
+        tot = np.zeros((len(chains), nst))
         cnt = 0.0
         for xs, ys, vs in window_batches(train_loader):
             xs_d = self._to_device(xs)
             ys_d = self._to_device(ys).long()
             vs_d = self._to_device(vs)
-            for s in range(nst):
-                theta_s = center
-                if std is not None:
-                    gen = rng.generator(self.device, self.cfg.seed,
-                                        rng.LIKELIHOOD, s)
-                    theta_s = center + std * torch.randn(
-                        center.shape, generator=gen, device=self.device)
-                acc = torch.zeros((), device=self.device)
-                for b in range(xs_d.shape[0]):
-                    logits, _ = self.target.forward(theta_s, self.net_state,
-                                                    xs_d[b], train=False)
-                    picked = torch.log_softmax(logits, -1).gather(
-                        1, ys_d[b][:, None])[:, 0]
-                    acc += torch.sum(-picked * vs_d[b])
-                tot[s] += float(acc)
+            for k, (center, std, ns, seed) in enumerate(setups):
+                for s in range(nst):
+                    theta_s = center
+                    if std is not None:
+                        gen = rng.generator(self.device, seed,
+                                            rng.LIKELIHOOD, s)
+                        theta_s = center + std * torch.randn(
+                            center.shape, generator=gen, device=self.device)
+                    acc = torch.zeros((), device=self.device)
+                    for b in range(xs_d.shape[0]):
+                        logits, _ = self.target.forward(theta_s, ns, xs_d[b],
+                                                        train=False)
+                        picked = torch.log_softmax(logits, -1).gather(
+                            1, ys_d[b][:, None])[:, 0]
+                        acc += torch.sum(-picked * vs_d[b])
+                    tot[k, s] += float(acc)
             cnt += float(vs.sum())
-        return np.exp(-tot / cnt)
+        return list(np.exp(-tot / cnt))
 
     # ---- GMM predictive -----------------------------------------------------
 
     def gmm_weights(self) -> Dict[int, float]:
         """w_c = [mean_i 1/p_i]^-1, normalised."""
-        cycles = [c for c in self.cycle_stats
-                  if "likelihoods" in self.cycle_stats[c]]
-        if not cycles:
-            return {0: 1.0}
-        weights = {}
-        for c in cycles:
-            lik = np.maximum(self.cycle_stats[c]["likelihoods"], 1e-300)
-            weights[c] = 1.0 / np.mean(1.0 / lik)
-        total = sum(weights.values())
-        if total > 0:
-            return {c: w / total for c, w in weights.items()}
-        return {c: 1.0 / len(weights) for c in weights}
+        return gmm_weights_of(self.cycle_stats)
 
     def pred_state(self):
         return self.state.theta
@@ -269,23 +311,30 @@ class CyclicalRunnerBase(base.BaseRunner):
         from the generator keyed (seed, EVAL, c, i)."""
         if not any("likelihoods" in v for v in self.cycle_stats.values()):
             return self._point_evaluate(loader)
-        weights = self.gmm_weights()
-        comps = [(c, w) for c, w in sorted(weights.items()) if w >= 1e-10]
-        moments = {c: (self._to_device(self.cycle_stats[c]["mean"]),
-                       self._to_device(self.cycle_stats[c]["var"]))
-                   for c, _ in comps}
+        comps = [(w, self.cycle_stats[c]["mean"], self.cycle_stats[c]["var"],
+                  self.net_state, self.seed, c)
+                 for c, w in sorted(self.gmm_weights().items()) if w >= 1e-10]
+        return self.mixture_evaluate(loader, comps)
 
+    @torch.no_grad()
+    def mixture_evaluate(self, loader, comps):
+        """The mixture of Gaussian components `comps`, a list of (weight,
+        mean, var, net_state, seed, comp_id) with mean and var on the host:
+        per component the Monte-Carlo averaged log-probs (raw logits when
+        nst = 0), summed with the weights on the host.  The component's
+        batch i draws from the generator keyed (seed, EVAL, comp_id, i)."""
+        moments = [(self._to_device(mean), self._to_device(var))
+                   for _, mean, var, *_ in comps]
         loss_sum, err_sum, n = 0.0, 0.0, 0.0
         targets, logits_list, logits_all_list = [], [], []
         for i, (x, y, valid) in enumerate(loader):
             xd = self._to_device(x)
             mix = None
             comp_stack = []
-            for c, w in comps:
-                gen = rng.generator(self.device, self.cfg.seed, rng.EVAL, c, i)
+            for (w, _, _, ns, seed, cid), (mean, var) in zip(comps, moments):
+                gen = rng.generator(self.device, seed, rng.EVAL, cid, i)
                 la = base.gaussian_sample_logits(
-                    self.target, self.net_state, *moments[c], xd, gen,
-                    self.nst)  # [S, B, K]
+                    self.target, ns, mean, var, xd, gen, self.nst)  # [S, B, K]
                 comp_out = la[0] if self.nst == 0 else base.combine_mc_logits(la)
                 comp_out = comp_out.cpu().numpy()
                 comp_stack.append(la.cpu().numpy().transpose(1, 0, 2))

@@ -65,7 +65,7 @@ class Runner(base.BaseRunner):
 
     def _train_uniform(self, step: int) -> torch.Tensor:
         """The uniform draw behind the keep-mask of `step`."""
-        return self._uniform(rng.generator(self.device, self.cfg.seed,
+        return self._uniform(rng.generator(self.device, self.seed,
                                            rng.MC_DROPOUT, step))
 
     def _sample_z(self, u: torch.Tensor) -> torch.Tensor:
@@ -109,6 +109,12 @@ class Runner(base.BaseRunner):
         state.step += 1
         loss = loss_nll.detach() + self.kld * loss_kl / nd_size
         return state, new_ns, (loss, base.err_count(logits, y))
+
+    def iterate(self, state):
+        return state.m
+
+    def with_iterate(self, state, vec):
+        return dataclasses.replace(state, m=vec)
 
     def pred_state(self):
         return self.state.m

@@ -52,7 +52,7 @@ class Runner(sgld.Runner):
         return fused.sghmc_update_(
             g, state.theta, self.target.theta0, state.v, self.prior_mask,
             self.lr_vec, prior_sig=self.prior_sig, n_eff=self.n_eff,
-            nd=self.nd, alpha=self.momentum_decay, seed=self.cfg.seed,
+            nd=self.nd, alpha=self.momentum_decay, seed=self.seed,
             step=step)[0]
 
     def extra_ckpt(self):

@@ -76,7 +76,7 @@ class Runner(base.BaseRunner):
         return fused.sgld_update_(
             g, state.theta, self.target.theta0, self.prior_mask, self.lr_vec,
             prior_sig=self.prior_sig, n_eff=self.n_eff, nd=self.nd,
-            seed=self.cfg.seed, step=step)
+            seed=self.seed, step=step)
 
     def _step(self, state, ns, x, y, step, scalars):
         # the views into this leaf carry the forward, so the gradient comes

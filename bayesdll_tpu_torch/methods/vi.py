@@ -76,7 +76,7 @@ class Runner(base.BaseRunner):
 
     def _train_normal(self, step: int) -> torch.Tensor:
         """The reparameterisation draw eps ~ N(0, I) of `step`."""
-        gen = rng.generator(self.device, self.cfg.seed, rng.VI, step)
+        gen = rng.generator(self.device, self.seed, rng.VI, step)
         return torch.randn(self.target.dim, generator=gen, device=self.device)
 
     def _step(self, state, ns, x, y, step, scalars):
@@ -100,6 +100,12 @@ class Runner(base.BaseRunner):
         state.step += 1
         loss = loss_nll.detach() + self.kld * loss_kl / nd_size
         return state, new_ns, (loss, base.err_count(logits, y))
+
+    def iterate(self, state):
+        return state.m
+
+    def with_iterate(self, state, vec):
+        return dataclasses.replace(state, m=vec)
 
     def pred_state(self):
         s = torch.clamp(self.state.s_, min=S_CLAMP)

@@ -1,0 +1,337 @@
+"""Multi-chain runner: the train / eval / calibrate workflow of C chains on
+one card (counterpart of bayesdll_tpu.parallel.runner).
+
+Wraps a single-chain runner of any of the eleven methods with:
+  * the chains' training (parallel/chains.py);
+  * a combined predictive that treats the chains as more posterior samples:
+    for the cyclical methods a chains x cycles mixture (each chain's GMM
+    weights over its cycles, the chains weighted equally); for Laplace
+    after stage 2 a mixture of the chains' N(θ_MAP, vars); for every other
+    method and state each chain's own predictive (its `pred_state` and
+    `_predict_logits`), the chains' samples pooled;
+  * per chain, as the single-chain runners do it: the cycle-end snapshot
+    and full-train likelihoods, the cycle-start resets and cold restarts,
+    Laplace's best-val iterate and stage-2 Fisher, cSGHMC-FS's snapshots
+    and their model average;
+  * BaseRunner's best-checkpoint, calibration and artifact protocol, and a
+    pickle checkpoint `chains_ckpt.pkl` that resumes bit for bit.
+
+Chain c's draws come from its own seed (trainer.seeds[c]): its eval and
+likelihood draws are those of a single-chain run with that seed.  Every
+chain forwards with its own net_state.  The sharded orbax checkpoint and
+multi-host runs are not ported (ROADMAP.md queue 1, 'Multi-device').
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import time
+
+import numpy as np
+import torch
+
+from bayesdll_tpu_torch.core import rng
+from bayesdll_tpu_torch.methods import base
+from bayesdll_tpu_torch.methods.cyclical_base import gmm_weights_of
+from bayesdll_tpu_torch.parallel.chains import (MULTI_DEVICE,
+                                                MultiChainTrainer, clone_tree)
+
+
+class MultiChainRunner:
+    def __init__(self, runner, n_chain: int = None, *, logger=None,
+                 workdir=None, fsdp: bool = False):
+        self.runner = runner
+        self.trainer = MultiChainTrainer(runner, n_chain, fsdp=fsdp)
+        self.logger = logger or runner.logger
+        self.workdir = workdir or runner.workdir
+        if self.workdir:
+            os.makedirs(self.workdir, exist_ok=True)
+        self.cfg = runner.cfg
+        self.device = runner.device
+        self.results = {}
+        self._la_stage2 = None  # (means [C, D], vars [C, D]) after stage 2
+        self._la_best = None  # [losses [C], thetas [C], net_states [C]]
+        self._is_cyclical = hasattr(runner, "_ensure_sched")
+        self.chain_cycle_stats = []  # chain -> cycle -> stats
+        self._train_loader = None
+
+    # BaseRunner's best-eval, artifact and calibration protocol, as is
+    _eval_and_maybe_save = base.BaseRunner._eval_and_maybe_save
+    _calibrate = base.BaseRunner._calibrate
+    save_logits = base.BaseRunner.save_logits
+    _predictive_loop = base.BaseRunner._predictive_loop
+    _to_device = base.BaseRunner._to_device
+
+    def train(self, train_loader, val_loader, test_loader, start_epoch=0):
+        cfg, logger, r, tr = self.cfg, self.logger, self.runner, self.trainer
+        self._train_loader = train_loader
+        if self._is_cyclical:
+            r._ensure_sched(len(train_loader))
+            r._train_loader = train_loader
+            if not self.chain_cycle_stats:  # load_ckpt may have filled it
+                self.chain_cycle_stats = [{} for _ in range(tr.n_chain)]
+        logger.info("Start multi-chain training: %d chains on %s",
+                    tr.n_chain, self.device)
+        best_loss = np.inf
+        tic0 = time.time()
+        is_la = hasattr(r, "estimate_variance")
+        self._la_best = None
+        after_batch = self._cyclical_after_batch if self._is_cyclical \
+            else None
+        losses, errs = [], []
+        for ep, loss, err in tr.train_epochs(train_loader, cfg.epochs,
+                                             after_batch=after_batch,
+                                             start_epoch=start_epoch):
+            losses.append(loss)
+            errs.append(err)
+            logger.info("[Epoch %d/%d] multi-chain mean loss = %.4f, "
+                        "prediction error = %.4f", ep, cfg.epochs, loss, err)
+            if is_la:
+                self._track_la_best(val_loader or test_loader, ep)
+            if hasattr(r, "multi_chain_epoch_end"):
+                r.multi_chain_epoch_end(self, ep)
+            ready = any(self.chain_cycle_stats) if self._is_cyclical \
+                else r.eval_ready(ep)
+            if ep % cfg.test_eval_freq == 0 and ready \
+                    and test_loader is not None:
+                best_loss = self._eval_and_maybe_save(
+                    ep, val_loader, test_loader, best_loss)
+        self.results.update(train_losses=losses, train_errors=errs)
+
+        if is_la:
+            # Laplace's stage 2 on each chain's best-val iterate, then the
+            # final eval with the chains' Laplace mixture
+            self._la_stage2 = self._chain_laplace(train_loader)
+            if test_loader is not None:
+                best_loss = self._eval_and_maybe_save(
+                    cfg.epochs - 1, val_loader, test_loader, np.inf)
+
+        if getattr(r, "full_samples", None):
+            # cSGHMC-FS: the model average over every chain's snapshots
+            self.results["bma"] = r.evaluate_full_samples(
+                train_loader, val_loader, test_loader)
+
+        self.results.setdefault("best_loss", float(best_loss))
+        self.results["total_time"] = time.time() - tic0
+        self.save_ckpt(cfg.epochs - 1)
+        return self.results
+
+    # ---- Laplace --------------------------------------------------------------
+
+    @torch.no_grad()
+    def _per_chain_point_losses(self, loader) -> np.ndarray:
+        """[C] mean CE of each chain's iterate over `loader` (eval mode,
+        its own net_state)."""
+        r, tr = self.runner, self.trainer
+        tot = [torch.zeros((), device=self.device) for _ in range(tr.n_chain)]
+        n = 0.0
+        for x, y, valid in loader:
+            xd, yd = self._to_device(x), self._to_device(y).long()
+            vd = self._to_device(valid)
+            for c in range(tr.n_chain):
+                logits, _ = r.target.forward(r.iterate(tr.states[c]),
+                                             tr.net_states[c], xd, train=False)
+                picked = torch.log_softmax(logits, -1).gather(
+                    1, yd[:, None])[:, 0]
+                tot[c] += torch.sum(-picked * vd)
+            n += float(valid.sum())
+        return np.array([float(t) for t in tot]) / max(n, 1.0)
+
+    def _track_la_best(self, loader, ep: int):
+        """Each chain's best-val iterate and its net_state (copies), which
+        stage 2 takes as the MAP, as the reference reloads its best
+        checkpoint (`methods/la.py:124-143`)."""
+        if loader is None:
+            return  # stage 2 then takes the final iterates
+        tr = self.trainer
+        losses = self._per_chain_point_losses(loader)
+        if self._la_best is None:
+            self._la_best = [losses, [None] * tr.n_chain,
+                             [None] * tr.n_chain]
+            improved = np.ones(tr.n_chain, bool)
+        else:
+            improved = losses < self._la_best[0]
+            if improved.any():
+                self.logger.info("LA best-val improved on chains %s at epoch "
+                                 "%d", np.nonzero(improved)[0].tolist(), ep)
+        best_l, best_t, best_ns = self._la_best
+        for c in np.nonzero(improved)[0]:
+            best_l[c] = losses[c]
+            best_t[c] = self.runner.iterate(tr.states[c]).clone()
+            best_ns[c] = clone_tree(tr.net_states[c])
+
+    def _chain_laplace(self, train_loader):
+        """Stage 2 per chain, one after another: the diagonal Fisher at the
+        chain's best-val iterate (else its final one) with the matching
+        net_state.  Returns (means, vars), [C, D] each."""
+        r, tr = self.runner, self.trainer
+        means, vars_, secs = [], [], []
+        saved_map = r.map_theta
+        try:
+            for c in range(tr.n_chain):
+                if self._la_best is not None:
+                    theta, ns = self._la_best[1][c], self._la_best[2][c]
+                else:
+                    theta, ns = r.iterate(tr.states[c]), tr.net_states[c]
+                self.logger.info("LA stage 2: Fisher for chain %d/%d", c,
+                                 tr.n_chain)
+                tic = time.time()
+                with r.bound(tr.states[c], ns, tr.seeds[c]):
+                    r.map_theta = theta
+                    vars_.append(r.estimate_variance(train_loader))
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                secs.append(time.time() - tic)
+                means.append(theta)
+        finally:
+            r.map_theta = saved_map
+        self.results["fisher_time_per_chain"] = secs
+        return torch.stack(means), torch.stack(vars_)
+
+    # ---- the cyclical methods, per chain ----------------------------------------
+
+    def _cyclical_after_batch(self, ep: int):
+        """At a cycle's last step, on every chain: its cycle's moments and
+        full-train likelihoods (`_chain_likelihoods`), then fresh moments
+        and the method's cycle-start reset."""
+        r, tr = self.runner, self.trainer
+        step = tr.bi - 1
+        if not r.sched.last_in_cycle_py(step):
+            return
+        cycle = r.sched.cycle_number_py(step)
+        liks = self._chain_likelihoods()
+        for c, state in enumerate(tr.states):
+            mean, var = state.moments.mean_var()
+            self.chain_cycle_stats[c][cycle] = {
+                "mean": base.to_host(mean), "var": base.to_host(var),
+                "n": int(r._moments_count(state)), "likelihoods": liks[c]}
+        self.logger.info(
+            "Completed cycle %d on %d chains (mean likelihood %.3e)",
+            cycle, tr.n_chain, float(np.mean([lk.mean() for lk in liks])))
+        tr.reset_cycle_moments()
+        r.multi_chain_cycle_start(tr, cycle + 1)
+
+    def _chain_likelihoods(self):
+        """Each chain's full-train likelihoods of nst samples around its
+        LIK_CENTER with its cycle's variance, every chain on the same
+        examples (one pass over the loader), with its own net_state and
+        its own draws."""
+        tr = self.trainer
+        return self.runner.chains_likelihoods(
+            self._train_loader, list(zip(tr.states, tr.net_states, tr.seeds)))
+
+    def gmm_weights_per_chain(self):
+        """Each chain's GMM weights over its cycles, normalised within the
+        chain (reference `methods/csgld.py:565-594`)."""
+        return [gmm_weights_of(stats) for stats in self.chain_cycle_stats]
+
+    # ---- checkpoint -------------------------------------------------------------
+
+    def save_ckpt(self, ep: int, fname: str = "chains_ckpt.pkl"):
+        """Every chain's sampler state and net_state, the step counter and
+        the per-chain GMM registries: what a bit-identical resume needs."""
+        if not self.workdir:
+            return None
+        tr = self.trainer
+        path = os.path.join(self.workdir, fname)
+        payload = {
+            "epoch": ep,
+            "bi": tr.bi,
+            "method": self.runner.method_name,
+            "n_chain": tr.n_chain,
+            "seeds": tr.seeds,
+            "states": [base.to_host(s) for s in tr.states],
+            "net_states": [base.to_host(ns) for ns in tr.net_states],
+            "chain_cycle_stats": self.chain_cycle_stats,
+        }
+        with open(path, "wb") as f:
+            pickle.dump(payload, f)
+        self.logger.info("Multi-chain checkpoint saved at %s", path)
+        return path
+
+    def load_ckpt(self, path: str) -> int:
+        """Restore a `chains_ckpt.pkl`; returns the epoch it was saved at."""
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                f"orbax checkpoint directory {path}: {MULTI_DEVICE}")
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        tr = self.trainer
+        if payload["n_chain"] != tr.n_chain:
+            raise ValueError(
+                f"checkpoint has {payload['n_chain']} chains, runner has "
+                f"{tr.n_chain}; restart with matching --num_chains")
+        if payload["seeds"] != tr.seeds:
+            raise ValueError("checkpoint's chain seeds differ from the "
+                             "runner's; restart with the run's --seed")
+        tr.states = [base.from_host(t, s, self.device)
+                     for t, s in zip(tr.states, payload["states"])]
+        tr.net_states = [base.from_host(t, s, self.device)
+                         for t, s in zip(tr.net_states, payload["net_states"])]
+        tr.bi = self.runner.bi = int(payload.get("bi", 0))
+        self.chain_cycle_stats = payload.get("chain_cycle_stats", [])
+        self.logger.info("Multi-chain checkpoint loaded from %s (epoch %d, "
+                         "step %d)", path, payload["epoch"], tr.bi)
+        return payload["epoch"]
+
+    # ---- the combined predictive ----------------------------------------------
+
+    @torch.no_grad()
+    def evaluate(self, loader):
+        """The chains' combined predictive, by method family: the chains x
+        cycles GMM mixture once a cycle has completed (cyclical methods);
+        the chains' Laplace mixture after stage 2; else each chain's own
+        predictive, the chains' samples pooled (for SGLD, SGHMC and
+        Adam-SGHMC that is the mixture of the chains' Gaussian moments).
+        Returns what BaseRunner.evaluate returns, logits_all [N, C*S, K]."""
+        if self._is_cyclical and any(self.chain_cycle_stats):
+            return self._gmm_evaluate(loader)
+        if self._la_stage2 is not None:
+            means, vars_ = self._la_stage2
+            ns = self._la_best[2] if self._la_best is not None else None
+            return self._gaussian_evaluate(loader, means, vars_, ns)
+        return self._generic_evaluate(loader)
+
+    def _gmm_evaluate(self, loader):
+        """Within each chain the GMM weights over its cycles, across chains
+        equal weights; chain c's component of cycle k draws as a
+        single-chain run with the chain's seed draws for cycle k."""
+        tr = self.trainer
+        comps = []
+        for c, w in enumerate(self.gmm_weights_per_chain()):
+            for cyc, wv in sorted(w.items()):
+                if wv >= 1e-10:
+                    st = self.chain_cycle_stats[c][cyc]
+                    comps.append((wv / tr.n_chain, st["mean"], st["var"],
+                                  tr.net_states[c], tr.seeds[c], cyc))
+        return self.runner.mixture_evaluate(loader, comps)
+
+    def _gaussian_evaluate(self, loader, means, vars_, net_states=None):
+        """The mixture of the chains' N(means[c], vars_[c]), each chain
+        forwarding with its net_state (default: its trained one)."""
+        r, tr = self.runner, self.trainer
+        net_states = net_states or tr.net_states
+
+        def pred(x, i):
+            return torch.cat([base.gaussian_sample_logits(
+                r.target, net_states[c], means[c], vars_[c], x,
+                rng.generator(self.device, tr.seeds[c], rng.EVAL, 0, i),
+                r.nst) for c in range(tr.n_chain)])
+        return self._predictive_loop(loader, pred)
+
+    def _generic_evaluate(self, loader):
+        """Each chain's `pred_state` and `_predict_logits` under its own
+        binding, the chains' samples pooled."""
+        r, tr = self.runner, self.trainer
+        ps = [r.pred_state_from(s, ns)
+              for s, ns in zip(tr.states, tr.net_states)]
+
+        def pred(x, i):
+            out = []
+            for c in range(tr.n_chain):
+                with r.bound(tr.states[c], tr.net_states[c], tr.seeds[c]):
+                    out.append(r._predict_logits(ps[c], x, rng.generator(
+                        self.device, tr.seeds[c], rng.EVAL, 0, i)))
+            return torch.cat(out)
+        return self._predictive_loop(loader, pred)

@@ -29,11 +29,18 @@ Phases, one line each:
      every method but cSGLD and cSGHMC-FS, VI and MC-dropout with the same
      draws on both; a ResNet with one bottleneck per stage, and its
      vmapped Fisher against the one-example loop; vit_tiny, and its remat
-     gradient);
+     gradient); multi-chain runs (MultiChainRunner, 2 chains): all eleven
+     methods on the full-width MLP with the JAX smoke matrix's settings,
+     the JAX package's two big smokes (2-chain cSGHMC with the GMM
+     predictive and 2-chain Laplace on the full-width ResNet-50, bf16,
+     batch 32) through the port's CLI, and width-32 cSGHMC and SGHMC runs
+     whose every chain equals, bit for bit, the single-chain run from its
+     initial state, batches and seed;
   4. times with CUDA events: each kernel, its plain version, its bound, at
      each main path's D (all three at ViT-L/32's), and the training steps:
-     the MLP's cSGHMC (fp32 and bf16) and SGHMC steps and the seven other
-     methods' steps, ResNet-101's and ViT-L/32's cSGHMC steps (without
+     the MLP's cSGHMC (fp32 and bf16, and fp32 on one and on two chains)
+     and SGHMC steps and the seven other methods' steps, the 2-chain
+     ResNet-50 cSGHMC step, ResNet-101's and ViT-L/32's cSGHMC steps (without
      remat and with remat_policy="names"), ViT-L/32's Adam-cSGHMC step and
      ViT-B/16's cSGHMC step (ms/step, gradient-evals/s, TFLOP/s, the share
      of the bf16 peak, peak device memory);
@@ -1031,7 +1038,8 @@ def phase_profile(smi, what, runner, xs, ys, ms_step, sampler, pieces=False,
     sampler's share is that of the kernels named after `sampler`.  With
     `pieces`, also the device time under each labelled piece
     (`labelled_pieces`) and autograd node of PIECE_NODES.  The steps run
-    from step bi0 (default: the runner's next)."""
+    from step bi0 (default: the runner's next).  Returns the device us per
+    step, or None where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     bi0 = runner.bi if bi0 is None else bi0
     collects = collect_steps(runner, bi0, len(xs)) if pieces else 0
@@ -1060,7 +1068,7 @@ def phase_profile(smi, what, runner, xs, ys, ms_step, sampler, pieces=False,
     if total <= 0:
         print(f"phase 5: {what}: profiler recorded no device time: "
               "breakdown not measured", flush=True)
-        return
+        return None
     fam_shares, shares = breakdown(per_kernel)
     samp = sum(us for name, us in per_kernel.items() if sampler in name)
     extra = ""
@@ -1077,6 +1085,7 @@ def phase_profile(smi, what, runner, xs, ys, ms_step, sampler, pieces=False,
           f"{ms_step:.3f} ms/step; {sampler} {samp:.1f} us/step "
           f"({samp / total:.2%} of device time); by family: {fam_shares}; "
           f"by kernel: {shares}{extra}", flush=True)
+    return total
 
 
 def breakdown(per_kernel: dict):
@@ -1726,6 +1735,419 @@ def phase_vit_adam_step(smi, vit, xs, ys):
                          VIT_STEPS)
 
 
+# ---- multi-chain runs ---------------------------------------------------------
+
+# the JAX package's hardware smoke matrix (tools/tpu_smoke_all_methods.py:
+# 24-49) at num_chains=2: the seven methods of SMOKE with its deviations,
+# and SGLD, SGHMC, cSGLD and cSGHMC with the matrix's hparams and lr.
+# method -> (hparams, lr, epochs)
+CHAIN_SMOKE = {
+    **SMOKE,
+    "sgld": ("prior_sig=1.0,Ninflate=1.0,nd=0.05,burnin=0,thin=2,"
+             "bias=informative,nst=2", 2e-2, 2),
+    "sghmc": ("prior_sig=1.0,Ninflate=1.0,nd=0.05,burnin=0,thin=2,"
+              "bias=informative,nst=2,momentum_decay=0.05", 2e-2, 2),
+    "csgld": ("prior_sig=1.0,Ninflate=1.0,nd=0.01,thin=2,bias=informative,"
+              "nst=2", 2e-2, 2),
+    "csghmc": ("prior_sig=0.05,Ninflate=1.0,nd=0.01,thin=2,bias=informative,"
+               "nst=2,momentum_decay=0.05", 2e-2, 2),
+}
+N_CHAINS = 2
+# the kernel each chain's step launches; the other methods launch none
+CHAIN_KERNEL = {"sgld": "sgld_update", "csgld": "sgld_update",
+                "sghmc": "sghmc_update", "csghmc": "csghmc_update",
+                "csghmc_fs": "csghmc_update"}
+
+
+def phase_chain_path(method):
+    """One method at num_chains=2 on the full-width MLP through
+    MultiChainRunner.train, every kernel's count set to 0 just before and
+    read just after: C x steps launches of the method's kernel, none of the
+    others; artifacts in a temporary directory, deleted after."""
+    from bayesdll_tpu_torch.config import Config
+    from bayesdll_tpu_torch.ops import kernels
+    from bayesdll_tpu_torch.parallel import MultiChainRunner
+
+    hp, lr, epochs = CHAIN_SMOKE[method]
+    cfg = Config(method=method, hparams=hp, dataset="synthetic",
+                 backbone="mlp_mnist", epochs=epochs, batch_size=SMOKE_BATCH,
+                 lr=lr, num_cycles=2, seed=0, device="cuda",
+                 num_chains=N_CHAINS)
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix=f"{method}_chains_", dir=SCRATCH))
+    try:
+        runner, loaders = make_runner(cfg, workdir=str(work))
+        check(runner.target.n_params == 2_797_010, "full-width mlp_mnist")
+        mc = MultiChainRunner(runner, workdir=str(work))
+        reset_launches()
+        tic = time.perf_counter()
+        res = mc.train(*loaders)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - tic
+        counts = read_launches()
+        files = {p.relative_to(work).as_posix() for p in work.rglob("*")
+                 if p.is_file()}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    what = f"{method} mlp_mnist {N_CHAINS} chains"
+    steps = epochs * len(loaders[0])
+    want = {k: 0 for k in kernels.KERNELS}
+    if method in CHAIN_KERNEL:
+        want[CHAIN_KERNEL[method]] = N_CHAINS * steps
+    check(counts == want, f"{what}: launches {counts}, want {want}")
+    thetas = mc.trainer.iterates()
+    check(bool(torch.isfinite(thetas).all()), f"{what}: every chain's θ finite")
+    gap = float((thetas[0] - thetas[1]).abs().max())
+    check(gap > 1e-6, f"{what}: the chains' θ differ ({gap})")
+    check(all(math.isfinite(x) for x in res["train_losses"]),
+          f"{what}: finite losses")
+    for key in ("nll", "ece", "mce"):
+        check(key in res and math.isfinite(res[key]), f"{what}: result {key}")
+    check(res["test_err"] < 0.5, f"{what}: chain-mixture test error "
+          f"{res['test_err']} well below chance (0.9)")
+    check({"chains_ckpt.pkl", "logits_test.pkl"} <= files,
+          f"{what}: artifacts {sorted(files)}")
+    extra = ""
+    if mc.chain_cycle_stats:
+        weights = mc.gmm_weights_per_chain()
+        check(all(w and abs(sum(w.values()) - 1.0) < 1e-9 for w in weights),
+              f"{what}: per-chain GMM weights sum to 1: {weights}")
+        extra = "GMM weights " + weights_text(weights)
+    if method == "csghmc_fs":
+        snaps = sorted(mc.runner.full_samples)
+        want_snaps = [(c, ep) for c in range(N_CHAINS) for ep in FS_SNAPSHOTS]
+        check(snaps == want_snaps, f"{what}: snapshots {snaps}")
+        check({f"full_samples_net_chain{c}_ep{ep}.pkl" for c, ep in snaps}
+              <= files, f"{what}: snapshot files {sorted(files)}")
+        bma = res["bma"]
+        check(bma["test_ensemble_err"] < 0.5,
+              f"{what}: BMA test error {bma['test_ensemble_err']}")
+        extra += f"; snapshots {snaps}; BMA test error " \
+                 f"{bma['test_ensemble_err']:.4f}"
+    elif method == "la":
+        sig2 = runner.prior_sig ** 2
+        _, vars_ = mc._la_stage2
+        check(bool(torch.isfinite(vars_).all()), f"{what}: vars finite")
+        lo, hi = float(vars_.min()), float(vars_.max())
+        check(0.0 < lo and hi <= sig2 + 1e-8,
+              f"{what}: 0 < vars <= prior_sig^2 = {sig2}: [{lo}, {hi}]")
+        extra = (f"vars in [{lo:.4g}, {hi:.4g}]; Fisher per chain "
+                 f"{[round(t, 2) for t in res['fisher_time_per_chain']]} s")
+    print(f"phase 3c: [{CARD}] {what} D={runner.target.dim} lr={lr} batch "
+          f"{SMOKE_BATCH}, {epochs} epochs = {steps} steps per chain in "
+          f"{secs:.2f} s incl. eval; launches {counts}; mean losses="
+          f"{[round(x, 4) for x in res['train_losses']]}; nll={res['nll']:.4f} "
+          f"ece={res['ece']:.4f} test_err={res['test_err']:.4f}; chains' θ "
+          f"max gap {gap:.4g}; {extra}", flush=True)
+    return counts
+
+
+def weights_text(weights) -> str:
+    return "; ".join(f"chain {c}: " + ", ".join(
+        f"cycle {k} {v:.4f}" for k, v in sorted(w.items()))
+        for c, w in enumerate(weights))
+
+
+class ChainBatches:
+    """Chain c's batches for a single-chain runner: in the epoch of the
+    runner's step counter, `chain_view(c, epoch)` of the train loader."""
+
+    def __init__(self, loader, c, runner):
+        self.loader, self.c, self.runner = loader, c, runner
+        self.batch_size = loader.batch_size
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        return iter(self.loader.chain_view(
+            self.c, self.runner.bi // len(self.loader)))
+
+
+def phase_chain_reference(method, hp, fields, momentum=0.0):
+    """Chain c of a 2-chain run on the card equals, bit for bit, the
+    single-chain run on the card that starts from chain c's initial state,
+    takes chain c's batches and has chain c's seed: width-32 MLP, fp32 with
+    TF32 off, noise on, 4 epochs of 2 cycles."""
+    from bayesdll_tpu_torch.config import Config
+    from bayesdll_tpu_torch.parallel import MultiChainRunner
+
+    def config(seed=0):
+        cfg = Config(method=method, hparams=dict(hp), dataset="synthetic",
+                     backbone="mlp_mnist", epochs=4, batch_size=64, lr=1e-2,
+                     momentum=momentum, num_cycles=2, seed=seed,
+                     val_heldout=0.15, device="cuda")
+        cfg.synthetic_n_train = 512
+        cfg.synthetic_n_test = 256
+        return cfg
+
+    runner, loaders = make_runner(config(), width=32, depth=2)
+    mc = MultiChainRunner(runner, N_CHAINS)
+    start = [runner.iterate(s).clone() for s in mc.trainer.states]
+    reset_launches()
+    mc.train(*loaders)
+    launched = sum(read_launches().values())
+    for c, seed in enumerate(mc.trainer.seeds):
+        single, sl = make_runner(config(), width=32, depth=2)
+        single.cfg = dataclasses.replace(single.cfg, seed=seed)
+        single.seed = seed
+        single.state = single.init_state(start[c].clone())
+        single.train(ChainBatches(sl[0], c, single), *sl[1:])
+        for f in fields:
+            a, b = getattr(single.state, f), getattr(mc.trainer.states[c], f)
+            check(torch.equal(a, b), f"{method}: chain {c} vs its single-chain "
+                  f"run, {f}: max abs diff {float((a - b).abs().max())}")
+    check(launched == N_CHAINS * mc.trainer.bi,
+          f"{method}: {launched} launches in {mc.trainer.bi} steps")
+    a, b = (s.theta for s in mc.trainer.states)
+    print(f"phase 3b: {method} width-32 MLP fp32, {N_CHAINS} chains x "
+          f"{mc.trainer.bi} steps with noise on the card: each chain bitwise "
+          f"equal ({', '.join(fields)}) to the single-chain run from its "
+          f"initial θ, batches and seed; chains' θ max gap "
+          f"{float((a - b).abs().max()):.4g}", flush=True)
+
+
+class ChainSteps:
+    """A multi-chain trainer in the shape the step timers take (cfg, bi,
+    run_steps over [K, C, B, ...] batches)."""
+
+    def __init__(self, trainer):
+        self.trainer, self.cfg = trainer, trainer.runner.cfg
+
+    @property
+    def bi(self):
+        return self.trainer.bi
+
+    def run_steps(self, ep, xs, ys, bi0):
+        return self.trainer.run_steps(ep, xs, ys, bi0)
+
+
+def stacked_batches(loader, steps: int):
+    """The loader's first `steps` batches on the card, [K, B, ...] (repeated
+    where the loader has fewer)."""
+    xs, ys = [], []
+    for x, y, _ in loader:
+        xs.append(x)
+        ys.append(y)
+    xs = [xs[i % len(xs)] for i in range(steps)]
+    ys = [ys[i % len(ys)] for i in range(steps)]
+    return (torch.from_numpy(np.stack(xs)).cuda(),
+            torch.from_numpy(np.stack(ys)).cuda())
+
+
+def phase_chain_step_time(smi, runner, loaders):
+    """The full-width MLP cSGHMC step (batch 128, fp32) on one chain and on
+    two chains in turns (1, 2, 2, 1), run_steps over the same batches (the
+    second chain's shifted by one step); host ms/step and the profile's
+    device us/step of each."""
+    from bayesdll_tpu_torch.parallel import MultiChainTrainer
+    trainer = MultiChainTrainer(runner, N_CHAINS)
+    two = ChainSteps(trainer)
+    xs, ys = stacked_batches(loaders[0], STEPS_TIMED)
+    xs2 = torch.stack([xs, xs.roll(1, dims=0)], 1)
+    ys2 = torch.stack([ys, ys.roll(1, dims=0)], 1)
+    host = {1: [], 2: []}
+    for n in (1, 2, 2, 1):
+        steps = (runner, xs, ys) if n == 1 else (two, xs2, ys2)
+        host[n].append(host_s_per_step(*steps, f"csghmc {n} chain")[0] * 1e3)
+    ms = {n: sum(v) / len(v) for n, v in host.items()}
+    dev = {1: phase_profile(smi, "csghmc mlp_mnist 1 chain", runner,
+                            xs[:PROFILED_STEPS], ys[:PROFILED_STEPS], ms[1],
+                            "csghmc_update"),
+           2: phase_profile(smi, f"csghmc mlp_mnist {N_CHAINS} chains", two,
+                            xs2[:PROFILED_STEPS], ys2[:PROFILED_STEPS], ms[2],
+                            "csghmc_update")}
+    shown = "; ".join(
+        f"{n} chain{'s' * (n > 1)}: host {ms[n]:.3f} ms/step "
+        f"{[round(t, 3) for t in host[n]]}, device "
+        + (f"{dev[n]:.1f} us/step" if dev[n] else "not measured")
+        for n in (1, 2))
+    ratio = (f"; device ratio {dev[2] / dev[1]:.3f}" if dev[1] and dev[2]
+             else "")
+    print(f"phase 4: [{smi}] csghmc training step mlp_mnist batch "
+          f"{xs.shape[1]}, {STEPS_TIMED} run_steps steps, in turns 1, 2, 2, "
+          f"1 chains: {shown}; host ratio {ms[2] / ms[1]:.3f}{ratio}",
+          flush=True)
+
+
+# tools/tpu_smoke_all_methods.py:52-71 (BIG_CONFIGS), through the port's
+# CLI on synthetic data (10 classes, 461 training images)
+BIG_CONFIGS = {
+    "csghmc_multichain_gmm": [
+        "--method", "csghmc", "--backbone", "resnet50",
+        "--num_chains", "2", "--epochs", "2", "--num_cycles", "1",
+        "--batch_size", "32", "--lr", "2e-2",
+        "--compute_dtype", "bfloat16",
+        "--hparams", "prior_sig=1.0,Ninflate=1.0,nd=0.01,thin=2,"
+                     "bias=informative,nst=2,momentum_decay=0.05",
+    ],
+    "la_multichain_fisher": [
+        "--method", "la", "--backbone", "resnet50",
+        "--num_chains", "2", "--epochs", "1",
+        "--batch_size", "32", "--lr", "2e-2",
+        "--compute_dtype", "bfloat16",
+        "--hparams", "prior_sig=0.1,Ninflate=1.0,bias=informative,nst=2,"
+                     "fisher_microbatch=8",
+    ],
+}
+# BIGSMOKE_r05.json: the JAX package's two runs on a TPU v5e (white-noise
+# classes, so the numbers compare in kind only)
+BIGSMOKE = {"csghmc_multichain_gmm": (3.3885, 0.8984),
+            "la_multichain_fisher": (1.4567e17, 0.918)}
+RESNET50_STEPS_TIMED = 6
+
+
+def bn_differs(a, b) -> bool:
+    return any(not torch.equal(x, y) for x, y in zip(
+        tree_leaves(a["batch_stats"]), tree_leaves(b["batch_stats"])))
+
+
+@contextlib.contextmanager
+def watched_multichain(seen: dict):
+    """MultiChainRunner.train with its instance kept in seen["mc"], the
+    chains' likelihood passes and stage 2 timed, and stage 2 checked to
+    leave every batch_stats it reads or holds as it was."""
+    from bayesdll_tpu_torch.parallel.runner import MultiChainRunner
+    train = MultiChainRunner.train
+
+    def watched(self, *args, **kw):
+        seen["mc"] = self
+        likelihoods, laplace = self._chain_likelihoods, self._chain_laplace
+
+        def timed_likelihoods():
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            out = likelihoods()
+            torch.cuda.synchronize()
+            seen.setdefault("lik_secs", []).append(time.perf_counter() - tic)
+            return out
+
+        def checked_laplace(loader):
+            held = [self.trainer.net_states] + (
+                [self._la_best[2]] if self._la_best is not None else [])
+            before = [[tree_clone(ns) for ns in h] for h in held]
+            out = laplace(loader)
+            seen["stats_same"] = all(
+                not bn_differs(a, b) for h, b0 in zip(held, before)
+                for a, b in zip(h, b0))
+            return out
+        self._chain_likelihoods = timed_likelihoods
+        self._chain_laplace = checked_laplace
+        return train(self, *args, **kw)
+    MultiChainRunner.train = watched
+    try:
+        yield seen
+    finally:
+        MultiChainRunner.train = train
+
+
+def cli_main(argv):
+    """The port's CLI main with its log kept off this script's output (kept,
+    and its tail printed, if the run fails); the log handlers it adds are
+    removed after."""
+    import io
+    import logging
+    from bayesdll_tpu_torch.cli import demo
+    logger = logging.getLogger("bayesdll_tpu_torch")
+    handlers = list(logger.handlers)
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            return demo.main(argv)
+    except BaseException:
+        print(log.getvalue()[-6000:], flush=True)
+        raise
+    finally:
+        for h in logger.handlers[len(handlers):]:
+            logger.removeHandler(h)
+            h.close()
+
+
+def phase_big_chains(smi, name):
+    """One of the JAX package's two big multi-chain smokes through the
+    port's CLI on the card, every kernel's count set to 0 just before and
+    read just after, its log directory deleted after."""
+    from bayesdll_tpu_torch.ops import kernels
+    argv = BIG_CONFIGS[name]
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    logdir = tempfile.mkdtemp(prefix=f"{name}_", dir=SCRATCH)
+    seen = {}
+    try:
+        with watched_multichain(seen):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            tic = time.perf_counter()
+            res = cli_main(argv + ["--dataset", "synthetic", "--device", "cuda",
+                                   "--log_dir", logdir])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - tic
+            counts = read_launches()
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    mc = seen["mc"]
+    tr = mc.trainer
+    steps = tr.bi
+    check(mc.runner.target.n_params == RESNET50_PARAMS, f"{name}: resnet50")
+    want = {k: 0 for k in kernels.KERNELS}
+    if mc.runner.method_name == "csghmc":
+        want["csghmc_update"] = N_CHAINS * steps
+    check(counts == want, f"{name}: launches {counts}, want {want}")
+    thetas = tr.iterates()
+    check(bool(torch.isfinite(thetas).all()), f"{name}: every θ finite")
+    check(not torch.equal(thetas[0], thetas[1]), f"{name}: the chains differ")
+    check(bn_differs(tr.net_states[0], tr.net_states[1]),
+          f"{name}: the chains' batch_stats differ after training")
+    for key in ("nll", "test_err"):
+        check(key in res and math.isfinite(res[key]), f"{name}: {key}")
+    extra = ""
+    if "stats_same" in seen:
+        check(seen["stats_same"], f"{name}: stage 2 left batch_stats as "
+              "they were")
+        _, vars_ = mc._la_stage2
+        check(bool(torch.isfinite(vars_).all()) and float(vars_.min()) > 0,
+              f"{name}: variances finite and positive")
+        fisher = res["fisher_time_per_chain"]
+        n = mc._train_loader.num_examples
+        extra = (f"stage 2 left batch_stats untouched; Fisher per chain "
+                 f"{[round(t, 2) for t in fisher]} s over {n} examples = "
+                 f"{[round(n / t, 1) for t in fisher]} examples/s; vars in "
+                 f"[{float(vars_.min()):.4g}, {float(vars_.max()):.4g}]")
+    if seen.get("lik_secs"):
+        extra = (f"GMM likelihood pass (2 chains, nst=2, "
+                 f"{mc._train_loader.num_examples} images) "
+                 f"{[round(t, 2) for t in seen['lik_secs']]} s; GMM weights "
+                 f"{weights_text(mc.gmm_weights_per_chain())}")
+    jax_nll, jax_err = BIGSMOKE[name]
+    print(f"phase 3c: [{smi}] {name} (port CLI) resnet50 bf16 batch 32, "
+          f"{N_CHAINS} chains x {steps} steps, {secs:.2f} s in all, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"launches {counts}; nll={res['nll']:.6g} test_err="
+          f"{res['test_err']:.4f} (BIGSMOKE_r05.json, JAX on a TPU v5e: nll "
+          f"{jax_nll:.6g}, err {jax_err}; white-noise classes, chance 0.9); "
+          f"{extra}", flush=True)
+    return mc, counts
+
+
+def phase_resnet50_chain_step_time(smi, mc):
+    """The 2-chain ResNet-50 cSGHMC step (bf16, batch 32) through the
+    trainer's run_steps on batches already on the card: host ms/step, then
+    its profile."""
+    from bayesdll_tpu_torch.models import create_backbone
+    _, in_shape, _ = create_backbone("resnet50")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k = RESNET50_STEPS_TIMED
+    xs = torch.randn((k, N_CHAINS, 32, *in_shape), generator=gen,
+                     device="cuda")
+    ys = torch.randint(0, 10, (k, N_CHAINS, 32), generator=gen, device="cuda")
+    steps = ChainSteps(mc.trainer)
+    sec, bi0 = host_s_per_step(steps, xs, ys, "csghmc resnet50 2 chains")
+    print(f"phase 4: [{smi}] csghmc training step resnet50 bf16 batch 32, "
+          f"{N_CHAINS} chains: {sec * 1e3:.2f} ms/step over {k} run_steps "
+          f"steps ({sec * 1e3 / N_CHAINS:.2f} ms per chain step)", flush=True)
+    phase_profile(smi, f"csghmc resnet50 {N_CHAINS} chains", steps, xs[:2],
+                  ys[:2], sec * 1e3, "csghmc_update", bi0=bi0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1748,12 +2170,17 @@ def main() -> int:
         runners[method] = (runner, loaders)
         by_path[f"{method} mlp_mnist"] = counts
     phase_la_prior_sig()
+    for method in CHAIN_SMOKE:
+        by_path[f"{method} mlp_mnist {N_CHAINS} chains"] = \
+            phase_chain_path(method)
     by_path["csghmc resnet101"] = {
         "csghmc_update": phase_resnet_path(resnet, resnet_loaders)}
     phase_reference("csghmc", HP)
     phase_reference("sgld", SG_HP, momentum=0.5)
     phase_reference("sghmc", SG_HP, momentum=0.5)
     phase_new_references()
+    phase_chain_reference("csghmc", HP, ("theta", "v"))
+    phase_chain_reference("sghmc", SG_HP, ("theta", "buf", "v"), momentum=0.5)
     phase_resnet_reference("csghmc", HP)
     phase_resnet_reference("sgld", SG_HP)
     phase_fisher_reference()
@@ -1762,6 +2189,7 @@ def main() -> int:
                                           ("csghmc_update",))}
     for method in ("csghmc", "sghmc"):
         phase_step_time(smi, method, *runners[method])
+    phase_chain_step_time(smi, *runners["csghmc"])
     for method in SMOKE:
         phase_step_time(smi, method, *runners[method],
                         sampler=SMOKE_KERNEL.get(method, "_update_kernel"))
@@ -1772,6 +2200,12 @@ def main() -> int:
     free_device()
     by_path["la resnet50"] = phase_la_resnet50()
     free_device()
+    for name in BIG_CONFIGS:
+        mc, by_path[f"{name} resnet50"] = phase_big_chains(smi, name)
+        if name == "csghmc_multichain_gmm":
+            phase_resnet50_chain_step_time(smi, mc)
+        del mc
+        free_device()
 
     # ViT-L/32, alone on the card
     vit, vit_loaders = vit_runner()

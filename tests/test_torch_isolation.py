@@ -47,6 +47,8 @@ def test_importing_the_port_loads_no_jax():
         "import bayesdll_tpu_torch.methods.vi\n"
         "import bayesdll_tpu_torch.methods.mc_dropout\n"
         "import bayesdll_tpu_torch.methods.la\n"
+        "import bayesdll_tpu_torch.parallel, bayesdll_tpu_torch.parallel.chains\n"
+        "import bayesdll_tpu_torch.parallel.runner\n"
         "import bayesdll_tpu_torch.models.resnet, bayesdll_tpu_torch.models.cnn\n"
         "import bayesdll_tpu_torch.models.vit\n"
         "import bayesdll_tpu_torch.models.convert, bayesdll_tpu_torch.models.layers\n"
