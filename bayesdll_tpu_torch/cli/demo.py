@@ -32,6 +32,18 @@ bayesdll_tpu.cli.demo).
       --compute_dtype bfloat16 --epochs 2 --num_cycles 1 --lr 2e-2 \\
       --hparams prior_sig=1.0,Ninflate=1.0,nd=0.01,thin=2,bias=informative,nst=2
 
+  python -m bayesdll_tpu_torch.cli.demo --method csghmc --backbone mlp_mnist \\
+      --dataset synthetic --epochs 4 --num_cycles 2 --lr 1e-3 --fused_steps \\
+      --hparams prior_sig=1.0,Ninflate=1.0,nd=1.0,thin=2,bias=informative,nst=2
+
+--fused_steps runs each segment of steps between host hooks (cycle ends,
+the 256 MiB batch window) as replays of one captured CUDA graph of the
+step (methods/graphed.py), with the same results as without it; on the
+CPU the same step body runs eagerly.  It serves vanilla, la (stage 1),
+sgld, sghmc, csgld, csghmc and csghmc_fs, on one chain or with
+--num_chains; vi, mc_dropout, adam_sghmc and adam_csghmc draw on the host
+inside their step and raise NotImplementedError under it.
+
 --num_chains C > 1 wraps the runner in parallel/runner.py::MultiChainRunner:
 C chains with their own jitter, data order and seed, a chain-mixture
 predictive, and `chains_ckpt.pkl`, which --resume takes.  --data_parallel
@@ -111,6 +123,9 @@ def parse_args(argv=None):
                    help="cuda (default) or cpu")
     p.add_argument("--num_chains", type=int, default=1,
                    help="independent chains, one after another on the card")
+    p.add_argument("--fused_steps", action="store_true",
+                   help="run each segment of steps as replays of a captured "
+                        "CUDA graph of the step")
     p.add_argument("--data_parallel", type=int, default=1,
                    help="batch sharding over cards (not ported)")
     p.add_argument("--fsdp", action="store_true",
@@ -196,6 +211,7 @@ def main(argv=None):
         lr_head=args.lr_head, momentum=args.momentum, seed=args.seed,
         log_dir=args.log_dir, test_eval_freq=args.test_eval_freq, data_root=args.data_root,
         num_classes=args.num_classes, num_chains=args.num_chains,
+        fused_steps=args.fused_steps,
         compute_dtype=args.compute_dtype, remat=args.remat,
         remat_policy=args.remat_policy,
         fused_attention=bool(args.fused_attention),

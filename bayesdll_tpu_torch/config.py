@@ -2,7 +2,7 @@
 
 The reference CLI's flags and its ``--hparams`` 'k1=v1,k2=v2' string as a
 dataclass, plus `compute_dtype` (the forward's dtype), the ViT knobs of the
-JAX package's config, and `device`: every run goes to the CUDA card unless
+JAX package's config, `fused_steps`, and `device`: every run goes to the CUDA card unless
 the caller asks for "cpu".
 """
 
@@ -51,6 +51,8 @@ class Config:
     data_root: str = "data"
     num_classes: int = 10
     num_chains: int = 1  # independent chains, run one after another per step
+    # segments of steps as replays of a captured CUDA graph (methods/graphed.py)
+    fused_steps: bool = False
     compute_dtype: str = "float32"  # "bfloat16" for the big backbones
     # ViT knobs (models/vit.py); the other backbones ignore them
     remat: bool = False        # recompute each encoder block in backward

@@ -20,6 +20,15 @@
 // elementwise kernels round them, so with nd = 0 the result equals the plain
 // PyTorch version bit for bit.
 //
+// Two entry points share the one kernel body.  `csghmc_update` takes the
+// Philox seed, the step and the gate by value, as the per-step path
+// launches it.  `csghmc_update_dev` reads them from device memory, an int64
+// [3] = (seed, step, gate) that the fused path's captured CUDA graph fills
+// before each replay, so the graph does not replay the values it was
+// captured with.  The float constants (prior_sig, 1 - α, noise_pref) are
+// fixed for a run and stay by value in both.  At the same (seed, step,
+// gate) the two write the same bits.
+//
 // Contract: all pointers 16-byte aligned, fp32, n elements each, g and lr
 // not aliasing θ or v.  Launches on `stream`, allocates nothing, does not
 // synchronise; returns cudaGetLastError() after the launch.
@@ -51,11 +60,19 @@ __device__ __forceinline__ void update_one(float g, float& th, float& v,
   th = __fadd_rn(th, vn);
 }
 
+// kDevScalars: seed, step and gate come from dev = (seed, step, gate)
+template <bool kDevScalars>
 __global__ void csghmc_update_kernel(const float* __restrict__ g,
                                      float* __restrict__ theta,
                                      float* __restrict__ v,
                                      const float* __restrict__ lr, int64_t n,
-                                     Scalars s) {
+                                     Scalars s,
+                                     const int64_t* __restrict__ dev) {
+  if constexpr (kDevScalars) {
+    s.seed = static_cast<uint64_t>(dev[0]);
+    s.step = static_cast<uint64_t>(dev[1]);
+    s.gate = static_cast<int>(dev[2]);
+  }
   const int64_t full_quads = n / 4;
   const int64_t quads = (n + 3) / 4;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -91,21 +108,37 @@ __global__ void csghmc_update_kernel(const float* __restrict__ g,
   }
 }
 
+template <bool kDevScalars>
+int launch(const void* g, void* theta, void* v, const void* lr, int64_t n,
+           const Scalars& s, const void* dev, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  constexpr int kThreads = 256;
+  const int64_t quads = (n + 3) / 4;
+  int64_t blocks = (quads + kThreads - 1) / kThreads;
+  if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;  // grid-stride beyond
+  csghmc_update_kernel<kDevScalars><<<static_cast<unsigned>(blocks), kThreads,
+                                      0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<float*>(theta),
+      static_cast<float*>(v), static_cast<const float*>(lr), n, s,
+      static_cast<const int64_t*>(dev));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int csghmc_update(const void* g, void* theta, void* v,
                              const void* lr, int64_t n, float prior_sig,
                              float one_minus_alpha, float noise_pref, int gate,
                              uint64_t seed, uint64_t step, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  constexpr int kThreads = 256;
-  const int64_t quads = (n + 3) / 4;
-  int64_t blocks = (quads + kThreads - 1) / kThreads;
-  if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;  // grid-stride beyond
   const Scalars s{prior_sig, one_minus_alpha, noise_pref, gate, seed, step};
-  csghmc_update_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<float*>(theta),
-      static_cast<float*>(v), static_cast<const float*>(lr), n, s);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(g, theta, v, lr, n, s, nullptr, stream);
+}
+
+// dev: int64 [3] = (seed, step, gate) on the vectors' device
+extern "C" int csghmc_update_dev(const void* g, void* theta, void* v,
+                                 const void* lr, int64_t n, float prior_sig,
+                                 float one_minus_alpha, float noise_pref,
+                                 const void* dev, void* stream) {
+  const Scalars s{prior_sig, one_minus_alpha, noise_pref, 0, 0, 0};
+  return launch<true>(g, theta, v, lr, n, s, dev, stream);
 }

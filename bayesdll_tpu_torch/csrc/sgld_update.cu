@@ -19,6 +19,13 @@
 // PyTorch version's order, so the card computes the CPU's bits.  The lr
 // clamp keeps 2 / (N * lr) finite where lr = 0, as the TPU kernel does.
 //
+// Two entry points share the one kernel body: `sgld_update` takes the
+// Philox seed and the step by value, as the per-step path launches it;
+// `sgld_update_dev` reads them from device memory, an int64 [3] =
+// (seed, step, unused) that the fused path's captured CUDA graph fills
+// before each replay.  The float constants stay by value in both.  At the
+// same (seed, step) the two write the same bits.
+//
 // Contract: all pointers 16-byte aligned, fp32, n elements each, g not
 // aliasing θ, θ0, mask or lr.  Launches on `stream`, allocates nothing, does
 // not synchronise; returns cudaGetLastError() after the launch.
@@ -53,12 +60,18 @@ __device__ __forceinline__ float update_one(float g, float th, float th0,
   return out;
 }
 
+template <bool kDevScalars>
 __global__ void sgld_update_kernel(float* __restrict__ g,
                                    const float* __restrict__ theta,
                                    const float* __restrict__ theta0,
                                    const float* __restrict__ mask,
                                    const float* __restrict__ lr, int64_t n,
-                                   Scalars s) {
+                                   Scalars s,
+                                   const int64_t* __restrict__ dev) {
+  if constexpr (kDevScalars) {  // dev = (seed, step, unused)
+    s.seed = static_cast<uint64_t>(dev[0]);
+    s.step = static_cast<uint64_t>(dev[1]);
+  }
   const int64_t full_quads = n / 4;
   const int64_t quads = (n + 3) / 4;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -89,22 +102,38 @@ __global__ void sgld_update_kernel(float* __restrict__ g,
   }
 }
 
+template <bool kDevScalars>
+int launch(void* g, const void* theta, const void* theta0, const void* mask,
+           const void* lr, int64_t n, const Scalars& s, const void* dev,
+           void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  constexpr int kThreads = 256;
+  const int64_t quads = (n + 3) / 4;
+  int64_t blocks = (quads + kThreads - 1) / kThreads;
+  if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;  // grid-stride beyond
+  sgld_update_kernel<kDevScalars><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(g), static_cast<const float*>(theta),
+      static_cast<const float*>(theta0), static_cast<const float*>(mask),
+      static_cast<const float*>(lr), n, s, static_cast<const int64_t*>(dev));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int sgld_update(void* g, const void* theta, const void* theta0,
                            const void* mask, const void* lr, int64_t n,
                            float sig2, float n_eff, float nd, uint64_t seed,
                            uint64_t step, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  constexpr int kThreads = 256;
-  const int64_t quads = (n + 3) / 4;
-  int64_t blocks = (quads + kThreads - 1) / kThreads;
-  if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;  // grid-stride beyond
   const Scalars s{sig2, n_eff, nd, seed, step};
-  sgld_update_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(g), static_cast<const float*>(theta),
-      static_cast<const float*>(theta0), static_cast<const float*>(mask),
-      static_cast<const float*>(lr), n, s);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(g, theta, theta0, mask, lr, n, s, nullptr, stream);
+}
+
+// dev: int64 [3] = (seed, step, unused) on the vectors' device
+extern "C" int sgld_update_dev(void* g, const void* theta, const void* theta0,
+                               const void* mask, const void* lr, int64_t n,
+                               float sig2, float n_eff, float nd,
+                               const void* dev, void* stream) {
+  const Scalars s{sig2, n_eff, nd, 0, 0};
+  return launch<true>(g, theta, theta0, mask, lr, n, s, dev, stream);
 }

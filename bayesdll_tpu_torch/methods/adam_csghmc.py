@@ -46,6 +46,10 @@ class AdamCSGHMCState:
 
 class Runner(CyclicalRunnerBase):
     method_name = "adam_csghmc"
+    fused_blocker = ("its momentum noise is drawn on the host from a "
+                     "generator keyed by (seed, ADAM, step) inside the step, "
+                     "which a captured graph would replay unchanged; "
+                     f"{base.HOST_DRAWS}")
     LIK_CENTER = "cycle_mean"
 
     def __init__(self, target, theta_init, net_state, cfg, **kw):
@@ -70,7 +74,7 @@ class Runner(CyclicalRunnerBase):
 
     def _cycle_reset(self, state, theta):
         if theta is not None:
-            state.theta = theta
+            state.theta.copy_(theta)
         for name in ("buf", "v_mom", "m", "v2"):
             getattr(state, name).zero_()
         state.t = 0

@@ -27,7 +27,7 @@ import torch
 
 from bayesdll_tpu_torch.core import rng
 from bayesdll_tpu_torch.core.moments import RunningMoments
-from bayesdll_tpu_torch.methods import sgld
+from bayesdll_tpu_torch.methods import base, sgld
 from bayesdll_tpu_torch.ops import fused
 
 
@@ -59,6 +59,10 @@ def zero_adam_state(theta: torch.Tensor) -> dict:
 
 class Runner(sgld.Runner):
     method_name = "adam_sghmc"
+    fused_blocker = ("its momentum noise is drawn on the host from a "
+                     "generator keyed by (seed, ADAM, step) inside the step "
+                     "(_crafted_gradient), which a captured graph would "
+                     f"replay unchanged; {base.HOST_DRAWS}")
 
     def __init__(self, target, theta_init, net_state, cfg, **kw):
         self.adam = adam_hparams(cfg.hparams)
@@ -70,7 +74,7 @@ class Runner(sgld.Runner):
             moments=RunningMoments.zeros(theta_init.shape[0],
                                          theta_init.device))
 
-    def _crafted_gradient(self, state, g, step):
+    def _crafted_gradient(self, state, g, step, scalars):
         """g + v_mom', with the Adam state advanced."""
         state.t += 1
         gen = None if self.nd == 0.0 else rng.generator(

@@ -17,6 +17,19 @@ name the primary vector of a state (θ, or the variational mean), and
 Per-step loss and error stay on the device; the host reads them once per
 epoch, so the training loop never waits on the card.
 
+The fused path (`cfg.fused_steps`; counterpart of the JAX package's
+`use_fused`, `segment_ends`, `_train_one_epoch_fused`, `after_segment`,
+`_fused_key` and `run_steps`): an epoch runs in segments cut at the
+method's host-work steps (cycle ends) and at a 256 MiB window of stacked
+batches, as the JAX package cuts them; each segment is `run_steps`, which
+on the card replays one captured CUDA graph of `_step` per step
+(methods/graphed.py).  There `_step` gets `step=None` and the fused
+scalars (`graphed.fused_scalars`: the kernels' `dev` (seed, step, gate),
+the lr pair, `collect` and the moments' `count`, all tensors on the
+device), which `draw_args` and `collect_sample` turn into the kernels' and
+the moments' device forms.  VI, MC-dropout, Adam-SGHMC and Adam-cSGHMC
+draw on the host inside their step (`fused_blocker`) and raise under it.
+
 Predictive combination shared by the stochastic methods:
   logits = logsumexp(log_softmax(logits_all), sample_dim) - log(S)
 the log of the Monte-Carlo averaged predictive probabilities.
@@ -38,9 +51,16 @@ import torch
 import torch.nn.functional as F
 
 from bayesdll_tpu_torch.core import rng
+from bayesdll_tpu_torch.methods import graphed
+from bayesdll_tpu_torch.ops import kernels
 from bayesdll_tpu_torch.utils import calibration
 
 _LOG = logging.getLogger("bayesdll_tpu_torch")
+
+# the ROADMAP item that ports the fused path of the methods that draw on the
+# host inside their step
+HOST_DRAWS = ("ROADMAP.md queue 1, item 1, 'The fused path of the methods "
+              "that draw on the host'")
 
 
 def combine_mc_logits(logits_all: torch.Tensor) -> torch.Tensor:
@@ -104,6 +124,9 @@ def from_host(template, saved, device):
 
 class BaseRunner:
     method_name = "base"
+    # why --fused_steps cannot serve this method, or None where it can
+    fused_blocker: Optional[str] = None
+    FUSED_BYTES_BUDGET = 256 * 1024 * 1024  # max stacked batch bytes/segment
 
     def __init__(self, target, theta_init, net_state, cfg, logger=None,
                  workdir: Optional[str] = None):
@@ -126,6 +149,7 @@ class BaseRunner:
             torch.as_tensor(theta_init, dtype=torch.float32)
             .to(self.device, copy=True))
         self.bi = 0  # global step counter
+        self._step_graphs = {}  # the runner's or a chain's seed -> StepGraph
         self.results = {}
         self._train_step_count = 0
         self._train_step_time = 0.0
@@ -207,15 +231,104 @@ class BaseRunner:
         self.bi += 1
         return metrics
 
-    def run_steps(self, ep: int, xs, ys, bi0: int):
-        """len(xs) consecutive train steps from global step bi0, with no host
-        hooks in between (counterpart of the JAX package's scanned steps).
-        xs: [K, B, ...], ys: [K, B].  Returns stacked (loss[K], err[K]) on
-        the device."""
+    def step_loop(self, ep: int, xs, ys, bi0: int):
+        """len(xs) per-step steps from global step bi0, one `_one_step`
+        each, with no host hooks in between.  xs: [K, B, ...], ys: [K, B].
+        Returns stacked (loss[K], err[K]) on the device."""
         self.bi = bi0
         metrics = [self._one_step(ep, xs[k], ys[k]) for k in range(len(xs))]
         return (torch.stack([m[0] for m in metrics]),
                 torch.stack([m[1] for m in metrics]))
+
+    # ---- the fused path ---------------------------------------------------
+
+    def draw_args(self, step, scalars) -> dict:
+        """The sampler kernel's draw arguments: the host's seed and step on
+        the per-step path, the device row `dev` (seed, step, gate) on the
+        fused path."""
+        if "dev" in scalars:
+            return {"dev": scalars["dev"]}
+        return {"seed": self.seed, "step": step}
+
+    @staticmethod
+    def collect_sample(state, scalars):
+        """A step's moments update: on the per-step path a branch on the
+        host's `collect`; on the fused path the masked update, which reads
+        nothing on the host, in the graph of the collecting steps (the
+        other graph's scalars have `collect` None)."""
+        if "dev" not in scalars:
+            if scalars["collect"]:
+                state.moments.update(state.theta)
+        elif scalars["collect"] is not None:
+            state.moments.update_masked(state.theta, scalars["collect"],
+                                        scalars["count"])
+
+    def _fused_key(self, ep: int):
+        """What the captured step depends on beyond the state's addresses:
+        epochs with the same key share one graph (the JAX package's cache
+        key of its scanned program)."""
+        return 0
+
+    def _check_fusable(self):
+        if self.fused_blocker is not None:
+            raise NotImplementedError(
+                f"--fused_steps with {self.method_name}: {self.fused_blocker}")
+
+    def use_fused(self, ep: int) -> bool:
+        """Whether epoch ep runs the fused path.  With full_sample the epoch
+        runs per step, as in the JAX package: each collecting step copies θ
+        to the host."""
+        if not getattr(self.cfg, "fused_steps", False):
+            return False
+        self._check_fusable()
+        if self.cfg.full_sample:
+            self.logger.info("fused_steps: full_sample collects on the host "
+                             "after each step, so epoch %d runs per step", ep)
+            return False
+        return True
+
+    def segment_ends(self, ep: int, n_steps: int):
+        """Step indices (exclusive, within the epoch) after which host work
+        must run: none by default."""
+        return []
+
+    def after_segment(self, ep: int):
+        """Host work at a segment's end: what after_batch does at its step."""
+        self.after_batch(ep)
+
+    def fused_rows(self, ep: int, bi0: int, k: int):
+        """The scalars of the k steps from global step bi0, computed on the
+        host by `step_scalars` itself (the counterpart of the JAX package's
+        `device_scalars`): int64 rows (seed, step, gate) for the kernels and
+        fp32 rows (lr_body, lr_head, collect), lr 0 where the method has no
+        schedule."""
+        ints = np.zeros((k, 3), np.int64)
+        flts = np.zeros((k, 3), np.float32)
+        seed = kernels.seed_int64(self.seed)
+        saved = self.bi
+        try:
+            for j in range(k):
+                self.bi = bi0 + j
+                sc = self.step_scalars(ep)
+                ints[j] = (seed, bi0 + j, bool(sc.get("should_sample", False)))
+                if "lr" in sc:
+                    flts[j, :2] = self.lr_pair(sc["lr"])
+                flts[j, 2] = bool(sc.get("collect", False))
+        finally:
+            self.bi = saved
+        return ints, flts
+
+    def run_steps(self, ep: int, xs, ys, bi0: int):
+        """len(xs) consecutive train steps from global step bi0 with no host
+        hooks in between, fused (methods/graphed.py): on the card, replays
+        of the step's CUDA graph, captured for this runner (or chain) and
+        its state's addresses.  xs: [K, B, ...], ys: [K, B] (numpy, or
+        tensors).  Returns (loss[K], err[K]) on the device."""
+        self._check_fusable()
+        graph = self._step_graphs.get(self.seed)
+        if graph is None:
+            graph = self._step_graphs[self.seed] = graphed.StepGraph()
+        return graph.run(self, ep, xs, ys, bi0)
 
     def train(self, train_loader, val_loader, test_loader, start_epoch=0):
         """Epoch loop with eval cadence and best-checkpoint artifacts."""
@@ -258,6 +371,8 @@ class BaseRunner:
         return self.results
 
     def train_one_epoch(self, ep: int, train_loader):
+        if self.use_fused(ep):
+            return self._train_one_epoch_fused(ep, train_loader)
         losses, errs, nb = [], [], 0
         bs = train_loader.batch_size
         for x, y, _valid in train_loader:
@@ -269,6 +384,28 @@ class BaseRunner:
         # the one host read of the epoch
         loss = float(torch.stack(losses).sum()) * bs / nb
         err = float(torch.stack(errs).sum()) / nb
+        return loss, err
+
+    def _train_one_epoch_fused(self, ep: int, train_loader):
+        """The epoch in fused segments (JAX `_train_one_epoch_fused`): cut
+        after each of `segment_ends` and when the stacked batches reach
+        FUSED_BYTES_BUDGET, with `after_segment` at each segment end.  The
+        batches stream through one segment's buffer.  The epoch's loss and
+        error reduce the per-step values as train_one_epoch does."""
+        n = len(train_loader)
+        bs = train_loader.batch_size
+        losses, errs = [], []
+        for xs, ys, at_end in graphed.segments(
+                ((x, y) for x, y, _ in train_loader), n,
+                self.segment_ends(ep, n), self.FUSED_BYTES_BUDGET):
+            loss_k, err_k = self.run_steps(ep, xs, ys, self.bi)
+            losses.append(loss_k)
+            errs.append(err_k)
+            if at_end:
+                self.after_segment(ep)
+        nb = n * bs
+        loss = float(torch.cat(losses).sum()) * bs / nb
+        err = float(torch.cat(errs).sum()) / nb
         return loss, err
 
     # ---- evaluation ---------------------------------------------------------

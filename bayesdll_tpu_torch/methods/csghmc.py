@@ -72,9 +72,8 @@ class Runner(CyclicalRunnerBase):
         fused.csghmc_update_(
             g, state.theta, state.v, prior_sig=self.prior_sig, n_eff=n_eff,
             nd=self.nd, alpha=self.momentum_decay, lr=lr_vec,
-            should_sample=scalars["should_sample"], seed=self.seed,
-            step=step)
-        if scalars["collect"]:  # a host bool: no device sync
-            state.moments.update(state.theta)
+            should_sample=scalars["should_sample"],
+            **self.draw_args(step, scalars))
+        self.collect_sample(state, scalars)
         state.step += 1
         return state, new_ns, (loss.detach(), base.err_count(logits, y))

@@ -67,9 +67,10 @@ class Runner(csghmc.Runner):
 
     def _cycle_reset(self, state, theta):
         """The reference zeroes the momentum at every cycle boundary and
-        optionally cold-restarts θ; plain cSGHMC does neither."""
+        optionally cold-restarts θ; plain cSGHMC does neither.  Both in
+        place, so a captured graph of the step keeps its addresses."""
         if theta is not None:
-            state.theta = theta
+            state.theta.copy_(theta)
         state.v.zero_()
         self.logger.info("Momentum buffer reset for new cycle.")
 

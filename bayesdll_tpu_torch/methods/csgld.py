@@ -59,15 +59,14 @@ class Runner(CyclicalRunnerBase):
         # g, then theta and buf, change IN PLACE once the graph is consumed
         fused.sgld_update_(g, state.theta, self.target.theta0,
                            self.prior_mask, lr_vec, prior_sig=self.prior_sig,
-                           n_eff=self.n_eff, nd=self.nd, seed=self.seed,
-                           step=step)
+                           n_eff=self.n_eff, nd=self.nd,
+                           **self.draw_args(step, scalars))
         if self.clip_grad is not None:
             norm = torch.linalg.vector_norm(g)
             g.mul_(torch.clamp(self.clip_grad / torch.clamp(norm, min=1e-12),
                                max=1.0))
         sgd_step(state.theta, g, state.buf, lr_vec, self.cfg.momentum,
                  state.step)
-        if scalars["collect"]:  # a host bool: no device sync
-            state.moments.update(state.theta)
+        self.collect_sample(state, scalars)
         state.step += 1
         return state, new_ns, (loss.detach(), base.err_count(logits, y))

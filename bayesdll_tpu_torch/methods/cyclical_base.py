@@ -15,14 +15,17 @@ bayesdll_tpu.methods.cyclical_base):
   * the cycle-boundary hooks: the moments reset (`_reset_cycle_state`) and
     `on_cycle_start(cycle + 1)`, where Adam-cSGHMC and cSGHMC-FS reset
     their sampler state (`_cycle_reset`) and may cold-restart θ, and their
-    multi-chain form `multi_chain_cycle_start`;
+    multi-chain form `multi_chain_cycle_start`; every reset writes the
+    state's tensors in place, so a captured graph of the step
+    (methods/graphed.py) keeps reading the live state;
+  * the fused path's segments, cut after each cycle's last step
+    (`segment_ends`), and its per-step lr pair (`lr_pair`);
   * with `full_sample`, every collected θ archived on the host
     (`all_samples`, pickled as `all_samples.pkl` at each completed cycle).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import pickle
 from typing import Dict
@@ -112,13 +115,29 @@ class CyclicalRunnerBase(base.BaseRunner):
         return {"lr": self.sched.lr_py(self.bi), "should_sample": should_sample,
                 "collect": should_sample}
 
-    def cyclical_lr_vec(self, lr_t: float) -> torch.Tensor:
-        """Per-element lr [dim]: lr_t for the body, lr_t * lr_head/lr for the
-        head, rounded to fp32 as the JAX package rounds them.  Both values
-        enter as kernel arguments, so no host-to-device copy waits."""
+    def lr_pair(self, lr_t: float):
+        """(body, head) lr of a step as fp32: lr_t, and lr_t * lr_head/lr,
+        rounded as the JAX package rounds them."""
         lr32 = np.float32(lr_t)
-        head = float(lr32 * np.float32(self.cfg.lr_head / self.cfg.lr))
-        return torch.where(self.target.is_head, head, float(lr32))
+        return lr32, lr32 * np.float32(self.cfg.lr_head / self.cfg.lr)
+
+    def cyclical_lr_vec(self, lr_t) -> torch.Tensor:
+        """Per-element lr [dim]: the body lr for the body, the head lr for
+        the head (`lr_pair`).  On the per-step path lr_t is the host's
+        float, and both values enter as kernel arguments, so no
+        host-to-device copy waits; on the fused path it is the pair itself,
+        as 0-d tensors on the device."""
+        if isinstance(lr_t, tuple):
+            body, head = lr_t
+            return torch.where(self.target.is_head, head, body)
+        body, head = self.lr_pair(lr_t)
+        return torch.where(self.target.is_head, float(head), float(body))
+
+    def segment_ends(self, ep: int, n_steps: int):
+        """The fused path's cuts: after each step of the epoch that ends a
+        cycle, so that the cycle-end work runs at its step."""
+        return [i + 1 for i in range(n_steps)
+                if self.sched.last_in_cycle_py(self.bi + i)]
 
     def after_batch(self, ep: int):
         step = self.bi - 1  # the step that just ran
@@ -176,10 +195,10 @@ class CyclicalRunnerBase(base.BaseRunner):
         self.on_cycle_start(cycle + 1)
 
     def _reset_cycle_state(self, state):
-        """The state with fresh, empty moments for the next cycle."""
-        return dataclasses.replace(
-            state, moments=type(state.moments).zeros(self.target.dim,
-                                                     self.device))
+        """The state with empty moments for the next cycle, cleared in
+        place."""
+        state.moments.clear()
+        return state
 
     def on_cycle_start(self, cycle: int):
         """Entering `cycle` (1-based): `_cycle_reset` of the state, with a

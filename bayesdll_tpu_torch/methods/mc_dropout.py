@@ -47,6 +47,10 @@ class MCDropState:
 
 class Runner(base.BaseRunner):
     method_name = "mc_dropout"
+    fused_blocker = ("its keep-mask draw comes from a generator keyed by "
+                     "(seed, MC_DROPOUT, step) on the host inside the step "
+                     "(_train_uniform), which a captured graph would replay "
+                     f"unchanged; {base.HOST_DRAWS}")
 
     def __init__(self, target, theta_init, net_state, cfg, **kw):
         self.p_drop = float(cfg.hparams.get("p_drop", 0.1))

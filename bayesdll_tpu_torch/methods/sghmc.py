@@ -47,13 +47,13 @@ class Runner(sgld.Runner):
                           moments=RunningMoments.zeros(theta_init.shape[0],
                                                        theta_init.device))
 
-    def _crafted_gradient(self, state, g, step):
+    def _crafted_gradient(self, state, g, step, scalars):
         """g -> g + v' and v -> v', both in place."""
         return fused.sghmc_update_(
             g, state.theta, self.target.theta0, state.v, self.prior_mask,
             self.lr_vec, prior_sig=self.prior_sig, n_eff=self.n_eff,
-            nd=self.nd, alpha=self.momentum_decay, seed=self.seed,
-            step=step)[0]
+            nd=self.nd, alpha=self.momentum_decay,
+            **self.draw_args(step, scalars))[0]
 
     def extra_ckpt(self):
         return {**super().extra_ckpt(), "momentum_decay": self.momentum_decay}

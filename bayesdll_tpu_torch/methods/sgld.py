@@ -62,21 +62,25 @@ class Runner(base.BaseRunner):
         if ep == self.burnin:
             self.logger.info(
                 "(leaving burnin period) start collecting posterior samples")
-            self.state.moments = RunningMoments.init_from(self.state.theta)
+            # in place: a captured graph of the step keeps its addresses
+            self.state.moments.reset_from(self.state.theta)
 
     def step_scalars(self, ep: int) -> dict:
         # the reference counts the step before its thinning test
         return {"collect": ep >= self.burnin and (self.bi + 1) % self.thin == 0}
 
+    def _fused_key(self, ep: int):
+        return ep >= self.burnin
+
     def eval_ready(self, ep: int) -> bool:
         return ep >= self.burnin
 
-    def _crafted_gradient(self, state, g, step):
+    def _crafted_gradient(self, state, g, step, scalars):
         """The gradient SGD takes: here g' written over g in place."""
         return fused.sgld_update_(
             g, state.theta, self.target.theta0, self.prior_mask, self.lr_vec,
             prior_sig=self.prior_sig, n_eff=self.n_eff, nd=self.nd,
-            seed=self.seed, step=step)
+            **self.draw_args(step, scalars))
 
     def _step(self, state, ns, x, y, step, scalars):
         # the views into this leaf carry the forward, so the gradient comes
@@ -89,11 +93,10 @@ class Runner(base.BaseRunner):
 
         # theta and buf change IN PLACE; theta_leaf shares theta's storage,
         # which is safe because its graph has been consumed above
-        g = self._crafted_gradient(state, g, step)
+        g = self._crafted_gradient(state, g, step, scalars)
         sgd_step(state.theta, g, state.buf, self.lr_vec, self.cfg.momentum,
                  state.step)
-        if scalars["collect"]:  # a host bool: no device sync
-            state.moments.update(state.theta)
+        self.collect_sample(state, scalars)
         state.step += 1
         return state, new_ns, (loss.detach(), base.err_count(logits, y))
 

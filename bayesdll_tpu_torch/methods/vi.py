@@ -60,6 +60,10 @@ class VIState:
 
 class Runner(base.BaseRunner):
     method_name = "vi"
+    fused_blocker = ("its reparameterisation draw comes from a generator "
+                     "keyed by (seed, VI, step) on the host inside the step "
+                     "(_train_normal), which a captured graph would replay "
+                     f"unchanged; {base.HOST_DRAWS}")
 
     def __init__(self, target, theta_init, net_state, cfg, **kw):
         self.kld = float(cfg.hparams.get("kld", 1.0))

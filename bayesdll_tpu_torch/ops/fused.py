@@ -6,7 +6,12 @@ versions, with the JAX package's formulas and contracts; they are the
 oracles the tests and chip_smoke.py hold the kernels against.  The
 versions with a trailing underscore are what the runners call: on CUDA
 tensors they launch the hand-written kernel (ops/kernels.py) and nothing
-else; on CPU tensors they run the plain version.  `adam_sghmc_update` (and
+else; on CPU tensors they run the plain version.  The per-step path hands
+them the seed, the step and csghmc's gate as host values; the fused path
+hands them `dev`, an int64 tensor (seed, step, gate) on the vectors'
+device, which the kernel's pointer entry point reads on the card (a
+captured graph cannot take host values that change from step to step) and
+which the CPU reads as the same three values.  `adam_sghmc_update` (and
 its momentum, `adam_sghmc_momentum`) has no kernel in either package: it
 is plain PyTorch on every device.
 
@@ -149,20 +154,35 @@ def _cpu_generator(t: torch.Tensor, name: str, seed: int, step: int):
     tensor raises."""
     if t.device.type != "cpu":
         raise ValueError(f"{name}: no path for device {t.device}")
-    return rng.generator("cpu", seed, rng.TRAIN_CPU, step)
+    return rng.generator("cpu", int(seed), rng.TRAIN_CPU, int(step))
+
+
+def _host_scalars(dev, seed, step, gate=False):
+    """(seed, step, gate): the host values, or those `dev` holds (read on
+    the CPU, where reading waits on nothing)."""
+    if dev is None:
+        return seed, step, gate
+    seed, step, gate = (int(x) for x in dev.tolist())
+    return seed & kernels._U64, step, bool(gate)
 
 
 def csghmc_update_(g, theta, v, *, prior_sig: float, n_eff: float, nd: float,
-                   alpha: float, lr, should_sample: bool, seed: int,
-                   step: int):
+                   alpha: float, lr, should_sample: bool = False,
+                   seed: int = 0, step: int = 0, dev=None):
     """csghmc_update IN PLACE on theta and v; the noise is a pure function of
     (seed, step).  CUDA tensors go to the kernel, which launches or raises;
-    CPU tensors take the plain version."""
+    CPU tensors take the plain version.  `dev` (seed, step, gate), when
+    given, stands for seed, step and should_sample."""
     if theta.is_cuda:
+        pref = kernels.noise_prefactor(nd, alpha, n_eff)
+        if dev is not None:
+            return kernels.csghmc_update_dev(g, theta, v, lr, dev,
+                                             prior_sig=prior_sig, alpha=alpha,
+                                             noise_pref=pref)
         return kernels.csghmc_update(
             g, theta, v, lr, prior_sig=prior_sig, alpha=alpha,
-            noise_pref=kernels.noise_prefactor(nd, alpha, n_eff),
-            gate=should_sample, seed=seed, step=step)
+            noise_pref=pref, gate=should_sample, seed=seed, step=step)
+    seed, step, should_sample = _host_scalars(dev, seed, step, should_sample)
     th_new, v_new = csghmc_update(
         g, theta, v, prior_sig=prior_sig, n_eff=n_eff, nd=nd, alpha=alpha,
         lr=lr, should_sample=should_sample,
@@ -173,14 +193,21 @@ def csghmc_update_(g, theta, v, *, prior_sig: float, n_eff: float, nd: float,
 
 
 def sgld_update_(g, theta, theta0, prior_mask, lr, *, prior_sig: float,
-                 n_eff: float, nd: float, seed: int, step: int):
+                 n_eff: float, nd: float, seed: int = 0, step: int = 0,
+                 dev=None):
     """sgld_update IN PLACE on g; the noise is a pure function of (seed,
     step).  CUDA tensors go to the kernel, which launches or raises; CPU
-    tensors take the plain version."""
+    tensors take the plain version.  `dev`, when given, stands for seed and
+    step."""
     if g.is_cuda:
+        if dev is not None:
+            return kernels.sgld_update_dev(g, theta, theta0, prior_mask, lr,
+                                           dev, prior_sig=prior_sig,
+                                           n_eff=n_eff, nd=nd)
         return kernels.sgld_update(g, theta, theta0, prior_mask, lr,
                                    prior_sig=prior_sig, n_eff=n_eff, nd=nd,
                                    seed=seed, step=step)
+    seed, step, _ = _host_scalars(dev, seed, step)
     gen = _cpu_generator(g, "sgld_update_", seed, step)
     return g.copy_(sgld_update(g, theta, theta0, prior_mask, lr,
                                prior_sig=prior_sig, n_eff=n_eff, nd=nd,
@@ -188,14 +215,19 @@ def sgld_update_(g, theta, theta0, prior_mask, lr, *, prior_sig: float,
 
 
 def sghmc_update_(g, theta, theta0, v, prior_mask, lr, *, prior_sig: float,
-                  n_eff: float, nd: float, alpha: float, seed: int,
-                  step: int):
+                  n_eff: float, nd: float, alpha: float, seed: int = 0,
+                  step: int = 0, dev=None):
     """sghmc_update IN PLACE on g and v, as sgld_update_ dispatches.
     Returns (g, v)."""
     if g.is_cuda:
+        if dev is not None:
+            return kernels.sghmc_update_dev(g, theta, theta0, v, prior_mask,
+                                            lr, dev, prior_sig=prior_sig,
+                                            n_eff=n_eff, nd=nd, alpha=alpha)
         return kernels.sghmc_update(g, theta, theta0, v, prior_mask, lr,
                                     prior_sig=prior_sig, n_eff=n_eff, nd=nd,
                                     alpha=alpha, seed=seed, step=step)
+    seed, step, _ = _host_scalars(dev, seed, step)
     gen = _cpu_generator(g, "sghmc_update_", seed, step)
     g_new, v_new = sghmc_update(g, theta, theta0, v, prior_mask, lr,
                                 prior_sig=prior_sig, n_eff=n_eff, nd=nd,

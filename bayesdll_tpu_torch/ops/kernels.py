@@ -10,7 +10,13 @@ tests import this module on machines with no nvcc and no card.
 
 Each wrapper takes CUDA tensors only; on anything else it raises.  It counts
 its launches in `<wrapper>.launches`, so a run can show that its main path
-went through the kernel.
+went through the kernel.  Each kernel has a second wrapper, `<name>_dev`,
+over its pointer entry point: the Philox seed, the step and (for csghmc)
+the gate come from a small int64 tensor on the card, which the fused
+path's captured CUDA graph fills before each replay.  It counts into the
+same `<name>.launches`; a launch recorded into a graph counts once at the
+capture, and the graph's runner (methods/graphed.py) sets the counts so
+that each replay adds its launches (`launch_counts`, `set_launch_counts`).
 """
 
 from __future__ import annotations
@@ -81,9 +87,10 @@ def build(names=KERNELS) -> float:
 def _library(name: str) -> ctypes.CDLL:
     build((name,))
     lib = ctypes.CDLL(str(library_path(name)))
-    fn = getattr(lib, name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
+    for symbol in (name, f"{name}_dev"):
+        fn = getattr(lib, symbol)
+        fn.argtypes = _ARGTYPES[symbol]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -97,6 +104,31 @@ _ARGTYPES = {
     # seed, step, stream
     "sghmc_update": [_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _U, _U, _P],
 }
+# the pointer entry points: (seed, step, gate) from the int64 tensor `dev`
+_ARGTYPES.update({
+    # g, theta, v, lr, n, prior_sig, 1-alpha, noise_pref, dev, stream
+    "csghmc_update_dev": [_P, _P, _P, _P, _I64, _F, _F, _F, _P, _P],
+    # g, theta, theta0, mask, lr, n, sigma^2, N, nd, dev, stream
+    "sgld_update_dev": [_P, _P, _P, _P, _P, _I64, _F, _F, _F, _P, _P],
+    # g, theta, theta0, v, mask, lr, n, sigma^2, N, nd, 1-alpha, 2 alpha,
+    # dev, stream
+    "sghmc_update_dev": [_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _P,
+                         _P],
+})
+DEV_SCALARS = 3  # (seed, step, gate), the pointer entry points' int64 row
+
+
+def seed_int64(seed: int) -> int:
+    """The seed's 64 bits as an int64 (two's complement), as the pointer
+    entry points read it."""
+    s = int(seed) & _U64
+    return s - (1 << 64) if s >> 63 else s
+
+
+def dev_scalars(seed: int, step: int, gate: bool = False, device="cuda"):
+    """The int64 tensor (seed, step, gate) a pointer entry point reads."""
+    return torch.tensor([seed_int64(seed), int(step), int(bool(gate))],
+                        dtype=torch.int64, device=device)
 
 
 def _check_vectors(**tensors: torch.Tensor) -> torch.Tensor:
@@ -126,6 +158,31 @@ def _check_no_overlap(written: dict, read: dict):
         for other, (lo, hi) in spans.items():
             if other != w and spans[w][0] < hi and lo < spans[w][1]:
                 raise ValueError(f"{w} must not alias {other}")
+
+
+def _check_dev(dev: torch.Tensor, like: torch.Tensor):
+    """The pointer entry points' scalars: a contiguous int64 tensor of
+    DEV_SCALARS elements on the vectors' device."""
+    if not dev.is_cuda or dev.device != like.device:
+        raise ValueError(f"dev: kernel needs the scalars on {like.device}, "
+                         f"got {dev.device}")
+    if dev.dtype != torch.int64 or dev.numel() != DEV_SCALARS \
+            or not dev.is_contiguous():
+        raise ValueError(f"dev: kernel needs a contiguous int64 tensor of "
+                         f"{DEV_SCALARS} elements, got {dev.dtype} "
+                         f"{tuple(dev.shape)}")
+    if dev.data_ptr() % 8:
+        raise ValueError("dev: kernel needs an 8-byte aligned pointer")
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count."""
+    return {name: globals()[name].launches for name in KERNELS}
+
+
+def set_launch_counts(counts: dict):
+    for name, n in counts.items():
+        globals()[name].launches = n
 
 
 def _raise_on(err: int, name: str):
@@ -162,6 +219,49 @@ def csghmc_update(g, theta, v, lr, *, prior_sig: float, alpha: float,
 csghmc_update.launches = 0
 
 
+def sghmc_update_dev(g, theta, theta0, v, mask, lr, dev, *, prior_sig: float,
+                     n_eff: float, nd: float, alpha: float):
+    """sghmc_update with (seed, step) read on the card from `dev` (int64
+    [3], the last unused), through the pointer entry point.  Counts into
+    sghmc_update.launches.  Returns (g, v)."""
+    _check_vectors(g=g, theta=theta, theta0=theta0, v=v, mask=mask, lr=lr)
+    _check_no_overlap(dict(g=g, v=v), dict(theta=theta, theta0=theta0,
+                                           mask=mask, lr=lr))
+    _check_dev(dev, g)
+    lib = _library("sghmc_update")
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sghmc_update_dev(
+            g.data_ptr(), theta.data_ptr(), theta0.data_ptr(), v.data_ptr(),
+            mask.data_ptr(), lr.data_ptr(), g.numel(), float(prior_sig ** 2),
+            float(n_eff), float(nd), float(1.0 - alpha), float(2.0 * alpha),
+            dev.data_ptr(), stream)
+    _raise_on(err, "sghmc_update_dev")
+    sghmc_update.launches += 1
+    return g, v
+
+
+def csghmc_update_dev(g, theta, v, lr, dev, *, prior_sig: float,
+                      alpha: float, noise_pref: float):
+    """csghmc_update with (seed, step, gate) read on the card from `dev`,
+    an int64 tensor of 3 (`dev_scalars`), through the pointer entry point:
+    the same bits as csghmc_update at the same values.  Counts into
+    csghmc_update.launches.  Returns (theta, v)."""
+    _check_vectors(g=g, theta=theta, v=v, lr=lr)
+    _check_no_overlap(dict(theta=theta, v=v), dict(g=g, lr=lr))
+    _check_dev(dev, theta)
+    lib = _library("csghmc_update")
+    with torch.cuda.device(theta.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.csghmc_update_dev(
+            g.data_ptr(), theta.data_ptr(), v.data_ptr(), lr.data_ptr(),
+            theta.numel(), float(prior_sig), float(1.0 - alpha),
+            float(noise_pref), dev.data_ptr(), stream)
+    _raise_on(err, "csghmc_update_dev")
+    csghmc_update.launches += 1
+    return theta, v
+
+
 def sgld_update(g, theta, theta0, mask, lr, *, prior_sig: float, n_eff: float,
                 nd: float, seed: int, step: int):
     """SGLD crafted gradient on the card, IN PLACE on g (csrc/sgld_update.cu):
@@ -187,6 +287,27 @@ def sgld_update(g, theta, theta0, mask, lr, *, prior_sig: float, n_eff: float,
 
 
 sgld_update.launches = 0
+
+
+def sgld_update_dev(g, theta, theta0, mask, lr, dev, *, prior_sig: float,
+                    n_eff: float, nd: float):
+    """sgld_update with (seed, step) read on the card from `dev` (int64
+    [3], the last unused), through the pointer entry point.  Counts into
+    sgld_update.launches.  Returns g."""
+    _check_vectors(g=g, theta=theta, theta0=theta0, mask=mask, lr=lr)
+    _check_no_overlap(dict(g=g), dict(theta=theta, theta0=theta0, mask=mask,
+                                      lr=lr))
+    _check_dev(dev, g)
+    lib = _library("sgld_update")
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sgld_update_dev(
+            g.data_ptr(), theta.data_ptr(), theta0.data_ptr(), mask.data_ptr(),
+            lr.data_ptr(), g.numel(), float(prior_sig ** 2), float(n_eff),
+            float(nd), dev.data_ptr(), stream)
+    _raise_on(err, "sgld_update_dev")
+    sgld_update.launches += 1
+    return g
 
 
 def sghmc_update(g, theta, theta0, v, mask, lr, *, prior_sig: float,
@@ -217,6 +338,28 @@ def sghmc_update(g, theta, theta0, v, mask, lr, *, prior_sig: float,
 
 
 sghmc_update.launches = 0
+
+
+def sghmc_update_dev(g, theta, theta0, v, mask, lr, dev, *, prior_sig: float,
+                     n_eff: float, nd: float, alpha: float):
+    """sghmc_update with (seed, step) read on the card from `dev` (int64
+    [3], the last unused), through the pointer entry point.  Counts into
+    sghmc_update.launches.  Returns (g, v)."""
+    _check_vectors(g=g, theta=theta, theta0=theta0, v=v, mask=mask, lr=lr)
+    _check_no_overlap(dict(g=g, v=v), dict(theta=theta, theta0=theta0,
+                                           mask=mask, lr=lr))
+    _check_dev(dev, g)
+    lib = _library("sghmc_update")
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sghmc_update_dev(
+            g.data_ptr(), theta.data_ptr(), theta0.data_ptr(), v.data_ptr(),
+            mask.data_ptr(), lr.data_ptr(), g.numel(), float(prior_sig ** 2),
+            float(n_eff), float(nd), float(1.0 - alpha), float(2.0 * alpha),
+            dev.data_ptr(), stream)
+    _raise_on(err, "sghmc_update_dev")
+    sghmc_update.launches += 1
+    return g, v
 
 
 def noise_prefactor(nd: float, alpha: float, n_eff: float) -> float:

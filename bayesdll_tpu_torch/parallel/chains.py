@@ -17,17 +17,26 @@ statistics).  Chains see their own data orders (`ArrayLoader.chain_view`).
 The cyclical schedule is a function of the global step, shared by the
 chains.
 
+With `cfg.fused_steps` an epoch runs in fused segments, cut where the JAX
+package cuts them (at cycle ends, and at a 256 MiB window of the chains'
+stacked batches): a segment is chain 0's K steps, replays of its own CUDA
+graph on the card (methods/graphed.py), then chain 1's, and so on, each on
+the batches its own iterator gives it; the cyclical bookkeeping runs at
+segment ends.  A chain's steps depend only on its own state, batches and
+seed, so this order gives the per-step path's bits.
+
 Not ported (ROADMAP.md): the mesh, data parallelism and fsdp
-('Multi-device'), and the fused multi-step scan ('The fused multi-step
-path'); the chains' steps are not batched into one launch or one vmapped
-forward (queue 2, 'Kernel work').
+('Multi-device'); the chains' steps are not batched into one launch or one
+vmapped forward (queue 2, 'Kernel work').
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from bayesdll_tpu_torch.core import rng
+from bayesdll_tpu_torch.methods import graphed
 
 MULTI_DEVICE = ("ROADMAP.md queue 1, 'Multi-device': the port runs its "
                 "chains on one card")
@@ -88,15 +97,31 @@ class MultiChainTrainer:
         r.bi = self.bi
         return torch.stack(losses), torch.stack(errs)
 
-    def run_steps(self, ep: int, xs, ys, bi0: int):
-        """len(xs) consecutive steps from global step bi0 with no host hooks
-        in between (the JAX package's scanned segment, here a host loop).
-        xs: [K, C, B, ...], ys: [K, C, B].  Returns (loss, err), [K, C]
-        each, on the device."""
+    def step_loop(self, ep: int, xs, ys, bi0: int):
+        """len(xs) per-step steps of every chain from global step bi0, with
+        no host hooks in between.  xs: [K, C, B, ...], ys: [K, C, B].
+        Returns (loss, err), [K, C] each, on the device."""
         self.bi = bi0
         out = [self.step(xs[k], ys[k], ep) for k in range(len(xs))]
         return (torch.stack([o[0] for o in out]),
                 torch.stack([o[1] for o in out]))
+
+    def run_steps(self, ep: int, xs, ys, bi0: int):
+        """len(xs) fused steps of every chain from global step bi0 (the JAX
+        package's scanned segment): chain c's K steps through the runner's
+        `run_steps` on its state, net_state and seed, one chain after
+        another.  xs: [K, C, B, ...], ys: [K, C, B].  Returns (loss, err),
+        [K, C] each, on the device."""
+        r = self.runner
+        losses, errs = [], []
+        for c in range(self.n_chain):
+            with r.bound(self.states[c], self.net_states[c], self.seeds[c]):
+                loss, err = r.run_steps(ep, xs[:, c], ys[:, c], bi0)
+                self.states[c], self.net_states[c] = r.state, r.net_state
+            losses.append(loss)
+            errs.append(err)
+        self.bi = r.bi = bi0 + len(xs)
+        return torch.stack(losses, 1), torch.stack(errs, 1)
 
     def _epoch_begin_chains(self, ep: int):
         """The runner's epoch_begin on every chain (SGLD's family seeds its
@@ -114,20 +139,50 @@ class MultiChainTrainer:
         after every step (the cyclical bookkeeping)."""
         for ep in range(start_epoch, epochs):
             self._epoch_begin_chains(ep)
-            its = self._chain_iters(train_loader, ep)
-            losses, errs = [], []
-            for _ in range(len(train_loader)):
-                batches = [next(it) for it in its]
-                loss, err = self.step([b[0] for b in batches],
-                                      [b[1] for b in batches], ep)
-                losses.append(loss)
-                errs.append(err)
-                if after_batch is not None:
-                    after_batch(ep)
+            if self.runner.use_fused(ep):
+                losses, errs = self._train_one_epoch_fused(ep, train_loader,
+                                                           after_batch)
+            else:
+                its = self._chain_iters(train_loader, ep)
+                losses, errs = [], []
+                for _ in range(len(train_loader)):
+                    batches = [next(it) for it in its]
+                    loss, err = self.step([b[0] for b in batches],
+                                          [b[1] for b in batches], ep)
+                    losses.append(loss[None])
+                    errs.append(err[None])
+                    if after_batch is not None:
+                        after_batch(ep)
             # the one host read of the epoch
             bs = train_loader.batch_size
-            yield (ep, float(torch.stack(losses).mean()),
-                   float(torch.stack(errs).float().mean()) / bs)
+            yield (ep, float(torch.cat(losses).mean()),
+                   float(torch.cat(errs).float().mean()) / bs)
+
+    def _train_one_epoch_fused(self, ep: int, train_loader, after_batch):
+        """The epoch in fused segments (JAX `MultiChainTrainer.
+        _train_one_epoch_fused`): cut after each of the runner's
+        `segment_ends` and when the chains' stacked batches reach its
+        FUSED_BYTES_BUDGET, `after_batch` at segment ends only.  Returns
+        the per-step (loss, err) as lists of [K, C]."""
+        r = self.runner
+        n = len(train_loader)
+        r.bi = self.bi
+        its = self._chain_iters(train_loader, ep)
+
+        def batches():  # every chain's next batch, stacked [C, B, ...]
+            for _ in range(n):
+                chain = [next(it) for it in its]
+                yield (np.stack([b[0] for b in chain]),
+                       np.stack([b[1] for b in chain]))
+        losses, errs = [], []
+        for xs, ys, at_end in graphed.segments(
+                batches(), n, r.segment_ends(ep, n), r.FUSED_BYTES_BUDGET):
+            loss_k, err_k = self.run_steps(ep, xs, ys, self.bi)
+            losses.append(loss_k)
+            errs.append(err_k)
+            if at_end and after_batch is not None:
+                after_batch(ep)
+        return losses, errs
 
     def _chain_iters(self, train_loader, ep: int):
         """One epoch iterator per chain: `chain_view(c, ep)` where the
@@ -139,7 +194,8 @@ class MultiChainTrainer:
         return [iter(cv(c, ep)) for c in range(self.n_chain)]
 
     def reset_cycle_moments(self):
-        """Fresh, empty moments on every chain (a cycle's start)."""
+        """Empty moments on every chain (a cycle's start), cleared in
+        place."""
         self.states = [self.runner._reset_cycle_state(s) for s in self.states]
 
     def iterates(self) -> torch.Tensor:

@@ -48,6 +48,27 @@ Phases, one line each:
      (torch.profiler); for ViT-L/32 also the shares of the whole-vector
      cast and its backward, the per-step lr vector, the moments update and,
      for Adam-cSGHMC, its Adam momentum and SGD step.
+  6. the fused path (fused_steps: segments of steps as replays of a
+     captured CUDA graph, methods/graphed.py), fp32 with TF32 off: (a) the
+     seven methods it serves (cSGHMC, SGLD, SGHMC, cSGLD, vanilla, Laplace's
+     stage 1, cSGHMC-FS) through `train` on the full-width MLP, each in its
+     phase-3 config and bitwise equal to that per-step run (state, counts,
+     losses), noise on; (b) the JAX bench's headline form, cSGHMC at batch
+     128 with run_steps K = 100, fp32 and bf16, against the per-step loop
+     in turns (host ms/step, device us/step from CUDA events and the
+     profiler, busy share, capture seconds); (c) the seven at 2 chains,
+     each chain bitwise equal to the per-step 2-chain run; (d) ViT-L/32
+     cSGHMC (bf16, batch 128) fused through `train`, its losses against
+     the spread of two per-step runs, and its step fused, without remat
+     and with remat "names", beside phase 4's per-step times (host
+     ms/step, device us/step, busy share, peak memory); (e) each kernel's
+     pointer entry point (step, seed and gate read from the card) bitwise
+     against its by-value entry point, noise on, and against its plain
+     version, timed at the MLP's and ViT-L/32's D, and a profiler trace of
+     one replayed MLP segment of 10 steps: each kernel 10 times on the
+     card, one cudaGraphLaunch per step and no matrix product dispatched
+     on the host.  The per-step timings of phases 4 and 5 run
+     `step_loop`, the fused ones `run_steps`.
 The MLP and ResNet runners are freed before the ViT-L/32 phases.  The
 script prints its total time; the line before the last is a JSON record of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -127,14 +148,17 @@ RESNET_PROFILED_STEPS = 3
 
 # the JAX package's ViT bench (tools/big_model_bench.py as tools/hw_sweep.sh
 # runs it): cSGHMC on vit_l_32, 37 classes (Pets), batch 128, bf16 forward
-# on an fp32 theta, the bench's hparams, 2 cycles; synthetic data, 16 epochs
+# on an fp32 theta, the bench's hparams, 2 cycles; synthetic data, 6 epochs
 # of 3 steps, evaluated every 5th epoch (the last included).  lr 1e-3 in
 # place of the bench's 1e-2, at which the run does not fit (PERF.md section
 # 4 gives the sweep).  Unlike the ResNet, the ViT tells the synthetic
 # classes apart (a position-wise linear readout of the patches suffices),
-# so the run is held to its test error as well as its training error.
+# so the run is held to its test error as well as its training error.  The
+# run had 16 epochs until the fused phases came; 6 keep two cycles, the
+# last epoch's evaluation and four checkpoint writes of 8.6-12.2 GB, where
+# 16 wrote six, and leave room for the fused path's ViT-L/32 runs.
 VIT = dict(backbone="vit_l_32", num_classes=37, batch_size=128,
-           compute_dtype="bfloat16", epochs=16, num_cycles=2,
+           compute_dtype="bfloat16", epochs=6, num_cycles=2,
            test_eval_freq=5)
 VIT_HP = dict(HP)
 VIT_LR = 1e-3
@@ -437,8 +461,19 @@ def phase_sg_kernels():
     return errs
 
 
-def make_runner(cfg, width=None, depth=None, workdir=None):
-    """The runner and loaders of `cfg` through prepare, create_backbone,
+def fresh_loaders(loaders):
+    """New loaders over the same examples as `loaders` (train, val, test),
+    each from its first epoch again: what prepare(cfg) gives for the same
+    cfg, without generating the synthetic set anew."""
+    from bayesdll_tpu_torch.data import ArrayLoader
+    return [None if ld is None else ArrayLoader(
+        ld.x, ld.y, ld.batch_size, shuffle=ld.shuffle, seed=ld._seed,
+        drop_last=ld.drop_last) for ld in loaders]
+
+
+def make_runner(cfg, width=None, depth=None, workdir=None, loaders=None):
+    """The runner and loaders of `cfg` through prepare (or fresh copies of
+    `loaders`, a run of the same data settings), create_backbone,
     make_flat_target and get_runner_cls, with the cold-restart re-init
     function wired as the CLI wires it."""
     from bayesdll_tpu_torch.cli.demo import make_reinit_fn
@@ -446,8 +481,11 @@ def make_runner(cfg, width=None, depth=None, workdir=None):
     from bayesdll_tpu_torch.data import prepare
     from bayesdll_tpu_torch.methods import get_runner_cls
     from bayesdll_tpu_torch.models import create_backbone
-    loaders = prepare(cfg)
-    *loaders, nd = loaders
+    if loaders is None:
+        *loaders, nd = prepare(cfg)
+    else:
+        loaders = fresh_loaders(loaders)
+        nd = loaders[0].num_examples
     kw = {} if width is None else dict(width=width, depth=depth)
     model, _, meta = create_backbone(cfg.backbone, num_classes=cfg.num_classes,
                                      **cfg.backbone_kw(), **kw)
@@ -712,7 +750,7 @@ def phase_resnet_reference(method, hp):
             runner._ensure_sched(m["steps"])
         start = {"theta": theta.clone(), "v": torch.zeros_like(theta),
                  "batch_stats": tree_clone(ns["batch_stats"])}
-        runner.run_steps(0, xs, ys, 0)
+        runner.step_loop(0, xs, ys, 0)
         logits, _ = target.forward(runner.state.theta, runner.net_state,
                                    x_eval.to(device), train=False)
         out[device] = {"theta": runner.state.theta,
@@ -854,7 +892,7 @@ def free_device():
 
 def phase_step_time(smi, method, runner, loaders, label="mlp_mnist",
                     sampler=None):
-    """The training step at the run's batch size through run_steps, on
+    """The training step at the run's batch size through step_loop, on
     batches already on the card; then its profile, with the share of the
     kernels named after `sampler` (default: the method's own)."""
     train = loaders[0]
@@ -869,10 +907,10 @@ def phase_step_time(smi, method, runner, loaders, label="mlp_mnist",
     xs = torch.from_numpy(np.stack(xs[:STEPS_TIMED])).cuda()
     ys = torch.from_numpy(np.stack(ys[:STEPS_TIMED])).cuda()
     ep = runner.cfg.epochs - 1
-    runner.run_steps(ep, xs[:5], ys[:5], runner.bi)  # warm-up
+    runner.step_loop(ep, xs[:5], ys[:5], runner.bi)  # warm-up
     torch.cuda.synchronize()
     tic = time.perf_counter()
-    loss_k, _ = runner.run_steps(ep, xs, ys, runner.bi)
+    loss_k, _ = runner.step_loop(ep, xs, ys, runner.bi)
     torch.cuda.synchronize()
     dt = time.perf_counter() - tic
     check(bool(torch.isfinite(loss_k).all()),
@@ -880,7 +918,7 @@ def phase_step_time(smi, method, runner, loaders, label="mlp_mnist",
     ms_step = dt / STEPS_TIMED * 1e3
     gevals = STEPS_TIMED * xs.shape[1] / dt
     print(f"phase 4: [{smi}] {method} training step {label} batch "
-          f"{xs.shape[1]}: {ms_step:.3f} ms/step over {STEPS_TIMED} run_steps "
+          f"{xs.shape[1]}: {ms_step:.3f} ms/step over {STEPS_TIMED} step_loop "
           f"steps = {gevals:.0f} gradient-evals/s", flush=True)
     phase_profile(smi, f"{method} {label}", runner, xs[:PROFILED_STEPS],
                   ys[:PROFILED_STEPS], ms_step, sampler or f"{method}_update")
@@ -897,10 +935,11 @@ def phase_mlp_bf16_step_time(smi):
     check(runner.target.fwd_cast == "bfloat16", "mlp bf16: whole-vector cast")
     runner._ensure_sched(len(loaders[0]))
     phase_step_time(smi, "csghmc", runner, loaders, label="mlp_mnist bf16")
+    return runner, loaders
 
 
 def big_step_time(smi, label, runner, xs, ys, steps, profiled):
-    """A big backbone's training step through run_steps on batches already
+    """A big backbone's training step through step_loop on batches already
     on the card (the per-batch pinned copy of a host batch stays out of the
     window): ms/step, gradient-evals/s, TFLOP/s, the share of the bf16
     peak, and the peak device memory of the steps; then the profile of the
@@ -917,7 +956,7 @@ def big_step_time(smi, label, runner, xs, ys, steps, profiled):
     tflops = 3 * fwd * bs / sec / 1e12
     print(f"phase 4: [{smi}] {runner.method_name} training step {label} bf16 "
           f"batch {bs}: "
-          f"{sec * 1e3:.2f} ms/step over {steps} run_steps steps on "
+          f"{sec * 1e3:.2f} ms/step over {steps} step_loop steps on "
           f"{len(set(map(id, xs)))} distinct batches = {bs / sec:.1f} "
           f"gradient-evals/s; {tflops:.1f} TFLOP/s (3 x {fwd / 1e9:.1f} GFLOP "
           f"x {bs} per step); {name}_mfu_bf16={tflops * 1e12 / BF16_PEAK:.2%} "
@@ -929,15 +968,17 @@ def big_step_time(smi, label, runner, xs, ys, steps, profiled):
     return dict(ms=sec * 1e3, gevals=bs / sec, tflops=tflops, peak_gb=peak_gb)
 
 
-def host_s_per_step(runner, xs, ys, label, warmup=2):
-    """(seconds per run_steps step on the host clock, the window's first
-    step), after `warmup` steps, the window closed by a synchronize."""
+def host_s_per_step(runner, xs, ys, label, warmup=2, fused=False):
+    """(seconds per step on the host clock, the window's first step), after
+    `warmup` steps, the window closed by a synchronize; the steps through
+    step_loop (per step), or run_steps (fused)."""
     ep = runner.cfg.epochs - 1
-    runner.run_steps(ep, xs[:warmup], ys[:warmup], runner.bi)
+    steps = runner.run_steps if fused else runner.step_loop
+    steps(ep, xs[:warmup], ys[:warmup], runner.bi)
     torch.cuda.synchronize()
     bi0 = runner.bi
     tic = time.perf_counter()
-    loss_k, _ = runner.run_steps(ep, xs, ys, bi0)
+    loss_k, _ = steps(ep, xs, ys, bi0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - tic
     check(bool(torch.isfinite(loss_k).all()),
@@ -1031,9 +1072,10 @@ def _device_total(e) -> float:
 
 
 def phase_profile(smi, what, runner, xs, ys, ms_step, sampler, pieces=False,
-                  bi0=None):
+                  bi0=None, fused=False):
     """Where a training step's device time goes: torch.profiler over a few
-    run_steps steps, device time summed by kernel name.  The busy share
+    step_loop (or, fused, run_steps) steps, device time summed by kernel
+    name.  The busy share
     divides the device time per step by the unprofiled ms/step; the
     sampler's share is that of the kernels named after `sampler`.  With
     `pieces`, also the device time under each labelled piece
@@ -1048,7 +1090,8 @@ def phase_profile(smi, what, runner, xs, ys, ms_step, sampler, pieces=False,
             stack.enter_context(labelled_pieces(runner))
         prof = stack.enter_context(profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]))
-        runner.run_steps(runner.cfg.epochs - 1, xs, ys, bi0)
+        steps = runner.run_steps if fused else runner.step_loop
+        steps(runner.cfg.epochs - 1, xs, ys, bi0)
         torch.cuda.synchronize()
     per_kernel, piece_us = {}, {}
     for e in prof.key_averages():
@@ -1288,7 +1331,7 @@ def phase_vit_reference():
         runner = get_runner_cls("csghmc")(target, theta, ns, cfg)
         runner._ensure_sched(m["steps"])
         start = theta.cpu().double()
-        runner.run_steps(0, xs, ys, 0)
+        runner.step_loop(0, xs, ys, 0)
         logits, _ = target.forward(runner.state.theta, {}, x_eval.to(device))
         out[device] = {"theta": runner.state.theta.cpu().double(),
                        "v": runner.state.v.cpu().double(),
@@ -1839,7 +1882,7 @@ def phase_chain_path(method):
           f"{[round(x, 4) for x in res['train_losses']]}; nll={res['nll']:.4f} "
           f"ece={res['ece']:.4f} test_err={res['test_err']:.4f}; chains' θ "
           f"max gap {gap:.4g}; {extra}", flush=True)
-    return counts
+    return counts, (mc, loaders)
 
 
 def weights_text(weights) -> str:
@@ -1909,7 +1952,7 @@ def phase_chain_reference(method, hp, fields, momentum=0.0):
 
 class ChainSteps:
     """A multi-chain trainer in the shape the step timers take (cfg, bi,
-    run_steps over [K, C, B, ...] batches)."""
+    step_loop and run_steps over [K, C, B, ...] batches)."""
 
     def __init__(self, trainer):
         self.trainer, self.cfg = trainer, trainer.runner.cfg
@@ -1917,6 +1960,9 @@ class ChainSteps:
     @property
     def bi(self):
         return self.trainer.bi
+
+    def step_loop(self, ep, xs, ys, bi0):
+        return self.trainer.step_loop(ep, xs, ys, bi0)
 
     def run_steps(self, ep, xs, ys, bi0):
         return self.trainer.run_steps(ep, xs, ys, bi0)
@@ -1937,7 +1983,7 @@ def stacked_batches(loader, steps: int):
 
 def phase_chain_step_time(smi, runner, loaders):
     """The full-width MLP cSGHMC step (batch 128, fp32) on one chain and on
-    two chains in turns (1, 2, 2, 1), run_steps over the same batches (the
+    two chains in turns (1, 2, 2, 1), step_loop over the same batches (the
     second chain's shifted by one step); host ms/step and the profile's
     device us/step of each."""
     from bayesdll_tpu_torch.parallel import MultiChainTrainer
@@ -1965,7 +2011,7 @@ def phase_chain_step_time(smi, runner, loaders):
     ratio = (f"; device ratio {dev[2] / dev[1]:.3f}" if dev[1] and dev[2]
              else "")
     print(f"phase 4: [{smi}] csghmc training step mlp_mnist batch "
-          f"{xs.shape[1]}, {STEPS_TIMED} run_steps steps, in turns 1, 2, 2, "
+          f"{xs.shape[1]}, {STEPS_TIMED} step_loop steps, in turns 1, 2, 2, "
           f"1 chains: {shown}; host ratio {ms[2] / ms[1]:.3f}{ratio}",
           flush=True)
 
@@ -2130,7 +2176,7 @@ def phase_big_chains(smi, name):
 
 def phase_resnet50_chain_step_time(smi, mc):
     """The 2-chain ResNet-50 cSGHMC step (bf16, batch 32) through the
-    trainer's run_steps on batches already on the card: host ms/step, then
+    trainer's step_loop on batches already on the card: host ms/step, then
     its profile."""
     from bayesdll_tpu_torch.models import create_backbone
     _, in_shape, _ = create_backbone("resnet50")
@@ -2142,10 +2188,430 @@ def phase_resnet50_chain_step_time(smi, mc):
     steps = ChainSteps(mc.trainer)
     sec, bi0 = host_s_per_step(steps, xs, ys, "csghmc resnet50 2 chains")
     print(f"phase 4: [{smi}] csghmc training step resnet50 bf16 batch 32, "
-          f"{N_CHAINS} chains: {sec * 1e3:.2f} ms/step over {k} run_steps "
+          f"{N_CHAINS} chains: {sec * 1e3:.2f} ms/step over {k} step_loop "
           f"steps ({sec * 1e3 / N_CHAINS:.2f} ms per chain step)", flush=True)
     phase_profile(smi, f"csghmc resnet50 {N_CHAINS} chains", steps, xs[:2],
                   ys[:2], sec * 1e3, "csghmc_update", bi0=bi0)
+
+
+# ---- phase 6: the fused path (fused_steps) ---------------------------------
+
+# the seven methods the fused path serves; the kernel each one's step launches
+FUSED_KERNEL = {"csghmc": "csghmc_update", "sgld": "sgld_update",
+                "sghmc": "sghmc_update", "csgld": "sgld_update",
+                "csghmc_fs": "csghmc_update", "vanilla": None, "la": None}
+FUSED_K = 10  # the replayed segment the profiler traces
+HEADLINE_K = 100  # bench.py:128-140: run_steps with K = 100
+HEADLINE_TURNS = (False, True, True, False, False, True)  # per step, fused
+# (seed, step, gate) at which the pointer entry points are held to the
+# by-value ones: a seed past 2^63 and a step past 2^32 included
+DEV_POINTS = ((7, 11, True), (2**63 + 12345, 2**33 + 5, True),
+              (123456789, 1, False), (0, 0, True))
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a sampler state, its moments' included, by name."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.Tensor):
+            out[f.name] = v
+        elif dataclasses.is_dataclass(v):
+            out.update({f"{f.name}.{k}": t
+                        for k, t in state_tensors(v).items()})
+    return out
+
+
+def host_counts(state):
+    """(step, moments count) of a state, the host's bookkeeping."""
+    m = getattr(state, "moments", None)
+    return (state.step, None if m is None
+            else getattr(m, "cnt", getattr(m, "n", None)))
+
+
+def differing(a, b) -> dict:
+    """The state tensors that are not bitwise equal, with their max abs
+    difference; host counts that differ under "counts"."""
+    ta, tb = state_tensors(a), state_tensors(b)
+    out = {k: float((ta[k] - tb[k]).abs().max()) for k in ta
+           if not torch.equal(ta[k], tb[k])}
+    if host_counts(a) != host_counts(b):
+        out["counts"] = (host_counts(a), host_counts(b))
+    return out
+
+
+def phase_fused_path(method, ref, ref_loaders):
+    """(a) One of the seven through `train` with fused_steps on the
+    full-width MLP, in the config of its per-step path `ref` (the trained
+    runner): the state (θ, v or buf, the moments), the host counts and the
+    per-epoch losses bitwise equal to the per-step run's, noise on; the
+    method's kernel launched once per step (a replay counts its graph's
+    launches), no other; test error below 0.5."""
+    from bayesdll_tpu_torch.ops import kernels
+    cfg = dataclasses.replace(ref.cfg, fused_steps=True)
+    runner, loaders = make_runner(cfg, loaders=ref_loaders)
+    reset_launches()
+    tic = time.perf_counter()
+    res = runner.train(*loaders)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - tic
+    counts = read_launches()
+    steps = cfg.epochs * len(loaders[0])
+    want = {k: 0 for k in kernels.KERNELS}
+    if FUSED_KERNEL[method]:
+        want[FUSED_KERNEL[method]] = steps
+    check(counts == want, f"{method} fused: launches {counts}, want {want}")
+    diff = differing(ref.state, runner.state)
+    check(not diff, f"{method} fused vs per step: differ in {diff}")
+    check(res["train_losses"] == ref.results["train_losses"],
+          f"{method} fused vs per step: losses {res['train_losses']} vs "
+          f"{ref.results['train_losses']}")
+    check(res["test_err"] < 0.5, f"{method} fused: test error "
+          f"{res['test_err']} well below chance (0.9)")
+    graph = runner._step_graphs[runner.seed]
+    check(graph.graphs, f"{method} fused: a captured graph")
+    print(f"phase 6a: [{CARD}] {method} mlp_mnist fused_steps, batch "
+          f"{cfg.batch_size}, {steps} steps in {secs:.2f} s incl. eval and "
+          f"capture (eager steps and captures {graph.capture_s:.3f} s); "
+          f"launches "
+          f"{counts}; graphs for collect flags {sorted(graph.graphs)}; state "
+          f"({', '.join(state_tensors(runner.state))}), "
+          f"counts {host_counts(runner.state)} and losses bitwise equal to "
+          f"the per-step run, noise on; test_err={res['test_err']:.4f}",
+          flush=True)
+    return runner, loaders
+
+
+def capture_seconds(runner) -> float:
+    """Host seconds the runner's fused path has spent on its eager steps
+    and captures."""
+    graph = runner._step_graphs.get(runner.seed)
+    return 0.0 if graph is None else graph.capture_s
+
+
+def phase_fused_trace(smi, method, runner, loaders):
+    """(e) torch.profiler over one replayed segment of FUSED_K steps of a
+    runner whose graph exists: on the host one cudaGraphLaunch per step and
+    no matrix product or index select dispatched; on the card the method's
+    kernel FUSED_K times."""
+    from torch.profiler import ProfilerActivity, profile
+    kernel = FUSED_KERNEL[method]
+    xs, ys = stacked_batches(loaders[0], FUSED_K)
+    ep = runner.cfg.epochs - 1
+    runner.run_steps(ep, xs, ys, runner.bi)  # the graph of these addresses
+    torch.cuda.synchronize()
+    key = runner._step_graphs[runner.seed].key
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.run_steps(ep, xs, ys, runner.bi)
+        torch.cuda.synchronize()
+    check(runner._step_graphs[runner.seed].key == key,
+          f"{method}: the traced segment replayed, no capture")
+    n = {"kernel": 0, "graph": 0, "launch": 0, "dispatch": 0}
+    for e in prof.key_averages():
+        on_card = e.device_type == torch.autograd.DeviceType.CUDA
+        if on_card and f"{kernel}_kernel" in e.key:
+            n["kernel"] += e.count
+        elif not on_card and e.key == "cudaGraphLaunch":
+            n["graph"] += e.count
+        elif not on_card and e.key == "cudaLaunchKernel":
+            n["launch"] += e.count
+        elif not on_card and e.key in ("aten::addmm", "aten::mm",
+                                       "aten::index_select"):
+            n["dispatch"] += e.count
+    check(n["kernel"] == FUSED_K and n["graph"] == FUSED_K
+          and n["dispatch"] == 0,
+          f"{method}: a replayed segment of {FUSED_K} steps traced {n}")
+    print(f"phase 6e: [{smi}] {method} mlp_mnist, one replayed segment of "
+          f"{FUSED_K} steps under torch.profiler: {kernel} on the card "
+          f"{n['kernel']} times, cudaGraphLaunch {n['graph']} times, "
+          f"aten::addmm/mm/index_select dispatched {n['dispatch']} times, "
+          f"cudaLaunchKernel {n['launch']} times (the segment's copies in "
+          "and out)", flush=True)
+
+
+def phase_fused_headline(smi, runner, loaders, label):
+    """(b) The JAX bench's headline form (bench.py:128-140): cSGHMC on the
+    full-width MLP, batch 128, run_steps with K = HEADLINE_K, against
+    step_loop over the same batches, in turns (HEADLINE_TURNS): host
+    ms/step, device us/step from CUDA events around each window and from
+    the profiler, the busy share (profiler device time over host time) and
+    the capture seconds."""
+    xs, ys = stacked_batches(loaders[0], HEADLINE_K)
+    ep = runner.cfg.epochs - 1
+    runner.step_loop(ep, xs[:5], ys[:5], runner.bi)  # warm
+    capture_s = capture_seconds(runner)
+    runner.run_steps(ep, xs, ys, runner.bi)  # the captures
+    torch.cuda.synchronize()
+    capture_s = capture_seconds(runner) - capture_s
+
+    def window(fused):
+        steps = runner.run_steps if fused else runner.step_loop
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        start.record()
+        loss, _ = steps(ep, xs, ys, runner.bi)
+        end.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - tic) / HEADLINE_K
+        check(bool(torch.isfinite(loss).all()), f"{label}: finite losses")
+        return host * 1e3, start.elapsed_time(end) / HEADLINE_K * 1e3
+
+    out = {False: [], True: []}
+    for fused in HEADLINE_TURNS:
+        out[fused].append(window(fused))
+    text = []
+    for fused in (False, True):
+        host = [h for h, _ in out[fused]]
+        events = [d for _, d in out[fused]]
+        ms = sum(host) / len(host)
+        prof = phase_profile(smi, f"csghmc {label} "
+                             f"{'fused' if fused else 'per step'}", runner,
+                             xs[:2 * FUSED_K], ys[:2 * FUSED_K], ms,
+                             "csghmc_update", fused=fused)
+        text.append(
+            f"{'fused K=' + str(HEADLINE_K) if fused else 'per step'}: host "
+            f"{[round(h, 4) for h in host]} ms/step, CUDA events "
+            f"{[round(d, 1) for d in events]} us/step, profiler "
+            + (f"{prof:.1f} us/step, busy {prof / (ms * 1e3):.1%}" if prof
+               else "not measured"))
+    print(f"phase 6b: [{smi}] csghmc {label} batch {xs.shape[1]}, "
+          f"{HEADLINE_K} steps a window, in turns: {'; '.join(text)}; "
+          f"captures {capture_s:.3f} s (an eager step and the capture, for "
+          "each of the two graphs)",
+          flush=True)
+
+
+def phase_fused_chain_path(method, ref, ref_loaders):
+    """(c) One of the seven at num_chains=2 with fused_steps on the
+    full-width MLP, in the config of its per-step 2-chain path `ref` (the
+    trained MultiChainRunner): each chain's state and host counts bitwise
+    equal to the per-step run's; the kernel launched C x steps; the
+    chain-mixture test error below 0.5."""
+    from bayesdll_tpu_torch.ops import kernels
+    from bayesdll_tpu_torch.parallel import MultiChainRunner
+    cfg = dataclasses.replace(ref.cfg, fused_steps=True)
+    runner, loaders = make_runner(cfg, loaders=ref_loaders)
+    mc = MultiChainRunner(runner)
+    reset_launches()
+    tic = time.perf_counter()
+    res = mc.train(*loaders)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - tic
+    counts = read_launches()
+    what = f"{method} mlp_mnist {N_CHAINS} chains fused"
+    steps = cfg.epochs * len(loaders[0])
+    want = {k: 0 for k in kernels.KERNELS}
+    if FUSED_KERNEL[method]:
+        want[FUSED_KERNEL[method]] = N_CHAINS * steps
+    check(counts == want, f"{what}: launches {counts}, want {want}")
+    for c in range(N_CHAINS):
+        diff = differing(ref.trainer.states[c], mc.trainer.states[c])
+        check(not diff, f"{what}: chain {c} differs from the per-step run "
+              f"in {diff}")
+    check(res["train_losses"] == ref.results["train_losses"],
+          f"{what}: losses differ from the per-step run")
+    check(res["test_err"] < 0.5, f"{what}: chain-mixture test error "
+          f"{res['test_err']} well below chance (0.9)")
+    check(sorted(runner._step_graphs) == sorted(mc.trainer.seeds),
+          f"{what}: one graph per chain")
+    print(f"phase 6c: [{CARD}] {what}, batch {cfg.batch_size}, {steps} steps "
+          f"per chain in {secs:.2f} s incl. eval and capture; launches "
+          f"{counts}; each chain's state and counts bitwise equal to the "
+          f"per-step 2-chain run, noise on; one graph per chain; "
+          f"test_err={res['test_err']:.4f}", flush=True)
+
+
+def dev_kernel(name, args, dev, *, n_eff):
+    """The pointer entry point of `name` on copies of `args` (csghmc:
+    (g, theta, v, lr); the others sg_operands' order)."""
+    from bayesdll_tpu_torch.ops import kernels
+    a = [t.clone() for t in args]
+    if name == "csghmc_update":
+        kernels.csghmc_update_dev(
+            *a, dev, prior_sig=1.0, alpha=0.05,
+            noise_pref=kernels.noise_prefactor(1.0, 0.05, n_eff))
+        return a[1], a[2]
+    out = getattr(kernels, f"{name}_dev")(*a, dev, prior_sig=1.0, n_eff=n_eff,
+                                          nd=1.0, **SG_ALPHA[name])
+    return out if isinstance(out, tuple) else (out,)
+
+
+def value_kernel(name, args, seed, step, gate, *, n_eff):
+    """The by-value entry point on copies of `args`, as dev_kernel."""
+    from bayesdll_tpu_torch.ops import kernels
+    a = [t.clone() for t in args]
+    if name == "csghmc_update":
+        kernels.csghmc_update(
+            *a, prior_sig=1.0, alpha=0.05,
+            noise_pref=kernels.noise_prefactor(1.0, 0.05, n_eff), gate=gate,
+            seed=seed, step=step)
+        return a[1], a[2]
+    return sg_kernel(name, args, nd=1.0, n_eff=n_eff, seed=seed, step=step)
+
+
+def phase_fused_kernels(smi, target, label, flush):
+    """(e) Each kernel's pointer entry point against its by-value entry
+    point at `target`'s D, bitwise with noise on at each of DEV_POINTS, and
+    against the plain version at nd = 0 (csghmc bitwise, the others within
+    TOL as phase 2); then its time, L2 flushed before each launch.  Returns
+    {kernel: us} of the pointer entry point."""
+    from bayesdll_tpu_torch.ops import fused, kernels
+    n_eff = 1000.0
+    g, theta, v, lr = csghmc_inputs(target)
+    vecs = sg_inputs(target)
+    operands = {"csghmc_update": (g, theta, v, lr),
+                **{n: sg_operands(n, *vecs) for n in SG_ALPHA}}
+    out = {}
+    for name, args in operands.items():
+        for seed, step, gate in DEV_POINTS:
+            dev = kernels.dev_scalars(seed, step, gate)
+            a = dev_kernel(name, args, dev, n_eff=n_eff)
+            b = value_kernel(name, args, seed, step, gate, n_eff=n_eff)
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{name} pointer vs by-value at D={target.dim}, (seed, "
+                  f"step, gate) = {(seed, step, gate)}")
+        # nd = 0 (csghmc: gate 0) against the plain version
+        dev = kernels.dev_scalars(7, 11, False)
+        if name == "csghmc_update":
+            c = [t.clone() for t in args]
+            kernels.csghmc_update_dev(*c, dev, prior_sig=1.0, alpha=0.05,
+                                      noise_pref=0.0)
+            want = fused.csghmc_update(*args[:3], prior_sig=1.0, n_eff=n_eff,
+                                       nd=0.0, alpha=0.05, lr=args[3],
+                                       should_sample=False)
+            got = (c[1], c[2])
+            ok = all(torch.equal(x, y) for x, y in zip(got, want))
+        else:
+            c = [t.clone() for t in args]
+            got = getattr(kernels, f"{name}_dev")(*c, dev, prior_sig=1.0,
+                                                  n_eff=n_eff, nd=0.0,
+                                                  **SG_ALPHA[name])
+            got = got if isinstance(got, tuple) else (got,)
+            want = sg_plain(name, args, nd=0.0, n_eff=n_eff)
+            ok = all(torch.allclose(x, y, **TOL) for x, y in zip(got, want))
+        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        check(ok, f"{name} pointer entry vs plain at nd=0: max abs err {err}")
+        step = [0]
+        dev_t = kernels.dev_scalars(0, 1, True)
+
+        def launch(name=name, args=args, dev_t=dev_t):
+            step[0] += 1
+            if name == "csghmc_update":
+                kernels.csghmc_update_dev(
+                    *args, dev_t, prior_sig=1.0, alpha=0.05,
+                    noise_pref=kernels.noise_prefactor(1.0, 0.05, n_eff))
+            else:
+                getattr(kernels, f"{name}_dev")(*args, dev_t, prior_sig=1.0,
+                                                n_eff=n_eff, nd=1.0,
+                                                **SG_ALPHA[name])
+        out[name] = cuda_ms_cold(launch, 100, flush) * 1e3
+        print(f"phase 6e: [{smi}] {name} pointer entry point at D="
+              f"{target.dim} ({label}): bitwise equal to the by-value entry "
+              f"point with noise on at (seed, step, gate) in {DEV_POINTS}; "
+              f"vs plain at nd=0 max abs err {err:.3g}; "
+              f"{out[name]:.2f} us a launch, L2 flushed before each",
+              flush=True)
+    del g, theta, v, lr, vecs, operands
+    free_device()
+    return out
+
+
+def fused_vit_times(smi, runner, xs, ys, label, per_step_ms):
+    """The ViT-L/32 step of `runner` fused on the run's batches (VIT_STEPS
+    steps a window, twice), beside `per_step_ms`, phase 4's per-step time
+    of the same step in this run: host ms/step, the fused profile's device
+    us/step and busy share, the capture seconds, and peak device memory
+    with the fused path (from before its captures: max_memory_allocated
+    and max_memory_reserved, the graphs' pool included)."""
+    xs = [xs[i % len(xs)] for i in range(VIT_STEPS)]
+    ys = [ys[i % len(ys)] for i in range(VIT_STEPS)]
+    xs, ys = torch.stack(xs), torch.stack(ys)
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    capture_s = capture_seconds(runner)
+    runner.run_steps(runner.cfg.epochs - 1, xs, ys, runner.bi)  # captures
+    torch.cuda.synchronize()
+    capture_s = capture_seconds(runner) - capture_s
+    host = [host_s_per_step(runner, xs, ys, label, fused=True)[0] * 1e3
+            for _ in range(2)]
+    peak = (torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9)
+    ms = sum(host) / len(host)
+    dev = phase_profile(smi, f"csghmc {label} fused", runner, xs, ys, ms,
+                        "csghmc_update", fused=True)
+    print(f"phase 6d: [{smi}] csghmc {label} bf16 batch "
+          f"{runner.cfg.batch_size}, {VIT_STEPS} steps a window: fused "
+          f"{[round(t, 2) for t in host]} ms/step (per step, phase 4: "
+          f"{per_step_ms:.2f}); fused device "
+          + (f"{dev:.1f} us/step, busy {dev / (ms * 1e3):.1%}"
+             if dev else "not measured")
+          + f"; captures {capture_s:.2f} s; peak device memory with the "
+          f"fused path {peak[0]:.2f} GB allocated, {peak[1]:.2f} GB "
+          "reserved", flush=True)
+
+
+def phase_fused_vit(smi, vit, loaders, xs, ys, per_step):
+    """(d) ViT-L/32 cSGHMC at full width with fused_steps (the path's
+    config, at its depth; K = 3 under the 256 MiB window): through `train`, no
+    checkpoints; training and test error below 0.5; the kernel launched
+    once per step.  Its per-epoch losses against the spread of two
+    per-step runs (the path's, and one more here without checkpoints):
+    attention's backward need not be deterministic, so the gate is that
+    the fused run lies no farther from the first per-step run than twice
+    the largest gap between the two per-step runs, plus 1e-6 of the loss.
+    Then its step without remat and with remat "names", fused, beside
+    `per_step` (phase_vit_steps' results) (fused_vit_times)."""
+    from bayesdll_tpu_torch.models import create_backbone
+    ref = vit.results["train_losses"]
+    second, sl = make_runner(vit.cfg, loaders=loaders)
+    tic = time.perf_counter()
+    res2 = second.train(*sl)
+    secs2 = time.perf_counter() - tic
+    del second
+    free_device()
+    runner, fl = make_runner(dataclasses.replace(vit.cfg, fused_steps=True),
+                             loaders=loaders)
+    reset_launches()
+    tic = time.perf_counter()
+    res = runner.train(*fl)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - tic
+    counts = read_launches()
+    steps = runner.cfg.epochs * len(fl[0])
+    losses, errs = res["train_losses"], res["train_errors"]
+    spread = max(abs(a - b) for a, b in zip(ref, res2["train_losses"]))
+    gap = max(abs(a - b) for a, b in zip(ref, losses))
+    print(f"phase 6d: [{CARD}] csghmc vit_l_32 fused_steps bf16 batch "
+          f"{runner.cfg.batch_size}, {steps} steps in {secs:.2f} s incl. "
+          f"eval and capture (a second per-step run {secs2:.2f} s); launches "
+          f"{counts}; last epoch loss {losses[-1]:.4f} error {errs[-1]:.4f}; "
+          f"test_err={res['test_err']:.4f} nll={res['nll']:.4f}; per-epoch "
+          f"losses: fused vs per-step run 1 max gap {gap:.3g}, per-step runs "
+          f"1 vs 2 (the spread) {spread:.3g}", flush=True)
+    check(counts == {"csghmc_update": steps, "sgld_update": 0,
+                     "sghmc_update": 0},
+          f"vit_l_32 fused: launches {counts} == steps {steps}")
+    check(errs[-1] < VIT_ERR and res["test_err"] < VIT_ERR,
+          f"vit_l_32 fused: training error {errs[-1]}, test error "
+          f"{res['test_err']} below {VIT_ERR}")
+    check(gap <= 2 * spread + 1e-6 * max(abs(x) for x in ref),
+          f"vit_l_32 fused: per-epoch losses {gap} from the per-step run's, "
+          f"spread of two per-step runs {spread}")
+    fused_vit_times(smi, runner, xs, ys, "vit_l_32",
+                    per_step["vit_l_32"]["ms"])
+    cfg, target = runner.cfg, runner.target
+    model, _, _ = create_backbone("vit_l_32", num_classes=cfg.num_classes,
+                                  **dict(cfg.backbone_kw(), remat=True,
+                                         remat_policy="names"))
+    runner.target = dataclasses.replace(target, module=model)
+    fused_vit_times(smi, runner, xs, ys, "vit_l_32 remat names",
+                    per_step["vit_l_32 remat names"]["ms"])
+    runner.target = target
+    del runner
+    free_device()
 
 
 def main() -> int:
@@ -2169,10 +2635,25 @@ def main() -> int:
         runner, loaders, counts = phase_method_path(method)
         runners[method] = (runner, loaders)
         by_path[f"{method} mlp_mnist"] = counts
+    fused = {}
+    for method in FUSED_KERNEL:
+        reset_launches()
+        fused[method] = phase_fused_path(method, *runners[method])
+        by_path[f"{method} mlp_mnist fused"] = read_launches()
+    for method in ("csghmc", "sgld", "sghmc"):
+        phase_fused_trace(smi, method, *fused[method])
+    del fused
     phase_la_prior_sig()
+    chains = {}
     for method in CHAIN_SMOKE:
-        by_path[f"{method} mlp_mnist {N_CHAINS} chains"] = \
+        by_path[f"{method} mlp_mnist {N_CHAINS} chains"], chains[method] = \
             phase_chain_path(method)
+    for method in FUSED_KERNEL:
+        reset_launches()
+        phase_fused_chain_path(method, *chains[method])
+        by_path[f"{method} mlp_mnist {N_CHAINS} chains fused"] = \
+            read_launches()
+    del chains
     by_path["csghmc resnet101"] = {
         "csghmc_update": phase_resnet_path(resnet, resnet_loaders)}
     phase_reference("csghmc", HP)
@@ -2187,6 +2668,9 @@ def main() -> int:
     times = {"mlp_mnist": kernel_times_at(smi, mlp_target),
              "resnet101": kernel_times_at(smi, resnet.target,
                                           ("csghmc_update",))}
+    flush = torch.zeros(64 * 2**20, device="cuda")  # 256 MB, 5x the L2
+    dev_us = {"mlp_mnist": phase_fused_kernels(smi, mlp_target, "mlp_mnist",
+                                               flush)}
     for method in ("csghmc", "sghmc"):
         phase_step_time(smi, method, *runners[method])
     phase_chain_step_time(smi, *runners["csghmc"])
@@ -2194,7 +2678,8 @@ def main() -> int:
         phase_step_time(smi, method, *runners[method],
                         sampler=SMOKE_KERNEL.get(method, "_update_kernel"))
     phase_fisher_profile("la mlp_mnist", runners["la"][0], runners["la"][1][0])
-    phase_mlp_bf16_step_time(smi)
+    phase_fused_headline(smi, *runners["csghmc"], "mlp_mnist")
+    phase_fused_headline(smi, *phase_mlp_bf16_step_time(smi), "mlp_mnist bf16")
     phase_resnet_step_time(smi, resnet, resnet_loaders)
     del resnet, resnet_loaders, runners, runner, loaders
     free_device()
@@ -2217,8 +2702,12 @@ def main() -> int:
     phase_vit_reference()
     times["vit_l_32"] = kernel_times_at(smi, vit.target)
     xs, ys = device_batches(vit_loaders[0])
-    phase_vit_steps(smi, vit, xs, ys)
+    per_step = phase_vit_steps(smi, vit, xs, ys)
     phase_vit_adam_step(smi, vit, xs, ys)
+    dev_us["vit_l_32"] = phase_fused_kernels(smi, vit.target, "vit_l_32",
+                                             flush)
+    free_device()
+    phase_fused_vit(smi, vit, vit_loaders, xs, ys, per_step)
     cfg, nd_size, sched = vit.cfg, vit.target.nd_size, vit.sched
     del vit, vit_loaders
     free_device()
@@ -2242,6 +2731,7 @@ def main() -> int:
         "launches_by_path": {p: c[name] for p, c in by_path.items()
                              if name in c},
         "times_by_path": {p: t[name] for p, t in times.items() if name in t},
+        "pointer_entry_us_by_path": {p: t[name] for p, t in dev_us.items()},
     } for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
