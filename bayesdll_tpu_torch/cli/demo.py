@@ -39,10 +39,10 @@ bayesdll_tpu.cli.demo).
 --fused_steps runs each segment of steps between host hooks (cycle ends,
 the 256 MiB batch window) as replays of one captured CUDA graph of the
 step (methods/graphed.py), with the same results as without it; on the
-CPU the same step body runs eagerly.  It serves vanilla, la (stage 1),
-sgld, sghmc, csgld, csghmc and csghmc_fs, on one chain or with
---num_chains; vi, mc_dropout, adam_sghmc and adam_csghmc draw on the host
-inside their step and raise NotImplementedError under it.
+CPU the same step body runs eagerly.  It serves all eleven methods (la in
+its stage 1), on one chain or with --num_chains; the step draws of vi,
+mc_dropout, adam_sghmc and adam_csghmc come from the philox_draw kernel,
+which reads the step from the card.
 
 --num_chains C > 1 wraps the runner in parallel/runner.py::MultiChainRunner:
 C chains with their own jitter, data order and seed, a chain-mixture

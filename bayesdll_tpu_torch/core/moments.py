@@ -18,7 +18,7 @@ and the update advances that count in place.  Where collect is 1 it
 writes `update`'s bits; where it is 0 the moments keep theirs.  The host
 count catches up at the segment's end (`advance`), from the collect flags
 the host computed.  It divides as `update` does, so the two agree bit for
-bit on each device (`_div_as_host_scalar`).  `clear` and `reset_from`
+bit on each device (`div_as_host_scalar`).  `clear` and `reset_from`
 reset the moments in place, so a captured graph that reads them keeps
 reading the live ones.
 """
@@ -33,7 +33,7 @@ import torch
 VAR_FLOOR = 1e-12
 
 
-def _div_as_host_scalar(x: torch.Tensor, divisor: torch.Tensor):
+def div_as_host_scalar(x: torch.Tensor, divisor: torch.Tensor):
     """x / divisor (a 0-d tensor) rounded as `x / float(divisor)` is: on the
     card PyTorch divides by a host scalar as a multiplication by its fp32
     reciprocal; on the CPU it divides.  Returns a new tensor."""
@@ -95,7 +95,7 @@ class RunningMoments:
         nothing is read on the host (counterpart of the JAX package's
         update_masked, in this class's arithmetic)."""
         for mom, x in ((self.mom1, theta), (self.mom2, theta * theta)):
-            _masked_write_(mom, collect, _div_as_host_scalar(
+            _masked_write_(mom, collect, div_as_host_scalar(
                 (mom * cnt).add_(x), cnt + 1.0))
         cnt.add_(collect)
         return self
@@ -150,7 +150,7 @@ class WelfordMoments:
         those of update() (fp32 addition and multiplication commute bit for
         bit), with three [D] temporaries."""
         delta = theta - self.mean
-        mean = _div_as_host_scalar(delta, cnt + 1.0).add_(self.mean)
+        mean = div_as_host_scalar(delta, cnt + 1.0).add_(self.mean)
         m2 = torch.sub(theta, mean).mul_(delta).add_(self.m2)
         _masked_write_(self.mean, collect, mean)
         _masked_write_(self.m2, collect, m2)

@@ -11,7 +11,11 @@ bayesdll_tpu.methods.adam_csghmc).
     perform_cold_restarts=1 and a re-init function set (`set_reinit_fn`),
     θ is also replaced by a fresh draw of the backbone's initialisers;
   * naive running moments, not Welford; the cycle likelihoods centre on
-    the cycle mean.
+    the cycle mean;
+  * the noise and, on the fused path, the bias corrections as in
+    Adam-SGHMC (methods/adam_sghmc.py).  Cycle ends cut the fused path's
+    segments, so within a segment t only counts up; the resets write the
+    state's tensors in place, so a captured step keeps its addresses.
 
 hparams: {prior_sig, Ninflate, nd, thin, bias, nst, momentum_decay, beta1,
 beta2, epsilon, temperature, perform_cold_restarts}.
@@ -23,11 +27,11 @@ import dataclasses
 
 import torch
 
-from bayesdll_tpu_torch.core import rng
 from bayesdll_tpu_torch.core.moments import RunningMoments
 from bayesdll_tpu_torch.core.sgd import sgd_step
 from bayesdll_tpu_torch.methods import base
-from bayesdll_tpu_torch.methods.adam_sghmc import adam_hparams, zero_adam_state
+from bayesdll_tpu_torch.methods.adam_sghmc import (
+    adam_hparams, adam_noise, bias_correction_rows, zero_adam_state)
 from bayesdll_tpu_torch.methods.cyclical_base import CyclicalRunnerBase
 from bayesdll_tpu_torch.ops import fused
 
@@ -46,10 +50,6 @@ class AdamCSGHMCState:
 
 class Runner(CyclicalRunnerBase):
     method_name = "adam_csghmc"
-    fused_blocker = ("its momentum noise is drawn on the host from a "
-                     "generator keyed by (seed, ADAM, step) inside the step, "
-                     "which a captured graph would replay unchanged; "
-                     f"{base.HOST_DRAWS}")
     LIK_CENTER = "cycle_mean"
 
     def __init__(self, target, theta_init, net_state, cfg, **kw):
@@ -81,6 +81,9 @@ class Runner(CyclicalRunnerBase):
         self.logger.info(
             "All optimizer states (momentum, m, v, t) reset for new cycle.")
 
+    def bias_corrections(self, k: int):
+        return bias_correction_rows(self.state.t, self.adam, k)
+
     def _step(self, state, ns, x, y, step, scalars):
         lr_vec = self.cyclical_lr_vec(scalars["lr"])
         theta_leaf = state.theta.detach().requires_grad_()
@@ -90,17 +93,17 @@ class Runner(CyclicalRunnerBase):
         logits = logits.detach()
 
         state.t += 1
-        gen = None if self.nd == 0.0 else rng.generator(
-            self.device, self.seed, rng.ADAM, step)
-        state.v_mom, state.m, state.v2 = fused.adam_sghmc_momentum(
+        # v_mom, m and v2 change IN PLACE
+        fused.adam_sghmc_momentum(
             g, state.theta, self.target.theta0, state.v_mom, state.m,
             state.v2, state.t, self.prior_mask, lr_vec,
             prior_sig=self.prior_sig, n_eff=self.n_eff, nd=self.nd,
-            temperature=self.temperature, generator=gen, **self.adam)
+            temperature=self.temperature,
+            noise=adam_noise(self, g, step, scalars), bc=scalars.get("bc"),
+            **self.adam)
         # theta and buf change IN PLACE once the graph is consumed
         sgd_step(state.theta, state.v_mom, state.buf, lr_vec,
                  self.cfg.momentum, state.step)
-        if scalars["collect"]:  # a host bool: no device sync
-            state.moments.update(state.theta)
+        self.collect_sample(state, scalars)
         state.step += 1
         return state, new_ns, (loss.detach(), base.err_count(logits, y))

@@ -10,9 +10,13 @@ ops/fused.py::adam_sghmc_update:
     v_mom <- (1-alpha) v_mom + lr * m^ * P + nd*sqrt(2*alpha*P/N)*z
     g' = g + v_mom
 
-after which the torch-SGD step applies lr again, as in SGHMC.  z is drawn
-from the generator keyed (seed, ADAM, step).  The update is plain PyTorch
-on every device: the JAX package has no Pallas kernel for it.  Moments and
+after which the torch-SGD step applies lr again, as in SGHMC.  z is a
+whole-vector draw keyed (seed, step) on the Adam stream (ops/fused.py::
+draw_: the philox_draw kernel on the card), taken only where nd != 0.  The
+update itself is plain PyTorch on every device: the JAX package has no
+Pallas kernel for it.  On the fused path the bias corrections 1 - b^t come
+from the step's scalars (`bias_corrections`, one row per step), since a
+captured step cannot take them from the host count t.  Moments and
 predictive are SGLD's.  Checkpoints carry beta1, beta2 and epsilon.
 
 hparams: {prior_sig, Ninflate, nd, burnin, thin, bias, nst, momentum_decay,
@@ -23,12 +27,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from bayesdll_tpu_torch.core import rng
 from bayesdll_tpu_torch.core.moments import RunningMoments
-from bayesdll_tpu_torch.methods import base, sgld
-from bayesdll_tpu_torch.ops import fused
+from bayesdll_tpu_torch.methods import sgld
+from bayesdll_tpu_torch.ops import fused, kernels
 
 
 @dataclasses.dataclass
@@ -57,12 +61,24 @@ def zero_adam_state(theta: torch.Tensor) -> dict:
     return {k: torch.zeros_like(theta) for k in ("buf", "v_mom", "m", "v2")}
 
 
+def bias_correction_rows(t: int, adam: dict, k: int) -> np.ndarray:
+    """[k, 2] fp32: the bias corrections of the k steps after Adam step t
+    (their t + 1, ..., t + k), each as the per-step path computes it."""
+    return np.array([fused.adam_bias_corrections(t + j, adam["beta1"],
+                                                 adam["beta2"])
+                     for j in range(1, k + 1)], np.float32).reshape(k, 2)
+
+
+def adam_noise(runner, g, step, scalars):
+    """The momentum noise z of a step, or None at nd = 0 (nothing drawn)."""
+    if runner.nd == 0.0:
+        return None
+    return fused.draw_(g, kind="normal", stream=kernels.STREAM_ADAM,
+                       **runner.draw_args(step, scalars))
+
+
 class Runner(sgld.Runner):
     method_name = "adam_sghmc"
-    fused_blocker = ("its momentum noise is drawn on the host from a "
-                     "generator keyed by (seed, ADAM, step) inside the step "
-                     "(_crafted_gradient), which a captured graph would "
-                     f"replay unchanged; {base.HOST_DRAWS}")
 
     def __init__(self, target, theta_init, net_state, cfg, **kw):
         self.adam = adam_hparams(cfg.hparams)
@@ -74,16 +90,19 @@ class Runner(sgld.Runner):
             moments=RunningMoments.zeros(theta_init.shape[0],
                                          theta_init.device))
 
+    def bias_corrections(self, k: int):
+        return bias_correction_rows(self.state.t, self.adam, k)
+
     def _crafted_gradient(self, state, g, step, scalars):
-        """g + v_mom', with the Adam state advanced."""
+        """g + v_mom', with the Adam state advanced (v_mom, m and v2 written
+        in place)."""
         state.t += 1
-        gen = None if self.nd == 0.0 else rng.generator(
-            self.device, self.seed, rng.ADAM, step)
-        g_out, state.v_mom, state.m, state.v2 = fused.adam_sghmc_update(
+        g_out, *_ = fused.adam_sghmc_update(
             g, state.theta, self.target.theta0, state.v_mom, state.m,
             state.v2, state.t, self.prior_mask, self.lr_vec,
             prior_sig=self.prior_sig, n_eff=self.n_eff, nd=self.nd,
-            generator=gen, **self.adam)
+            noise=adam_noise(self, g, step, scalars), bc=scalars.get("bc"),
+            **self.adam)
         return g_out
 
     def extra_ckpt(self):

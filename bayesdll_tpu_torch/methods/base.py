@@ -25,10 +25,10 @@ batches, as the JAX package cuts them; each segment is `run_steps`, which
 on the card replays one captured CUDA graph of `_step` per step
 (methods/graphed.py).  There `_step` gets `step=None` and the fused
 scalars (`graphed.fused_scalars`: the kernels' `dev` (seed, step, gate),
-the lr pair, `collect` and the moments' `count`, all tensors on the
-device), which `draw_args` and `collect_sample` turn into the kernels' and
-the moments' device forms.  VI, MC-dropout, Adam-SGHMC and Adam-cSGHMC
-draw on the host inside their step (`fused_blocker`) and raise under it.
+the lr pair, `collect`, Adam's bias corrections `bc` and the moments'
+`count`, all tensors on the device), which `draw_args` and
+`collect_sample` turn into the kernels', the draws' and the moments'
+device forms.  It serves all eleven methods.
 
 Predictive combination shared by the stochastic methods:
   logits = logsumexp(log_softmax(logits_all), sample_dim) - log(S)
@@ -56,11 +56,6 @@ from bayesdll_tpu_torch.ops import kernels
 from bayesdll_tpu_torch.utils import calibration
 
 _LOG = logging.getLogger("bayesdll_tpu_torch")
-
-# the ROADMAP item that ports the fused path of the methods that draw on the
-# host inside their step
-HOST_DRAWS = ("ROADMAP.md queue 1, item 1, 'The fused path of the methods "
-              "that draw on the host'")
 
 
 def combine_mc_logits(logits_all: torch.Tensor) -> torch.Tensor:
@@ -124,8 +119,6 @@ def from_host(template, saved, device):
 
 class BaseRunner:
     method_name = "base"
-    # why --fused_steps cannot serve this method, or None where it can
-    fused_blocker: Optional[str] = None
     FUSED_BYTES_BUDGET = 256 * 1024 * 1024  # max stacked batch bytes/segment
 
     def __init__(self, target, theta_init, net_state, cfg, logger=None,
@@ -243,9 +236,9 @@ class BaseRunner:
     # ---- the fused path ---------------------------------------------------
 
     def draw_args(self, step, scalars) -> dict:
-        """The sampler kernel's draw arguments: the host's seed and step on
-        the per-step path, the device row `dev` (seed, step, gate) on the
-        fused path."""
+        """The draw arguments of a sampler kernel or of `fused.draw_`: the
+        host's seed and step on the per-step path, the device row `dev`
+        (seed, step, gate) on the fused path."""
         if "dev" in scalars:
             return {"dev": scalars["dev"]}
         return {"seed": self.seed, "step": step}
@@ -269,18 +262,12 @@ class BaseRunner:
         key of its scanned program)."""
         return 0
 
-    def _check_fusable(self):
-        if self.fused_blocker is not None:
-            raise NotImplementedError(
-                f"--fused_steps with {self.method_name}: {self.fused_blocker}")
-
     def use_fused(self, ep: int) -> bool:
         """Whether epoch ep runs the fused path.  With full_sample the epoch
         runs per step, as in the JAX package: each collecting step copies θ
         to the host."""
         if not getattr(self.cfg, "fused_steps", False):
             return False
-        self._check_fusable()
         if self.cfg.full_sample:
             self.logger.info("fused_steps: full_sample collects on the host "
                              "after each step, so epoch %d runs per step", ep)
@@ -296,14 +283,19 @@ class BaseRunner:
         """Host work at a segment's end: what after_batch does at its step."""
         self.after_batch(ep)
 
+    def bias_corrections(self, k: int) -> np.ndarray:
+        """Adam's bias corrections (1 - b1^t, 1 - b2^t) of the next k steps
+        of the state, [k, 2] fp32: 1 where the method has no Adam."""
+        return np.ones((k, 2), np.float32)
+
     def fused_rows(self, ep: int, bi0: int, k: int):
         """The scalars of the k steps from global step bi0, computed on the
-        host by `step_scalars` itself (the counterpart of the JAX package's
-        `device_scalars`): int64 rows (seed, step, gate) for the kernels and
-        fp32 rows (lr_body, lr_head, collect), lr 0 where the method has no
-        schedule."""
-        ints = np.zeros((k, 3), np.int64)
-        flts = np.zeros((k, 3), np.float32)
+        host by `step_scalars` and `bias_corrections` (the counterpart of
+        the JAX package's `device_scalars`): int64 rows (seed, step, gate)
+        for the kernels and the draws, and fp32 rows (lr_body, lr_head,
+        collect, bc1, bc2), lr 0 where the method has no schedule."""
+        ints = np.zeros((k, kernels.DEV_SCALARS), np.int64)
+        flts = np.zeros((k, graphed.FLOAT_COLUMNS), np.float32)
         seed = kernels.seed_int64(self.seed)
         saved = self.bi
         try:
@@ -316,6 +308,7 @@ class BaseRunner:
                 flts[j, 2] = bool(sc.get("collect", False))
         finally:
             self.bi = saved
+        flts[:, 3:] = self.bias_corrections(k)
         return ints, flts
 
     def run_steps(self, ep: int, xs, ys, bi0: int):
@@ -324,7 +317,6 @@ class BaseRunner:
         of the step's CUDA graph, captured for this runner (or chain) and
         its state's addresses.  xs: [K, B, ...], ys: [K, B] (numpy, or
         tensors).  Returns (loss[K], err[K]) on the device."""
-        self._check_fusable()
         graph = self._step_graphs.get(self.seed)
         if graph is None:
             graph = self._step_graphs[self.seed] = graphed.StepGraph()

@@ -8,9 +8,9 @@ segment is one `replay()`: no Python runs and no ATen op is dispatched per
 step.  A graph reads and writes fixed addresses, so each runner or chain
 keeps static buffers, and a segment is
   * one copy of its stacked batches into a static [cap, B, ...] buffer and
-    of its scalars into static [cap, 3] tables (from pinned host memory
-    when they come from the host; PyTorch's pinned allocator keeps that
-    memory until the copy has run);
+    of its scalars into static [cap, 3] and [cap, 5] tables (from pinned
+    host memory when they come from the host; PyTorch's pinned allocator
+    keeps that memory until the copy has run);
   * a reset of the step index (int64 [1] on the card) and of the moments'
     count (fp32 0-d, set from the host's count);
   * K steps, each a replay of the graph for its collect flag (below).
@@ -20,10 +20,11 @@ keeps static buffers, and a segment is
     error at the index and advances the index.
 
 The scalars are what the per-step path computes on the host
-(`BaseRunner.fused_rows`, through `step_scalars`): per step the int64
-(seed, step, gate) that the kernels' pointer entry points read, and the
-fp32 (lr_body, lr_head, collect).  The graph only indexes into them, so it
-computes the per-step path's bits.
+(`BaseRunner.fused_rows`, through `step_scalars` and
+`bias_corrections`): per step the int64 (seed, step, gate) that the
+kernels' pointer entry points read, and the fp32 (lr_body, lr_head,
+collect, bc1, bc2), the last two Adam's bias corrections.  The graph only
+indexes into them, so it computes the per-step path's bits.
 
 The host knows which steps collect a sample, so each runner or chain has
 two graphs, one for the steps that collect (their moments update, masked
@@ -35,10 +36,13 @@ change: that step runs eagerly, as a real step, on a side stream (so the
 kernels, library handles and workspaces the capture meets exist, and the
 host branch of a state's first SGD step is behind it), and the capture
 follows on that stream (capture runs the Python body but no device work,
-so the host counters it moves are put back).  Each replay adds the launches its graph recorded to
-the kernels' counters (ops/kernels.py), and one to the state's host step
-count; the host's moments count advances at the segment's end by its
-collect flags.
+so the host counters it moves are put back).  Each replay adds the launches
+its graph recorded to the kernels' counters (ops/kernels.py), and one to
+each of the state's host step counts (`step`, and Adam's `t`); the host's
+moments count advances at the segment's end by its collect flags.  A step
+must write its state's tensors in place (the Adam methods' v_mom, m and v2
+included): a graph reads the addresses it captured, so a step that binds a
+state field to a new tensor raises here.
 
 On the CPU the same body runs eagerly for every step, on the same static
 buffers and tables.
@@ -55,13 +59,21 @@ import torch
 from bayesdll_tpu_torch.ops import kernels
 
 
+# the fp32 table's columns: lr_body, lr_head, collect, bc1, bc2
+FLOAT_COLUMNS = 5
+# the host counts of a state that every step advances by one
+HOST_COUNTS = ("step", "t")
+
+
 def fused_scalars(row_i, row_f, count) -> dict:
     """The scalars `_step` takes on the fused path, as views of the static
-    rows: `dev` (seed, step, gate) int64 [3] for the kernels, `lr` the
-    (body, head) pair of 0-d fp32, `collect` 0-d fp32 (1 or 0) and `count`
-    0-d fp32, the moments' count before the step."""
+    rows: `dev` (seed, step, gate) int64 [3] for the kernels and the draws,
+    `lr` the (body, head) pair of 0-d fp32, `collect` 0-d fp32 (1 or 0),
+    `bc` Adam's bias corrections (1 - b1^t, 1 - b2^t) as a pair of 0-d fp32,
+    and `count` 0-d fp32, the moments' count before the step."""
     return {"dev": row_i[0], "lr": (row_f[0, 0], row_f[0, 1]),
-            "collect": row_f[0, 2], "count": count, "should_sample": None}
+            "collect": row_f[0, 2], "bc": (row_f[0, 3], row_f[0, 4]),
+            "count": count, "should_sample": None}
 
 
 def segments(batches, n: int, ends, budget: int):
@@ -122,6 +134,16 @@ def _put(dst: torch.Tensor, src):
     dst.copy_(src, non_blocking=True)
 
 
+def _host_counts(state) -> dict:
+    return {n: getattr(state, n) for n in HOST_COUNTS if hasattr(state, n)}
+
+
+def _tensor_fields(state) -> dict:
+    """The tensor fields of a state (a dataclass), by name."""
+    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)}
+
+
 def _moments_count(state) -> int:
     m = getattr(state, "moments", None)
     return 0 if m is None else getattr(m, "cnt", getattr(m, "n", 0))
@@ -160,7 +182,8 @@ class StepGraph:
              "ys": torch.empty((k,) + ys.shape[1:], dtype=ys.dtype, **kw),
              "ints": torch.zeros((k, kernels.DEV_SCALARS), dtype=torch.int64,
                                  **kw),
-             "flts": torch.zeros((k, 3), dtype=torch.float32, **kw),
+             "flts": torch.zeros((k, FLOAT_COLUMNS), dtype=torch.float32,
+                                 **kw),
              "idx": torch.zeros(1, dtype=torch.int64, **kw),
              "count": torch.zeros((), dtype=torch.float32, **kw),
              "loss": torch.zeros(k, dtype=torch.float32, **kw),
@@ -169,7 +192,8 @@ class StepGraph:
         b["y"] = torch.empty((1,) + ys.shape[1:], dtype=ys.dtype, **kw)
         b["row_i"] = torch.zeros((1, kernels.DEV_SCALARS), dtype=torch.int64,
                                  **kw)
-        b["row_f"] = torch.zeros((1, 3), dtype=torch.float32, **kw)
+        b["row_f"] = torch.zeros((1, FLOAT_COLUMNS), dtype=torch.float32,
+                                 **kw)
         on = fused_scalars(b["row_i"], b["row_f"], b["count"])
         b["scalars"] = {True: on, False: {**on, "collect": None}}
         self.bufs = b
@@ -198,9 +222,16 @@ class StepGraph:
         torch.index_select(b["xs"], 0, idx, out=b["x"])
         torch.index_select(b["ys"], 0, idx, out=b["y"])
         ns = runner.net_state
+        static = _tensor_fields(runner.state)
         runner.state, new_ns, (loss, err) = runner._step(
             runner.state, ns, b["x"][0], b["y"][0], None,
             b["scalars"][collect])
+        moved = [k for k, t in _tensor_fields(runner.state).items()
+                 if t is not static.get(k)]
+        if moved:
+            raise RuntimeError(
+                f"{runner.method_name}: the fused path needs the step to "
+                f"write its state in place; it rebound {moved}")
         _copy_tree_(ns, new_ns)
         b["loss"].index_copy_(0, idx, loss.reshape(1).float())
         b["err"].index_copy_(0, idx, err.reshape(1).long())
@@ -209,9 +240,9 @@ class StepGraph:
     def _eager_then_capture(self, runner, collect: bool):
         """One real step eagerly on the side stream, then the capture of
         the step with this collect flag on that stream.  The capture runs
-        the Python body and no device work: the host step count it moves
-        is put back, and the launches it counts are taken off and kept to
-        add per replay."""
+        the Python body and no device work: the host counts it moves are
+        put back, and the launches it counts are taken off and kept to add
+        per replay."""
         tic = time.perf_counter()
         main = torch.cuda.current_stream(runner.device)
         self.side.wait_stream(main)
@@ -219,10 +250,11 @@ class StepGraph:
             self._step(runner, collect)
         graph = torch.cuda.CUDAGraph()
         before = kernels.launch_counts()
-        step0 = runner.state.step
+        counts0 = _host_counts(runner.state)
         with torch.cuda.graph(graph, pool=self.pool, stream=self.side):
             self._step(runner, collect)
-        runner.state.step = step0
+        for name, n in counts0.items():
+            setattr(runner.state, name, n)
         self.launches[collect] = {
             n: c - before[n] for n, c in kernels.launch_counts().items()}
         kernels.set_launch_counts(before)
@@ -265,7 +297,8 @@ class StepGraph:
                     replays[c] += 1
             for c, n in replays.items():
                 if n:
-                    runner.state.step += n
+                    for name, v in _host_counts(runner.state).items():
+                        setattr(runner.state, name, v + n)
                     counts = kernels.launch_counts()
                     kernels.set_launch_counts({
                         name: v + n * self.launches[c][name]

@@ -4,9 +4,10 @@ bayesdll_tpu.methods.mc_dropout).
 The variational posterior is a Bernoulli spike mixture per weight,
     q(theta_i) = (1-p) N(m_i, eps^2) + p N(theta0_i, eps^2):
 dropout of each weight toward the prior mean, not of activations.  Per
-step, a keep-mask z ~ Bern(1-p_drop) per element (from the uniform drawn by
-the generator keyed (seed, MC_DROPOUT, step)), theta = z*m + (1-z)*theta0,
-and
+step, a keep-mask z ~ Bern(1-p_drop) per element (from a whole-vector
+uniform draw keyed (seed, step) on the MC-dropout stream, ops/fused.py::
+draw_: the philox_draw kernel on the card, the generator keyed (seed,
+MC_DROPOUT, step) on the CPU), theta = z*m + (1-z)*theta0, and
 
     g_m = g * z + kld * coeff * (m - theta0) / sig^2 / ND
     KL  = 0.5 * sum(coeff * (m - theta0)^2) / sig^2,  loss = NLL + kld*KL/ND
@@ -16,7 +17,8 @@ with coeff per element from the bias mode (`_kl_coeff`):
              keep z = 1 and an unscaled KL term;
   'spikymix' - biases are treated like weights;
   'ignore'   - biases keep z = 1 and have no KL term.
-The predictive draws a fresh z for each of max(nst, 1) samples.
+The predictive draws a fresh z for each of max(nst, 1) samples, from the
+evaluation's host generator.
 
 The JAX package hands its forward a dropout key, but no backbone of either
 package has dropout layers (every one's `has_dropout` is False), so the
@@ -31,9 +33,9 @@ import dataclasses
 
 import torch
 
-from bayesdll_tpu_torch.core import rng
 from bayesdll_tpu_torch.core.sgd import sgd_step
 from bayesdll_tpu_torch.methods import base
+from bayesdll_tpu_torch.ops import fused, kernels
 
 BIAS_MODES = ("gaussian", "spikymix", "ignore")
 
@@ -47,10 +49,6 @@ class MCDropState:
 
 class Runner(base.BaseRunner):
     method_name = "mc_dropout"
-    fused_blocker = ("its keep-mask draw comes from a generator keyed by "
-                     "(seed, MC_DROPOUT, step) on the host inside the step "
-                     "(_train_uniform), which a captured graph would replay "
-                     f"unchanged; {base.HOST_DRAWS}")
 
     def __init__(self, target, theta_init, net_state, cfg, **kw):
         self.p_drop = float(cfg.hparams.get("p_drop", 0.1))
@@ -67,10 +65,12 @@ class Runner(base.BaseRunner):
         return torch.rand(self.target.dim, generator=generator,
                           device=self.device)
 
-    def _train_uniform(self, step: int) -> torch.Tensor:
-        """The uniform draw behind the keep-mask of `step`."""
-        return self._uniform(rng.generator(self.device, self.seed,
-                                           rng.MC_DROPOUT, step))
+    def _train_uniform(self, step, scalars) -> torch.Tensor:
+        """The uniform draw behind the keep-mask of the step: `step` on the
+        per-step path, the scalars' device row on the fused path."""
+        return fused.draw_(self.state.m, kind="uniform",
+                           stream=kernels.STREAM_MC_DROPOUT,
+                           **self.draw_args(step, scalars))
 
     def _sample_z(self, u: torch.Tensor) -> torch.Tensor:
         """Bernoulli keep-mask from uniforms u: 1 where u > p_drop; biases
@@ -96,7 +96,7 @@ class Runner(base.BaseRunner):
         nd_size = float(t.nd_size)
         sig2 = self.prior_sig ** 2
 
-        z = self._sample_z(self._train_uniform(step))
+        z = self._sample_z(self._train_uniform(step, scalars))
         theta = (z * state.m + (1.0 - z) * t.theta0).requires_grad_()
         logits, new_ns = t.forward(theta, ns, x, train=True)
         loss_nll = base.ce_loss(logits, y)

@@ -2,9 +2,10 @@
 bayesdll_tpu.methods.vi).
 
 q(theta) = N(m, diag(s^2)) with s = clamp(s_, S_CLAMP); s_ starts at S_INIT
-and m at θ's initial value.  Per step, theta = m + s * eps with eps drawn
-from the generator keyed (seed, VI, step), and the reference's hand-written
-reparameterisation gradients:
+and m at θ's initial value.  Per step, theta = m + s * eps with eps a
+whole-vector draw keyed (seed, step) on the VI stream (ops/fused.py::draw_:
+the philox_draw kernel on the card, the generator keyed (seed, VI, step) on
+the CPU), and the reference's hand-written reparameterisation gradients:
 
     g_m  = kmask * (g + kld * (m - theta0) / sig^2 / ND)
     g_s_ = kmask * (g * (theta - m)/s + kld * (s/sig^2 - 1/s) / ND)
@@ -26,9 +27,9 @@ import dataclasses
 
 import torch
 
-from bayesdll_tpu_torch.core import rng
 from bayesdll_tpu_torch.core.sgd import sgd_step
 from bayesdll_tpu_torch.methods import base
+from bayesdll_tpu_torch.ops import fused, kernels
 
 S_CLAMP = 1e-8
 S_INIT = 1e-6
@@ -60,10 +61,6 @@ class VIState:
 
 class Runner(base.BaseRunner):
     method_name = "vi"
-    fused_blocker = ("its reparameterisation draw comes from a generator "
-                     "keyed by (seed, VI, step) on the host inside the step "
-                     "(_train_normal), which a captured graph would replay "
-                     f"unchanged; {base.HOST_DRAWS}")
 
     def __init__(self, target, theta_init, net_state, cfg, **kw):
         self.kld = float(cfg.hparams.get("kld", 1.0))
@@ -78,16 +75,19 @@ class Runner(base.BaseRunner):
                        buf_m=torch.zeros_like(theta_init),
                        buf_s=torch.zeros_like(theta_init))
 
-    def _train_normal(self, step: int) -> torch.Tensor:
-        """The reparameterisation draw eps ~ N(0, I) of `step`."""
-        gen = rng.generator(self.device, self.seed, rng.VI, step)
-        return torch.randn(self.target.dim, generator=gen, device=self.device)
+    def _train_normal(self, step, scalars) -> torch.Tensor:
+        """The reparameterisation draw eps ~ N(0, I) of the step: `step`
+        on the per-step path, the scalars' device row on the fused path."""
+        return fused.draw_(self.state.m, kind="normal",
+                           stream=kernels.STREAM_VI,
+                           **self.draw_args(step, scalars))
 
     def _step(self, state, ns, x, y, step, scalars):
         t = self.target
         nd_size = float(t.nd_size)
         s = torch.clamp(state.s_, min=S_CLAMP)
-        theta = (state.m + s * self._train_normal(step)).requires_grad_()
+        theta = (state.m + s * self._train_normal(step, scalars)
+                 ).requires_grad_()
         logits, new_ns = t.forward(theta, ns, x, train=True)
         loss_nll = base.ce_loss(logits, y)
         g, = torch.autograd.grad(loss_nll, theta)

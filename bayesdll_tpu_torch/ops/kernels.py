@@ -35,7 +35,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("csghmc_update", "sgld_update", "sghmc_update")
+KERNELS = ("csghmc_update", "sgld_update", "sghmc_update", "philox_draw")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 _U64 = (1 << 64) - 1
@@ -103,6 +103,8 @@ _ARGTYPES = {
     # g, theta, theta0, v, mask, lr, n, sigma^2, N, nd, 1-alpha, 2 alpha,
     # seed, step, stream
     "sghmc_update": [_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _U, _U, _P],
+    # out, n, kind, stream id, seed, step, stream
+    "philox_draw": [_P, _I64, ctypes.c_int, ctypes.c_uint32, _U, _U, _P],
 }
 # the pointer entry points: (seed, step, gate) from the int64 tensor `dev`
 _ARGTYPES.update({
@@ -114,8 +116,15 @@ _ARGTYPES.update({
     # dev, stream
     "sghmc_update_dev": [_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _P,
                          _P],
+    # out, n, kind, stream id, dev, stream
+    "philox_draw_dev": [_P, _I64, ctypes.c_int, ctypes.c_uint32, _P, _P],
 })
 DEV_SCALARS = 3  # (seed, step, gate), the pointer entry points' int64 row
+# philox_draw's stream ids (csrc/normal_from_bits.cuh): one for each method
+# step that draws a whole vector; 0-2 are the update kernels' own
+STREAM_VI, STREAM_ADAM, STREAM_MC_DROPOUT = 3, 4, 5
+DRAW_STREAMS = (STREAM_VI, STREAM_ADAM, STREAM_MC_DROPOUT)
+DRAW_KINDS = {"normal": 0, "uniform": 1}
 
 
 def seed_int64(seed: int) -> int:
@@ -360,6 +369,57 @@ def sghmc_update_dev(g, theta, theta0, v, mask, lr, dev, *, prior_sig: float,
     _raise_on(err, "sghmc_update_dev")
     sghmc_update.launches += 1
     return g, v
+
+
+def _draw_args(like, kind: str, stream: int):
+    """philox_draw's output (a new fp32 vector shaped as `like`, on its
+    card) and its kind and stream arguments, checked."""
+    if not like.is_cuda:
+        raise ValueError(f"like: kernel needs a CUDA tensor, got {like.device}")
+    if like.dim() != 1:
+        raise ValueError(f"like: kernel draws a 1-D vector, got "
+                         f"{tuple(like.shape)}")
+    if kind not in DRAW_KINDS:
+        raise ValueError(f"kind: one of {sorted(DRAW_KINDS)}, got {kind!r}")
+    if stream not in DRAW_STREAMS:
+        raise ValueError(f"stream: one of {DRAW_STREAMS}, got {stream!r}")
+    out = torch.empty(like.shape, dtype=torch.float32, device=like.device)
+    _check_vectors(out=out)
+    return out, DRAW_KINDS[kind], int(stream)
+
+
+def philox_draw(like, *, kind: str, stream: int, seed: int, step: int):
+    """A new fp32 vector shaped as `like` on its card (csrc/philox_draw.cu):
+    N(0, 1) (kind "normal") or U[0, 1) (kind "uniform") draws, a pure
+    function of (seed, step, stream), `stream` one of DRAW_STREAMS."""
+    out, k, sid = _draw_args(like, kind, stream)
+    lib = _library("philox_draw")
+    with torch.cuda.device(out.device):
+        err = lib.philox_draw(out.data_ptr(), out.numel(), k, sid,
+                              int(seed) & _U64, int(step) & _U64,
+                              torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "philox_draw")
+    philox_draw.launches += 1
+    return out
+
+
+philox_draw.launches = 0
+
+
+def philox_draw_dev(like, dev, *, kind: str, stream: int):
+    """philox_draw with (seed, step) read on the card from `dev` (int64 [3],
+    the last unused), through the pointer entry point: the same bits as
+    philox_draw at the same values.  Counts into philox_draw.launches."""
+    out, k, sid = _draw_args(like, kind, stream)
+    _check_dev(dev, out)
+    lib = _library("philox_draw")
+    with torch.cuda.device(out.device):
+        err = lib.philox_draw_dev(out.data_ptr(), out.numel(), k, sid,
+                                  dev.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "philox_draw_dev")
+    philox_draw.launches += 1
+    return out
 
 
 def noise_prefactor(nd: float, alpha: float, n_eff: float) -> float:

@@ -7,11 +7,12 @@ Phases, one line each:
   1. the card (nvidia-smi name and power limit), the kernel build from
      bayesdll_tpu_torch/csrc (one nvcc per source, all started together),
      fp32 matmuls and convolutions pinned (TF32 off);
-  2. every kernel (csghmc_update, sgld_update, sghmc_update) against its
-     plain PyTorch version at the main paths' shapes (full-width
-     mlp_mnist: D = 2,797,568; csghmc_update also at ResNet-101's
-     D = 42,576,896 and ViT-L/32's D = 305,549,312), with its noise checked
-     against the closed form;
+  2. every kernel (csghmc_update, sgld_update, sghmc_update, philox_draw)
+     against its plain PyTorch version at the main paths' shapes
+     (full-width mlp_mnist: D = 2,797,568; csghmc_update also at
+     ResNet-101's D = 42,576,896 and ViT-L/32's D = 305,549,312), with its
+     noise checked against the closed form (philox_draw's draws against
+     their moments, phase 6e);
   3. the paths: cSGHMC, SGLD, SGHMC and cSGLD training of the full-width
      MNIST MLP (784 -> 3x1000 -> 10) on synthetic data, batch 128, 2
      epochs; the other seven methods (Adam-SGHMC, Adam-cSGHMC with cold
@@ -49,25 +50,30 @@ Phases, one line each:
      cast and its backward, the per-step lr vector, the moments update and,
      for Adam-cSGHMC, its Adam momentum and SGD step.
   6. the fused path (fused_steps: segments of steps as replays of a
-     captured CUDA graph, methods/graphed.py), fp32 with TF32 off: (a) the
-     seven methods it serves (cSGHMC, SGLD, SGHMC, cSGLD, vanilla, Laplace's
-     stage 1, cSGHMC-FS) through `train` on the full-width MLP, each in its
-     phase-3 config and bitwise equal to that per-step run (state, counts,
-     losses), noise on; (b) the JAX bench's headline form, cSGHMC at batch
-     128 with run_steps K = 100, fp32 and bf16, against the per-step loop
-     in turns (host ms/step, device us/step from CUDA events and the
-     profiler, busy share, capture seconds); (c) the seven at 2 chains,
-     each chain bitwise equal to the per-step 2-chain run; (d) ViT-L/32
-     cSGHMC (bf16, batch 128) fused through `train`, its losses against
-     the spread of two per-step runs, and its step fused, without remat
-     and with remat "names", beside phase 4's per-step times (host
-     ms/step, device us/step, busy share, peak memory); (e) each kernel's
-     pointer entry point (step, seed and gate read from the card) bitwise
-     against its by-value entry point, noise on, and against its plain
-     version, timed at the MLP's and ViT-L/32's D, and a profiler trace of
-     one replayed MLP segment of 10 steps: each kernel 10 times on the
-     card, one cudaGraphLaunch per step and no matrix product dispatched
-     on the host.  The per-step timings of phases 4 and 5 run
+     captured CUDA graph, methods/graphed.py), fp32 with TF32 off: (a) all
+     eleven methods (cSGHMC, SGLD, SGHMC, cSGLD, vanilla, Laplace's stage
+     1, cSGHMC-FS, and VI, MC-dropout, Adam-SGHMC and Adam-cSGHMC, whose
+     step draws through philox_draw) through `train` on the full-width MLP,
+     each in its phase-3 config and bitwise equal to that per-step run
+     (state, counts, Adam's t, losses), noise on; (b) the JAX bench's
+     headline form, cSGHMC at batch 128 with run_steps K = 100, fp32 and
+     bf16, and the four drawing methods' steps at batch 64 with K = 50,
+     against the per-step loop in turns (host ms/step, device us/step from
+     CUDA events and the profiler, busy share, capture seconds); (c) the
+     eleven at 2 chains, each chain bitwise equal to the per-step 2-chain
+     run; (d) ViT-L/32 cSGHMC (bf16, batch 128) fused through `train`, its
+     losses against the spread of two per-step runs, and its step fused,
+     without remat and with remat "names", beside phase 4's per-step times
+     (host ms/step, device us/step, busy share, peak memory); ViT-L/32
+     Adam-cSGHMC fused in segments of 3, its losses against two per-step
+     runs, its time and peak memory; (e) each kernel's pointer entry point
+     (step, seed and gate read from the card) bitwise against its by-value
+     entry point, noise on, and against its plain version, timed at the
+     MLP's and ViT-L/32's D (philox_draw also against its moments, the
+     independence of its streams and torch.randn's time), and a profiler
+     trace of one replayed MLP segment of 10 steps: each kernel 10 times on
+     the card, one cudaGraphLaunch per step and no matrix product
+     dispatched on the host.  The per-step timings of phases 4 and 5 run
      `step_loop`, the fused ones `run_steps`.
 The MLP and ResNet runners are freed before the ViT-L/32 phases.  The
 script prints its total time; the line before the last is a JSON record of
@@ -938,7 +944,8 @@ def phase_mlp_bf16_step_time(smi):
     return runner, loaders
 
 
-def big_step_time(smi, label, runner, xs, ys, steps, profiled):
+def big_step_time(smi, label, runner, xs, ys, steps, profiled,
+                  sampler="csghmc_update"):
     """A big backbone's training step through step_loop on batches already
     on the card (the per-batch pinned copy of a host batch stays out of the
     window): ms/step, gradient-evals/s, TFLOP/s, the share of the bf16
@@ -963,7 +970,7 @@ def big_step_time(smi, label, runner, xs, ys, steps, profiled):
           f"of the H100 SXM bf16 dense peak (989 TFLOP/s); peak device memory "
           f"{peak_gb:.2f} GB (max_memory_allocated)", flush=True)
     phase_profile(smi, f"{runner.method_name} {label}", runner, xs[:profiled],
-                  ys[:profiled], sec * 1e3, "csghmc_update",
+                  ys[:profiled], sec * 1e3, sampler,
                   pieces=name.startswith("vit"), bi0=bi0)
     return dict(ms=sec * 1e3, gevals=bs / sec, tflops=tflops, peak_gb=peak_gb)
 
@@ -1449,8 +1456,11 @@ SMOKE = {
 LA_MATRIX_HP = ("prior_sig=0.1,Ninflate=1.0,bias=informative,nst=2,"
                 "fisher_microbatch=16")
 SMOKE_BATCH = 64
-# the kernel a path's step launches; the others launch none
-SMOKE_KERNEL = {"csghmc_fs": "csghmc_update"}
+# the kernel a path's step launches; the others launch none.  VI, MC-dropout
+# and the Adam methods (at nd != 0) draw a whole vector each step.
+DRAWS = ("vi", "mc_dropout", "adam_sghmc", "adam_csghmc")
+SMOKE_KERNEL = {"csghmc_fs": "csghmc_update",
+                **{m: "philox_draw" for m in DRAWS}}
 # cSGHMC-FS's snapshot epochs at 8 epochs in 2 cycles (ep % 4 in {1, 2})
 FS_SNAPSHOTS = [1, 2, 5, 6]
 
@@ -1690,7 +1700,7 @@ def hand_normal(runner, device):
     """VI's reparameterisation draws from one CPU generator in call order:
     the same numbers on both devices."""
     gen = torch.Generator().manual_seed(0)
-    runner._train_normal = lambda step: torch.randn(
+    runner._train_normal = lambda step, scalars: torch.randn(
         runner.target.dim, generator=gen).to(device)
 
 
@@ -1700,6 +1710,7 @@ def hand_uniform(runner, device):
     gen = torch.Generator().manual_seed(0)
     runner._uniform = lambda _generator: torch.rand(
         runner.target.dim, generator=gen).to(device)
+    runner._train_uniform = lambda step, scalars: runner._uniform(None)
 
 
 def phase_new_references():
@@ -1775,7 +1786,7 @@ def phase_vit_adam_step(smi, vit, xs, ys):
                                            vit.net_state, cfg)
     runner.sched = vit.sched
     return big_step_time(smi, "vit_l_32", runner, xs, ys, VIT_STEPS,
-                         VIT_STEPS)
+                         VIT_STEPS, sampler="philox_draw")
 
 
 # ---- multi-chain runs ---------------------------------------------------------
@@ -1799,7 +1810,8 @@ N_CHAINS = 2
 # the kernel each chain's step launches; the other methods launch none
 CHAIN_KERNEL = {"sgld": "sgld_update", "csgld": "sgld_update",
                 "sghmc": "sghmc_update", "csghmc": "csghmc_update",
-                "csghmc_fs": "csghmc_update"}
+                "csghmc_fs": "csghmc_update",
+                **{m: "philox_draw" for m in DRAWS}}
 
 
 def phase_chain_path(method):
@@ -2196,10 +2208,16 @@ def phase_resnet50_chain_step_time(smi, mc):
 
 # ---- phase 6: the fused path (fused_steps) ---------------------------------
 
-# the seven methods the fused path serves; the kernel each one's step launches
+# the eleven methods the fused path serves; the kernel each one's step
+# launches
 FUSED_KERNEL = {"csghmc": "csghmc_update", "sgld": "sgld_update",
                 "sghmc": "sghmc_update", "csgld": "sgld_update",
-                "csghmc_fs": "csghmc_update", "vanilla": None, "la": None}
+                "csghmc_fs": "csghmc_update", "vanilla": None, "la": None,
+                **{m: "philox_draw" for m in DRAWS}}
+# the four drawing methods' fused MLP steps against their per-step loops:
+# steps a window, and the windows in turns (per step, fused)
+DRAW_K = 50
+DRAW_TURNS = (False, True, True, False)
 FUSED_K = 10  # the replayed segment the profiler traces
 HEADLINE_K = 100  # bench.py:128-140: run_steps with K = 100
 HEADLINE_TURNS = (False, True, True, False, False, True)  # per step, fused
@@ -2223,9 +2241,10 @@ def state_tensors(state) -> dict:
 
 
 def host_counts(state):
-    """(step, moments count) of a state, the host's bookkeeping."""
+    """(step, Adam's t, moments count) of a state, the host's bookkeeping;
+    None where the state has none."""
     m = getattr(state, "moments", None)
-    return (state.step, None if m is None
+    return (state.step, getattr(state, "t", None), None if m is None
             else getattr(m, "cnt", getattr(m, "n", None)))
 
 
@@ -2241,7 +2260,7 @@ def differing(a, b) -> dict:
 
 
 def phase_fused_path(method, ref, ref_loaders):
-    """(a) One of the seven through `train` with fused_steps on the
+    """(a) One of the eleven through `train` with fused_steps on the
     full-width MLP, in the config of its per-step path `ref` (the trained
     runner): the state (θ, v or buf, the moments), the host counts and the
     per-epoch losses bitwise equal to the per-step run's, noise on; the
@@ -2330,14 +2349,17 @@ def phase_fused_trace(smi, method, runner, loaders):
           "and out)", flush=True)
 
 
-def phase_fused_headline(smi, runner, loaders, label):
-    """(b) The JAX bench's headline form (bench.py:128-140): cSGHMC on the
-    full-width MLP, batch 128, run_steps with K = HEADLINE_K, against
-    step_loop over the same batches, in turns (HEADLINE_TURNS): host
-    ms/step, device us/step from CUDA events around each window and from
-    the profiler, the busy share (profiler device time over host time) and
-    the capture seconds."""
-    xs, ys = stacked_batches(loaders[0], HEADLINE_K)
+def phase_fused_headline(smi, runner, loaders, label, k=HEADLINE_K,
+                         turns=HEADLINE_TURNS, sampler="csghmc_update"):
+    """(b) The JAX bench's headline form (bench.py:128-140): the runner's
+    step (cSGHMC on the full-width MLP, batch 128) as run_steps with K = k
+    (HEADLINE_K), against step_loop over the same batches, in turns
+    (`turns`, per step or fused): host ms/step, device us/step from CUDA
+    events around each window and from the profiler, the busy share
+    (profiler device time over host time) and the capture seconds; the
+    kernels named after `sampler` in the profile."""
+    method = runner.method_name
+    xs, ys = stacked_batches(loaders[0], k)
     ep = runner.cfg.epochs - 1
     runner.step_loop(ep, xs[:5], ys[:5], runner.bi)  # warm
     capture_s = capture_seconds(runner)
@@ -2355,37 +2377,37 @@ def phase_fused_headline(smi, runner, loaders, label):
         loss, _ = steps(ep, xs, ys, runner.bi)
         end.record()
         torch.cuda.synchronize()
-        host = (time.perf_counter() - tic) / HEADLINE_K
+        host = (time.perf_counter() - tic) / k
         check(bool(torch.isfinite(loss).all()), f"{label}: finite losses")
-        return host * 1e3, start.elapsed_time(end) / HEADLINE_K * 1e3
+        return host * 1e3, start.elapsed_time(end) / k * 1e3
 
     out = {False: [], True: []}
-    for fused in HEADLINE_TURNS:
+    for fused in turns:
         out[fused].append(window(fused))
     text = []
     for fused in (False, True):
         host = [h for h, _ in out[fused]]
         events = [d for _, d in out[fused]]
         ms = sum(host) / len(host)
-        prof = phase_profile(smi, f"csghmc {label} "
+        prof = phase_profile(smi, f"{method} {label} "
                              f"{'fused' if fused else 'per step'}", runner,
-                             xs[:2 * FUSED_K], ys[:2 * FUSED_K], ms,
-                             "csghmc_update", fused=fused)
+                             xs[:2 * FUSED_K], ys[:2 * FUSED_K], ms, sampler,
+                             fused=fused)
         text.append(
-            f"{'fused K=' + str(HEADLINE_K) if fused else 'per step'}: host "
+            f"{'fused K=' + str(k) if fused else 'per step'}: host "
             f"{[round(h, 4) for h in host]} ms/step, CUDA events "
             f"{[round(d, 1) for d in events]} us/step, profiler "
             + (f"{prof:.1f} us/step, busy {prof / (ms * 1e3):.1%}" if prof
                else "not measured"))
-    print(f"phase 6b: [{smi}] csghmc {label} batch {xs.shape[1]}, "
-          f"{HEADLINE_K} steps a window, in turns: {'; '.join(text)}; "
+    print(f"phase 6b: [{smi}] {method} {label} batch {xs.shape[1]}, "
+          f"{k} steps a window, in turns: {'; '.join(text)}; "
           f"captures {capture_s:.3f} s (an eager step and the capture, for "
-          "each of the two graphs)",
+          "each graph)",
           flush=True)
 
 
 def phase_fused_chain_path(method, ref, ref_loaders):
-    """(c) One of the seven at num_chains=2 with fused_steps on the
+    """(c) One of the eleven at num_chains=2 with fused_steps on the
     full-width MLP, in the config of its per-step 2-chain path `ref` (the
     trained MultiChainRunner): each chain's state and host counts bitwise
     equal to the per-step run's; the kernel launched C x steps; the
@@ -2591,9 +2613,9 @@ def phase_fused_vit(smi, vit, loaders, xs, ys, per_step):
           f"test_err={res['test_err']:.4f} nll={res['nll']:.4f}; per-epoch "
           f"losses: fused vs per-step run 1 max gap {gap:.3g}, per-step runs "
           f"1 vs 2 (the spread) {spread:.3g}", flush=True)
-    check(counts == {"csghmc_update": steps, "sgld_update": 0,
-                     "sghmc_update": 0},
-          f"vit_l_32 fused: launches {counts} == steps {steps}")
+    want = {k: 0 for k in counts}
+    want["csghmc_update"] = steps
+    check(counts == want, f"vit_l_32 fused: launches {counts}, want {want}")
     check(errs[-1] < VIT_ERR and res["test_err"] < VIT_ERR,
           f"vit_l_32 fused: training error {errs[-1]}, test error "
           f"{res['test_err']} below {VIT_ERR}")
@@ -2614,6 +2636,255 @@ def phase_fused_vit(smi, vit, loaders, xs, ys, per_step):
     free_device()
 
 
+# ---- philox_draw: the drawing methods' whole-vector draw ---------------------
+
+# the draws it replaces: jax.random calls inside the JAX package's scanned
+# step, with the key folded from the step (no Pallas kernel)
+DRAW_REPLACES = ("bayesdll_tpu/methods/vi.py:78 (jax.random.normal); "
+                 "bayesdll_tpu/methods/mc_dropout.py:61,85 "
+                 "(jax.random.uniform); bayesdll_tpu/ops/fused.py:118 and "
+                 "bayesdll_tpu/methods/adam_csghmc.py:119 (jax.random.normal)")
+# the work of one draw per element: its fp32 output written once, nothing
+# read; the integer instructions no schedule avoids, 10 Philox rounds of
+# 2 wide multiplies (each gives the high and the low word) and 2
+# three-input xors for 4 elements (the key schedule is the same for every
+# thread, and the Box-Muller of normals is fp32 work on other pipes: both
+# left out of the bound).  Counting 25 (the multiplies' halves, the xors
+# in pairs, the key additions) gave a bound the uniform draw ran under.
+DRAW_BYTES_PER_ELEM = 4
+DRAW_INT_OPS_PER_ELEM = 10
+# 32-bit integer adds, xors and multiplies: 64 results per SM and clock on
+# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput), a quarter of FP32_PEAK's 128 fused multiply-adds of 2 flops
+INT32_PEAK = FP32_PEAK / 4
+# normals against the plain version: the kernel's fp32 logf, sqrtf and
+# sincospif against float64 Box-Muller of the same 24-bit uniforms, |z| at
+# most 5.7; uniforms bitwise
+DRAW_TOL = 1e-5
+# the plain version runs on windows of this many elements at each end of a
+# vector longer than two windows
+DRAW_WINDOW = 1 << 22
+
+
+def draw_windows(dim: int):
+    """The element ranges of a [dim] draw held to the plain version."""
+    if dim <= 2 * DRAW_WINDOW:
+        return [(0, dim)]
+    tail = (dim - DRAW_WINDOW) // 4 * 4
+    return [(0, DRAW_WINDOW), (tail, dim)]
+
+
+def phase_draw_kernel(smi, dim: int, label: str, flush):
+    """(e) philox_draw at D = dim: its pointer entry point bitwise equal to
+    its by-value entry point at each of DEV_POINTS, for each draw; each
+    against its plain version (uniforms bitwise, normals within DRAW_TOL);
+    the moments (normal mean within 0.01 and std within 2% of 1; uniforms
+    in [0, 1) with mean within 0.01 of 0.5); the VI and Adam draws at one
+    (seed, step) uncorrelated (|r| < 0.01).  Then its times with L2
+    flushed before each launch: by value, by pointer, the plain version,
+    and torch.randn(D, generator=g) on the card (the same distribution,
+    other bits) as the library call.  Returns the kernel's record."""
+    from bayesdll_tpu_torch.ops import fused, kernels
+    streams = {"vi": (kernels.STREAM_VI, "normal"),
+               "adam": (kernels.STREAM_ADAM, "normal"),
+               "mc_dropout": (kernels.STREAM_MC_DROPOUT, "uniform")}
+    like = torch.empty(dim, device="cuda")
+    err = 0.0
+    for seed, step, gate in DEV_POINTS:
+        dev = kernels.dev_scalars(seed, step, gate)
+        for name, (sid, kind) in streams.items():
+            a = kernels.philox_draw_dev(like, dev, kind=kind, stream=sid)
+            b = kernels.philox_draw(like, kind=kind, stream=sid, seed=seed,
+                                    step=step)
+            check(torch.equal(a, b), f"philox_draw {name} pointer vs "
+                  f"by-value at D={dim}, (seed, step) = {(seed, step)}")
+            for lo, hi in draw_windows(dim):
+                want = fused.philox_draw_plain(
+                    hi - lo, kind=kind, stream=sid, seed=seed, step=step,
+                    device="cuda", offset=lo)
+                e = float((a[lo:hi] - want).abs().max())
+                err = max(err, e)
+                check(torch.equal(a[lo:hi], want) if kind == "uniform"
+                      else e <= DRAW_TOL,
+                      f"philox_draw {name} vs plain at D={dim} [{lo}, {hi}), "
+                      f"(seed, step) = {(seed, step)}: max abs err {e}")
+            del a, b, want
+    seed, step = DEV_POINTS[1][:2]
+    z = {n: kernels.philox_draw(like, kind=k, stream=sid, seed=seed,
+                                step=step)
+         for n, (sid, k) in streams.items()}
+    mean = float(torch.mean(z["vi"], dtype=torch.float64))
+    std = float(torch.sqrt(torch.mean(
+        (z["vi"].double() - mean) ** 2)))
+    u = z["mc_dropout"]
+    u_mean = float(torch.mean(u, dtype=torch.float64))
+    u_lo, u_hi = float(u.min()), float(u.max())
+    r = float(torch.mean((z["vi"].double() - mean) * (
+        z["adam"].double() - float(torch.mean(z["adam"], dtype=torch.float64)))
+    ) / (std * float(torch.std(z["adam"].double()))))
+    check(abs(mean) < 0.01 and abs(std - 1.0) < 0.02,
+          f"philox_draw normal at D={dim}: mean {mean}, std {std}")
+    check(0.0 <= u_lo and u_hi < 1.0 and abs(u_mean - 0.5) < 0.01,
+          f"philox_draw uniform at D={dim}: in [{u_lo}, {u_hi}], mean "
+          f"{u_mean}")
+    check(abs(r) < 0.01, f"philox_draw VI vs Adam stream at D={dim}: "
+          f"correlation {r}")
+    del z, u
+    free_device()
+
+    counter = [0]
+    sid_vi = kernels.STREAM_VI
+    dev_t = kernels.dev_scalars(0, 1)
+
+    def by_value(kind="normal"):
+        counter[0] += 1
+        kernels.philox_draw(like, kind=kind, stream=sid_vi, seed=0,
+                            step=counter[0])
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p1 = cuda_ms_cold(lambda: fused.philox_draw_plain(
+        dim, kind="normal", stream=sid_vi, seed=0, step=1, device="cuda"), 3,
+        flush, warmup=1)
+    k_normal = cuda_ms_cold(by_value, 100, flush)
+    k_uniform = cuda_ms_cold(lambda: by_value("uniform"), 100, flush)
+    k_dev = cuda_ms_cold(lambda: kernels.philox_draw_dev(
+        like, dev_t, kind="normal", stream=sid_vi), 100, flush)
+    lib = cuda_ms_cold(lambda: torch.randn(dim, generator=gen,
+                                           device="cuda"), 100, flush)
+    p2 = cuda_ms_cold(lambda: fused.philox_draw_plain(
+        dim, kind="normal", stream=sid_vi, seed=0, step=1, device="cuda"), 3,
+        flush, warmup=1)
+    k_warm = cuda_ms(by_value, 100)
+    name = torch.cuda.get_device_name(0)
+    bytes_ms = DRAW_BYTES_PER_ELEM * dim / peak_bytes_per_s(name) * 1e3
+    ops_ms = DRAW_INT_OPS_PER_ELEM * dim / INT32_PEAK * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    plain_ms = (p1 + p2) / 2
+    print(f"phase 6e: [{smi}] philox_draw D={dim} ({label}): pointer entry "
+          f"bitwise equal to the by-value entry at (seed, step, gate) in "
+          f"{DEV_POINTS} for the VI, Adam and MC-dropout draws; vs plain: "
+          f"uniforms bitwise, normals max abs err {err:.3g} (tol {DRAW_TOL}); "
+          f"normal mean {mean:+.2e} std {std:.5f}, uniform in [{u_lo:.3g}, "
+          f"{u_hi:.8f}] mean {u_mean:.5f}, VI vs Adam r {r:+.2e}; L2 flushed "
+          f"before each launch: normal {k_normal * 1e3:.2f} us, uniform "
+          f"{k_uniform * 1e3:.2f} us, pointer entry {k_dev * 1e3:.2f} us, "
+          f"{k_warm * 1e3:.2f} us back to back; bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}: {DRAW_BYTES_PER_ELEM * dim / 1e6:.1f} MB written "
+          f"{bytes_ms * 1e3:.2f} us, {DRAW_INT_OPS_PER_ELEM} integer ops per "
+          f"element at {INT32_PEAK / 1e12:.2f} TOP/s {ops_ms * 1e3:.2f} us) = "
+          f"{bound_ms / k_normal:.1%} of roofline; plain version "
+          f"{plain_ms * 1e3:.1f} us ({p1 * 1e3:.1f}/{p2 * 1e3:.1f}); "
+          f"torch.randn {lib * 1e3:.2f} us", flush=True)
+    del like
+    free_device()
+    return dict(ms=k_normal, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib, max_abs_err=err,
+                uniform_ms=k_uniform, pointer_ms=k_dev, dim=dim)
+
+
+def phase_fused_vit_adam(smi, vit, xs, ys, per_step_ms):
+    """(d) ViT-L/32 Adam-cSGHMC at full width, bf16, batch 128, as
+    phase_vit_adam_step runs it per step, fused in segments of K = 3 (as
+    the 256 MiB window cuts phase 6d's run): from the same θ, two per-step
+    runs of VIT_STEPS steps (step_loop) and one fused (run_steps), their
+    per-step losses held as 6d holds cSGHMC's (the fused run no farther
+    from the first per-step run than twice the spread of the two, plus
+    1e-6 of the loss); philox_draw launched once per step and no other
+    kernel; then the fused step's host ms/step beside `per_step_ms`
+    (phase 4's per-step time in this run), its profile's device us/step
+    and busy share, the capture seconds and the peak device memory with
+    the fused path (allocated and reserved, the graphs' pool
+    included).  Returns the fused run's launches."""
+    from bayesdll_tpu_torch.config import parse_hparams
+    from bayesdll_tpu_torch.methods import get_runner_cls
+
+    hp = {**vit.cfg.hparams, **parse_hparams(SMOKE["adam_csghmc"][0]),
+          "perform_cold_restarts": "0"}
+    cfg = dataclasses.replace(vit.cfg, method="adam_csghmc", hparams=hp)
+    xs = torch.stack([xs[i % len(xs)] for i in range(VIT_STEPS)])
+    ys = torch.stack([ys[i % len(ys)] for i in range(VIT_STEPS)])
+    ep, k = cfg.epochs - 1, 3
+
+    def fresh():
+        r = get_runner_cls("adam_csghmc")(vit.target, vit.state.theta,
+                                          vit.net_state, cfg)
+        r.sched = vit.sched
+        return r
+
+    losses, thetas = [], []  # the per-step runs' θ on the host
+    for _ in range(2):
+        r = fresh()
+        loss, _ = r.step_loop(ep, xs, ys, 0)
+        losses.append(loss.double().cpu())
+        thetas.append(r.state.theta.cpu())
+        del r
+        free_device()
+    torch.cuda.reset_peak_memory_stats()
+    runner = fresh()
+    reset_launches()
+    fused_loss = torch.cat([runner.run_steps(ep, xs[s:s + k], ys[s:s + k], s)[0]
+                            for s in range(0, VIT_STEPS, k)])
+    torch.cuda.synchronize()
+    counts = read_launches()
+    fused_loss = fused_loss.double().cpu()
+    capture_s = capture_seconds(runner)
+    want = {n: 0 for n in counts}
+    want["philox_draw"] = VIT_STEPS
+    check(counts == want, f"adam_csghmc vit_l_32 fused: launches {counts}, "
+          f"want {want}")
+    check(runner.state.t == VIT_STEPS and runner.state.step == VIT_STEPS,
+          f"adam_csghmc vit_l_32 fused: t {runner.state.t}, step "
+          f"{runner.state.step}")
+    spread = float((losses[0] - losses[1]).abs().max())
+    gap = float((losses[0] - fused_loss).abs().max())
+    scale = float(losses[0].abs().max())
+    th_spread = float((thetas[0] - thetas[1]).abs().max())
+    th_gap = float((thetas[0] - runner.state.theta.cpu()).abs().max())
+    del thetas
+    check(bool(torch.isfinite(fused_loss).all())
+          and gap <= 2 * spread + 1e-6 * scale,
+          f"adam_csghmc vit_l_32 fused: per-step losses {gap} from the "
+          f"per-step run's, spread of two per-step runs {spread}")
+    host, queued, events = [], [], []
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        start.record()
+        for s in range(0, VIT_STEPS, k):
+            runner.run_steps(ep, xs[s:s + k], ys[s:s + k], runner.bi)
+        end.record()
+        queued.append((time.perf_counter() - tic) / VIT_STEPS * 1e3)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - tic) / VIT_STEPS * 1e3)
+        events.append(start.elapsed_time(end) / VIT_STEPS)
+    peak = (torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9)
+    ms = sum(host) / len(host)
+    dev = phase_profile(smi, "adam_csghmc vit_l_32 fused", runner, xs[:k],
+                        ys[:k], ms, "philox_draw", fused=True)
+    print(f"phase 6d: [{smi}] adam_csghmc vit_l_32 bf16 batch "
+          f"{cfg.batch_size}, fused in segments of {k}: launches {counts}; "
+          f"per-step losses fused vs per-step run 1 max gap {gap:.3g}, "
+          f"per-step runs 1 vs 2 (the spread) {spread:.3g}; theta max gap "
+          f"{th_gap:.3g} (spread {th_spread:.3g}); t {runner.state.t} after "
+          f"{VIT_STEPS} steps; fused {[round(t, 2) for t in host]} ms/step "
+          f"(per step, phase 4: {per_step_ms:.2f}), of which the host "
+          f"returned after {[round(t, 2) for t in queued]}, CUDA events "
+          f"{[round(t, 2) for t in events]} ms/step; fused device "
+          + (f"{dev:.1f} us/step, busy {dev / (ms * 1e3):.1%}" if dev
+             else "not measured")
+          + f"; eager steps and captures {capture_s:.2f} s; peak device "
+          f"memory with the fused path {peak[0]:.2f} GB allocated, "
+          f"{peak[1]:.2f} GB reserved (the cSGHMC runner resident)",
+          flush=True)
+    del runner
+    free_device()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2626,6 +2897,9 @@ def main() -> int:
     errs = {"csghmc_update": max(phase_kernels(mlp_target, "mlp_mnist"),
                                  phase_kernels(resnet.target, "resnet101")),
             **phase_sg_kernels()}
+    flush = torch.zeros(64 * 2**20, device="cuda")  # 256 MB, 5x the L2
+    draw = {"mlp_mnist": phase_draw_kernel(smi, mlp_target.dim, "mlp_mnist",
+                                           flush)}
     runners, by_path = {}, {}
     for method, hp, lr, kernel in PATHS:
         runner, loaders, n = phase_path(method, hp, lr, kernel)
@@ -2668,7 +2942,6 @@ def main() -> int:
     times = {"mlp_mnist": kernel_times_at(smi, mlp_target),
              "resnet101": kernel_times_at(smi, resnet.target,
                                           ("csghmc_update",))}
-    flush = torch.zeros(64 * 2**20, device="cuda")  # 256 MB, 5x the L2
     dev_us = {"mlp_mnist": phase_fused_kernels(smi, mlp_target, "mlp_mnist",
                                                flush)}
     for method in ("csghmc", "sghmc"):
@@ -2680,6 +2953,9 @@ def main() -> int:
     phase_fisher_profile("la mlp_mnist", runners["la"][0], runners["la"][1][0])
     phase_fused_headline(smi, *runners["csghmc"], "mlp_mnist")
     phase_fused_headline(smi, *phase_mlp_bf16_step_time(smi), "mlp_mnist bf16")
+    for method in DRAWS:
+        phase_fused_headline(smi, *runners[method], "mlp_mnist", k=DRAW_K,
+                             turns=DRAW_TURNS, sampler="philox_draw")
     phase_resnet_step_time(smi, resnet, resnet_loaders)
     del resnet, resnet_loaders, runners, runner, loaders
     free_device()
@@ -2703,11 +2979,15 @@ def main() -> int:
     times["vit_l_32"] = kernel_times_at(smi, vit.target)
     xs, ys = device_batches(vit_loaders[0])
     per_step = phase_vit_steps(smi, vit, xs, ys)
-    phase_vit_adam_step(smi, vit, xs, ys)
+    adam_step = phase_vit_adam_step(smi, vit, xs, ys)
     dev_us["vit_l_32"] = phase_fused_kernels(smi, vit.target, "vit_l_32",
                                              flush)
     free_device()
+    draw["vit_l_32"] = phase_draw_kernel(smi, vit.target.dim, "vit_l_32",
+                                         flush)
     phase_fused_vit(smi, vit, vit_loaders, xs, ys, per_step)
+    by_path["adam_csghmc vit_l_32 fused"] = phase_fused_vit_adam(
+        smi, vit, xs, ys, adam_step["ms"])
     cfg, nd_size, sched = vit.cfg, vit.target.nd_size, vit.sched
     del vit, vit_loaders
     free_device()
@@ -2715,13 +2995,14 @@ def main() -> int:
     print(f"chip_smoke: [{smi}] every phase passed in "
           f"{time.perf_counter() - tic0:.1f} s", flush=True)
 
-    # each kernel's launches and times on its main path: this slice's
-    # ViT-L/32 path for csghmc_update, the SGLD and SGHMC paths for the
-    # others; every D each was timed at under "times_by_path"
+    # each kernel's launches and times on its main path: the ViT-L/32
+    # cSGHMC path for csghmc_update, the SGLD and SGHMC paths for the
+    # others, the fused ViT-L/32 Adam-cSGHMC path for philox_draw; every D
+    # each was timed at under "times_by_path"
     main_path = {"csghmc_update": ("csghmc vit_l_32", "vit_l_32"),
                  "sgld_update": ("sgld mlp_mnist", "mlp_mnist"),
                  "sghmc_update": ("sghmc mlp_mnist", "mlp_mnist")}
-    print(json.dumps({"kernels": [{
+    record = [{
         "name": name, "route": "cuda",
         "source": f"bayesdll_tpu_torch/csrc/{name}.cu",
         "replaces": f"bayesdll_tpu/ops/pallas_kernels.py:{REPLACES[name]}",
@@ -2732,7 +3013,23 @@ def main() -> int:
                              if name in c},
         "times_by_path": {p: t[name] for p, t in times.items() if name in t},
         "pointer_entry_us_by_path": {p: t[name] for p, t in dev_us.items()},
-    } for name in REPLACES]}))
+    } for name in REPLACES]
+    vit_draw = draw["vit_l_32"]
+    record.append({
+        "name": "philox_draw", "route": "cuda",
+        "source": "bayesdll_tpu_torch/csrc/philox_draw.cu",
+        "replaces": DRAW_REPLACES,
+        "launches": by_path["adam_csghmc vit_l_32 fused"]["philox_draw"],
+        "max_abs_err": max(d["max_abs_err"] for d in draw.values()),
+        **{k: vit_draw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+        "launches_by_path": {p: c["philox_draw"] for p, c in by_path.items()
+                             if "philox_draw" in c},
+        "times_by_path": draw,
+        "pointer_entry_us_by_path": {p: d["pointer_ms"] * 1e3
+                                     for p, d in draw.items()},
+    })
+    print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

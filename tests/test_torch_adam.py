@@ -40,7 +40,9 @@ def test_adam_update_matches_jax_on_the_same_noise(nd, t):
                                        "v2")),
         jnp.asarray(t, jnp.int32), jnp.asarray(a["mask"]),
         jnp.asarray(a["lr"]), key, nd=nd, **ADAM_KW)
-    tt = {k: torch.from_numpy(v) for k, v in a.items()}
+    # the port writes v_mom, m and v2 in place: copies, so that the arrays
+    # JAX reads (asynchronously) stay as they were
+    tt = {k: torch.from_numpy(v.copy()) for k, v in a.items()}
     p = fused.adam_sghmc_update(
         tt["g"], tt["theta"], tt["theta0"], tt["v_mom"], tt["m"], tt["v2"], t,
         tt["mask"], tt["lr"], nd=nd, noise=torch.from_numpy(eps), **ADAM_KW)
@@ -59,7 +61,9 @@ def test_adam_momentum_temperature_divides_the_data_gradient():
         *(jnp.asarray(a[k]) for k in ("theta", "theta0", "v_mom", "m", "v2")),
         jnp.asarray(4, jnp.int32), jnp.asarray(a["mask"]),
         jnp.asarray(a["lr"]), key, nd=0.0, **ADAM_KW)
-    tt = {k: torch.from_numpy(v) for k, v in a.items()}
+    # the port writes v_mom, m and v2 in place: copies, so that the arrays
+    # JAX reads (asynchronously) stay as they were
+    tt = {k: torch.from_numpy(v.copy()) for k, v in a.items()}
     p = fused.adam_sghmc_momentum(
         tt["g"], tt["theta"], tt["theta0"], tt["v_mom"], tt["m"], tt["v2"], 4,
         tt["mask"], tt["lr"], nd=0.0, temperature=temp, **ADAM_KW)

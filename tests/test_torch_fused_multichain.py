@@ -1,16 +1,18 @@
 """The fused multi-step path on two chains (parallel/chains.py), on the CPU:
 each chain's fused run bit for bit (torch.equal) equal to the per-step
-two-chain run, noise on, for the seven methods the fused path serves
+two-chain run, noise on, for all eleven methods
 (tests/test_multichain_runner.py:176 and :195, fused against per-batch,
-for sgld and csghmc, extended to the seven); and a chain's fused run equal
-to the single-chain fused run from its start, batches and seed."""
+for sgld and csghmc, extended to the eleven), host counts (Adam's t
+included) equal; and a chain's fused run equal to the single-chain fused
+run from its start, batches and seed."""
 
 import numpy as np
 import pytest
 import torch
 
 from bayesdll_tpu_torch.parallel import MultiChainRunner
-from tests.test_torch_fused_steps import FUSED, hparams, state_tensors
+from tests.test_torch_fused_steps import (FUSED, host_counts, hparams,
+                                          state_tensors)
 from tests.test_torch_multichain_runner import (  # noqa: F401
     HPARAMS, build, one_thread)
 
@@ -37,7 +39,7 @@ def test_two_chains_fused_equals_per_step(method):
         ta, tb = state_tensors(sa), state_tensors(sb)
         for name in ta:
             assert torch.equal(ta[name], tb[name]), name
-        assert sa.step == sb.step
+        assert host_counts(sa) == host_counts(sb)
     assert res_a["train_losses"] == res_b["train_losses"]
     assert res_a["train_errors"] == res_b["train_errors"]
     assert res_a["nll"] == res_b["nll"]

@@ -2,18 +2,20 @@
 the CPU, where the step body that the card captures as a CUDA graph runs
 eagerly on the same static buffers and device-side scalars:
   * fused against per-step in the port, bit for bit (torch.equal), noise
-    on, for the seven methods it serves (tests/test_fused_steps.py, which
-    holds the JAX package's sgld, csghmc and vanilla, extended to sghmc,
-    csgld, csghmc_fs and Laplace's stage 1), across cycle resets inside a
-    fused epoch, and through the CLI;
-  * the port's fused runs against the JAX package's, nd = 0 (rtol 1e-4,
-    atol 1e-5, as the port's parity tests);
+    on, for all eleven methods (tests/test_fused_steps.py, which holds the
+    JAX package's sgld, csghmc and vanilla, extended to the other eight),
+    across cycle resets (and Adam-cSGHMC's t, moments and cold restarts)
+    inside a fused epoch, and through the CLI;
+  * the port's fused runs against the JAX package's, with no noise or with
+    JAX's draws handed to the port (rtol 1e-4, atol 1e-5, as the port's
+    parity tests);
   * `update_masked` and `segment_ends` against the JAX package's;
-  * the four methods that draw on the host raise; the kernels' pointer
-    entry points refuse CPU tensors."""
+  * the kernels' pointer entry points refuse CPU tensors; a step that
+    rebinds state tensors keeps the state's addresses on the fused path."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,8 +31,8 @@ from tests.test_torch_multichain_runner import (  # noqa: F401
 from tests.test_torch_sgld import HP as SGLD_HP0
 from tests.test_torch_sgld import _pair
 
-FUSED = ("vanilla", "la", "sgld", "sghmc", "csgld", "csghmc", "csghmc_fs")
-HOST_DRAWS = ("vi", "mc_dropout", "adam_sghmc", "adam_csghmc")
+FUSED = ("vanilla", "la", "sgld", "sghmc", "csgld", "csghmc", "csghmc_fs",
+         "vi", "mc_dropout", "adam_sghmc", "adam_csghmc")
 TOL = dict(rtol=1e-4, atol=1e-5)  # as tests/test_torch_sgld.py
 # cSGHMC-FS with cold restarts: a restart writes θ inside a fused epoch
 FS_HP = dict(HPARAMS["csghmc_fs"], perform_cold_restarts="1")
@@ -66,8 +68,9 @@ def state_tensors(state):
 
 
 def host_counts(state):
+    """(step, Adam's t, moments count), None where the state has none."""
     m = getattr(state, "moments", None)
-    return (state.step, None if m is None
+    return (state.step, getattr(state, "t", None), None if m is None
             else getattr(m, "cnt", getattr(m, "n", None)))
 
 
@@ -150,17 +153,54 @@ def test_run_steps_equals_step_loop_with_a_short_segment():
     assert_same_run(a, b)
 
 
-JAX_CASES = {"sgld": (dict(SGLD_HP0), 0.5, ("theta", "buf")),
-             "csghmc": (dict(CSGHMC_HP0), 0.0, ("theta", "v"))}
+# method -> (hparams, momentum, lr, state fields held to the JAX package's,
+# whether the predictive is compared).  The Adam methods at nd = 0 (no
+# noise); MC-dropout with JAX's keep-mask uniforms handed to the port
+# (`hand_jax_draws`); its predictive draws its masks from each package's
+# own generator, so only its state is compared.
+ADAM_HP0 = dict(SGLD_HP0, beta1="0.9", beta2="0.999", epsilon="1e-8",
+                nd="0.0")
+JAX_CASES = {
+    "sgld": (dict(SGLD_HP0), 0.5, 2e-2, ("theta", "buf"), True),
+    "csghmc": (dict(CSGHMC_HP0), 0.0, 2e-2, ("theta", "v"), True),
+    "mc_dropout": (dict(HPARAMS["mc_dropout"], bias="gaussian"), 0.5, 2e-2,
+                   ("m", "buf"), False),
+    "adam_sghmc": (ADAM_HP0, 0.5, 1e-3, ("theta", "buf", "v_mom", "m", "v2"),
+                   True),
+    "adam_csghmc": (dict(ADAM_HP0, temperature="2.0"), 0.5, 1e-3,
+                    ("theta", "buf", "v_mom", "m", "v2"), True),
+}
+
+
+def hand_jax_draws(jr, tr):
+    """The port's VI and MC-dropout step draws become the JAX package's:
+    the draw from the key JAX folds from the global step, which on the
+    fused path the port reads from the scalars' device row."""
+    dim = tr.target.dim
+
+    def key(step, scalars):
+        step = int(scalars["dev"][1]) if step is None else step
+        return jax.random.fold_in(jr.train_key, step)
+
+    def uniform(step, scalars):
+        kz, _ = jax.random.split(key(step, scalars))
+        return torch.from_numpy(np.array(jax.random.uniform(kz, (dim,))))
+    tr._train_normal = lambda step, scalars: torch.from_numpy(
+        np.array(jax.random.normal(key(step, scalars), (dim,))))
+    tr._train_uniform = uniform
 
 
 @pytest.mark.parametrize("method", sorted(JAX_CASES))
 def test_fused_matches_jax_fused(method):
     """The port's fused training against the JAX package's fused (scanned)
-    training from the same θ on the same batches, nd = 0."""
-    hp, momentum, fields = JAX_CASES[method]
-    jr, tr, jl, tl = _pair(method, hp, momentum=momentum, width=16,
+    training from the same θ on the same batches, with no noise or the
+    same draws: the state within TOL, the counts (Adam's t included)
+    equal; with a predictive that draws nothing of its own, nll and ece
+    within 1e-3; for Adam-cSGHMC each cycle's moments within TOL."""
+    hp, momentum, lr, fields, eval_same = JAX_CASES[method]
+    jr, tr, jl, tl = _pair(method, hp, momentum=momentum, lr=lr, width=16,
                            n_train=192, batch_size=16)
+    hand_jax_draws(jr, tr)
     jr.cfg.fused_steps = tr.cfg.fused_steps = True
     jres = jr.train(*jl)
     tres = tr.train(*tl)
@@ -168,12 +208,71 @@ def test_fused_matches_jax_fused(method):
         np.testing.assert_allclose(getattr(tr.state, f).numpy(),
                                    np.asarray(getattr(jr.state, f)), **TOL,
                                    err_msg=f)
-    tm, jm = tr.state.moments, jr.state.moments
-    assert getattr(tm, "cnt", getattr(tm, "n", None)) == \
-        int(getattr(jm, "cnt", getattr(jm, "n", -1)))
+    tm, jm = tr.state.moments if hasattr(tr.state, "moments") else None, \
+        getattr(jr.state, "moments", None)
+    if tm is not None:
+        assert getattr(tm, "cnt", getattr(tm, "n", None)) == \
+            int(getattr(jm, "cnt", getattr(jm, "n", -1)))
+    if hasattr(tr.state, "t"):
+        assert tr.state.t == int(jr.state.t)
     assert tr.bi == jr.bi
-    for key in ("nll", "ece"):
-        assert abs(tres[key] - jres[key]) < 1e-3, key
+    for c, stats in getattr(tr, "cycle_stats", {}).items():
+        for k in ("mean", "var"):
+            np.testing.assert_allclose(stats[k], np.asarray(
+                jr.cycle_stats[c][k]), **TOL, err_msg=f"cycle {c} {k}")
+    if eval_same:
+        for key in ("nll", "ece"):
+            assert abs(tres[key] - jres[key]) < 1e-3, key
+
+
+def test_vi_fused_steps_with_jax_draws_match_jax():
+    """VI's fused segment of three steps against the JAX package's scanned
+    segment, JAX's eps handed to the port, at the smoke matrix's kld 1e-5:
+    m and its buffer within TOL and s_ as tests/test_torch_vi_mcd.py holds
+    it over three steps (g_s takes (theta - m) / s, so an ulp of m left
+    different by the two packages' matmuls moves a few elements of s_ by
+    up to ~0.4%).  Longer runs amplify that gap step by step."""
+    jr, tr, jl, tl = _pair("vi", dict(HPARAMS["vi"], nst="0"),
+                           momentum=0.5, width=16, n_train=192,
+                           batch_size=16)
+    hand_jax_draws(jr, tr)
+    xs = np.stack([x for x, _, _ in tl[0]])[:3]
+    ys = np.stack([y for _, y, _ in tl[0]])[:3]
+    jloss, _ = jr.run_steps(0, jnp.asarray(xs), jnp.asarray(ys), 0)
+    tloss, _ = tr.run_steps(0, xs, ys, 0)
+    np.testing.assert_allclose(tloss.numpy(), np.asarray(jloss), rtol=1e-5)
+    for f in ("m", "buf_m"):
+        np.testing.assert_allclose(getattr(tr.state, f).numpy(),
+                                   np.asarray(getattr(jr.state, f)), **TOL,
+                                   err_msg=f)
+    ts, js = tr.state.s_.numpy(), np.asarray(jr.state.s_)
+    rel = np.abs(ts - js) / np.abs(js)
+    assert (rel <= 1e-4).mean() >= 0.99 and rel.max() < 1e-2, rel.max()
+    assert tr.state.step == int(jr.state.step) == 3
+
+
+def test_adam_csghmc_cycle_end_inside_a_fused_epoch():
+    """Adam-cSGHMC with cold restarts, four cycles in one epoch of 20 steps:
+    segments end at the cycle ends inside the epoch, where t, v_mom, m, v2
+    and buf are reset and θ re-drawn in place; the next segment's bias
+    corrections count t from 0 again.  Bitwise the per-step run, noise
+    on, t included."""
+    hp = dict(HPARAMS["adam_csghmc"], perform_cold_restarts="1")
+    a, _ = trained("adam_csghmc", False, epochs=1, num_cycles=4,
+                   batch_size=8, hp=hp)
+    b, _ = trained("adam_csghmc", True, epochs=1, num_cycles=4, batch_size=8,
+                   hp=hp)
+    assert_same_run(a, b)
+    assert sorted(b.cycle_stats) == [1, 2, 3, 4]
+    b.bi = 0
+    assert b.segment_ends(0, 20) == [5, 10, 15, 20]
+    # the rows of a segment that starts after a cycle end count from t = 0
+    b.state.t = 0
+    _, flts = b.fused_rows(0, 5, 5)
+    beta1, beta2 = b.adam["beta1"], b.adam["beta2"]
+    for j in range(5):
+        assert tuple(flts[j, 3:]) == fused.adam_bias_corrections(
+            j + 1, beta1, beta2)
 
 
 @pytest.mark.parametrize("flags", [(1, 1, 0, 1, 1), (0, 0, 0), (1, 0, 1, 0)],
@@ -247,9 +346,53 @@ def test_fused_rows_are_the_step_scalars():
         assert flts[j, 2] == float(sc["collect"])
         assert flts[j, 0] == np.float32(sc["lr"])
         assert float(flts[j, 1]) == r.lr_pair(sc["lr"])[1]
+        assert tuple(flts[j, 3:]) == (1.0, 1.0)  # no Adam: bc1 = bc2 = 1
 
 
-def test_cli_fused_steps_same_results(tmp_path, monkeypatch):
+@pytest.mark.parametrize("method", ["adam_sghmc", "adam_csghmc"])
+def test_steps_keep_the_state_addresses(method):
+    """The Adam step writes v_mom, m and v2 in place, per step and fused,
+    so the addresses a captured graph reads stay the state's, and t
+    advances by one a step; a step that binds a state field to a new
+    tensor is refused on the fused path."""
+    r, loaders = build(method, HPARAMS[method])
+    if method == "adam_csghmc":
+        r._ensure_sched(len(loaders[0]))
+    xs = np.stack([x for x, _, _ in loaders[0]])[:3]
+    ys = np.stack([y for _, y, _ in loaders[0]])[:3]
+    before = {k: t.data_ptr() for k, t in state_tensors(r.state).items()}
+    r.step_loop(1, xs[:1], ys[:1], 0)
+    r.run_steps(1, xs[1:], ys[1:], 1)
+    assert {k: t.data_ptr() for k, t in state_tensors(r.state).items()} \
+        == before
+    assert r.state.t == r.state.step == 3
+    assert float(r.state.m.abs().max()) > 0
+    step = r._step
+
+    def rebinding(state, *args):
+        out = step(state, *args)
+        state.v2 = state.v2.clone()
+        return out
+    r._step = rebinding
+    with pytest.raises(RuntimeError, match=r"in place.*\['v2'\]"):
+        r.run_steps(1, xs[:1], ys[:1], 3)
+
+
+# method -> (hparams, extra flags) of a CLI run: cSGHMC as the module
+# docstring's example; Adam-cSGHMC at the smoke matrix's settings with cold
+# restarts and two cycles in its one epoch, so a cycle end, its reset and a
+# restart fall inside the fused epoch
+CLI_CASES = {
+    "csghmc": ("prior_sig=1.0,Ninflate=1.0,nd=1.0,thin=2,bias=informative,"
+               "nst=2", ["--num_cycles", "1"]),
+    "adam_csghmc": ("prior_sig=1.0,Ninflate=1.0,nd=0.01,thin=2,"
+                    "bias=informative,nst=2,perform_cold_restarts=1",
+                    ["--num_cycles", "2"]),
+}
+
+
+@pytest.mark.parametrize("method", sorted(CLI_CASES))
+def test_cli_fused_steps_same_results(method, tmp_path, monkeypatch):
     """`--fused_steps` through the port's CLI on the CPU gives the RESULTS
     of the same run without it (the full-width MLP on a synthetic set cut
     to 300 training examples)."""
@@ -261,44 +404,16 @@ def test_cli_fused_steps_same_results(tmp_path, monkeypatch):
         cfg.synthetic_n_train, cfg.synthetic_n_test = 300, 64
         return prepare_full(cfg)
     monkeypatch.setattr(data, "prepare", small)
-    args = ["--method", "csghmc", "--dataset", "synthetic", "--epochs", "1",
-            "--num_cycles", "1", "--batch_size", "64", "--lr", "1e-3",
-            "--device", "cpu", "--hparams",
-            "prior_sig=1.0,Ninflate=1.0,nd=1.0,thin=2,bias=informative,nst=2"]
+    hp, extra = CLI_CASES[method]
+    args = ["--method", method, "--dataset", "synthetic", "--epochs", "1",
+            "--batch_size", "64", "--lr", "1e-3", "--device", "cpu",
+            "--hparams", hp, *extra]
     plain = demo.main(args + ["--log_dir", str(tmp_path / "plain")])
     fused_res = demo.main(args + ["--log_dir", str(tmp_path / "fused"),
                                   "--fused_steps"])
     for key in ("train_losses", "train_errors", "nll", "ece", "mce",
                 "test_err", "best_epoch"):
         assert fused_res[key] == plain[key], key
-
-
-@pytest.mark.parametrize("method", HOST_DRAWS)
-def test_host_draw_methods_raise_under_fused_steps(method, tmp_path,
-                                                   monkeypatch):
-    """Their step draws from a host generator keyed by the step, which a
-    captured graph cannot re-key: they raise, naming the ROADMAP item,
-    through the runner and through the CLI."""
-    r, loaders = build(method, HPARAMS[method])
-    r.cfg.fused_steps = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        r.train(*loaders)
-    xs = np.stack([x for x, _, _ in loaders[0]])[:2]
-    ys = np.stack([y for _, y, _ in loaders[0]])[:2]
-    with pytest.raises(NotImplementedError, match="draw"):
-        r.run_steps(0, xs, ys, 0)
-    import bayesdll_tpu_torch.data as data
-    from bayesdll_tpu_torch.cli import demo
-    prepare_full = data.prepare
-
-    def small(cfg):
-        cfg.synthetic_n_train, cfg.synthetic_n_test = 128, 64
-        return prepare_full(cfg)
-    monkeypatch.setattr(data, "prepare", small)
-    with pytest.raises(NotImplementedError, match="fused_steps"):
-        demo.main(["--method", method, "--dataset", "synthetic",
-                   "--epochs", "1", "--batch_size", "64", "--device", "cpu",
-                   "--log_dir", str(tmp_path), "--fused_steps"])
 
 
 def test_pointer_entry_wrappers_refuse_cpu_tensors():

@@ -19,13 +19,13 @@ MCD_HP = {"prior_sig": "0.5", "p_drop": "0.3", "kld": "1.0", "nst": "2"}
 
 def _hand_vi_eps(key, tr):
     eps = np.array(jax.random.normal(key, (tr.target.dim,)))
-    tr._train_normal = lambda step: torch.from_numpy(eps)
+    tr._train_normal = lambda step, scalars: torch.from_numpy(eps)
 
 
 def _hand_mcd_uniform(key, tr):
     kz, _ = jax.random.split(key)
     u = np.array(jax.random.uniform(kz, (tr.target.dim,)))
-    tr._train_uniform = lambda step: torch.from_numpy(u)
+    tr._train_uniform = lambda step, scalars: torch.from_numpy(u)
 
 
 # one step at kld 1: s_ = 1e-6 makes kld * (s/sig^2 - 1/s) / ND about -2e3
