@@ -21,13 +21,19 @@
 // kernels.
 //
 // What bounds it: each element is written once (4 bytes) and read from
-// nowhere, against 25 integer operations of the Philox rounds per element
-// (10 rounds of 2 high and 2 low multiplies, 4 xors and 2 key additions,
-// over 4 elements) and, for normals, half a Box-Muller pair.  The integer
-// pipes of an SM retire half as many results a clock as its fp32 pipes,
-// so the integer work, not the memory traffic, is the larger bound.  The
-// design is the plain one: one Philox call per thread and element quad,
-// a 16-byte store, a grid-stride loop, a scalar tail for n % 4.
+// nowhere, so the bound is the bytes': 1.22 GB at ViT-L/32's D, 364.8 us
+// at 3.35 TB/s.  The work per element is a quarter of a Philox call (10
+// rounds of 2 wide multiplies and 2 three-input xors for 4 elements) and,
+// for normals, half a Box-Muller pair.  Uniforms stay bytes-bound;
+// normals are bound by issue slots, about 50 SASS instructions an element,
+// 28 of them Box-Muller's (normal_from_bits.cuh, fitted to the 24-bit
+// uniforms, one MUFU a pair; libdevice's logf, sqrtf and sincospif took
+// 105 instructions a pair).  So the design keeps that work small and in
+// flight: the kind a template parameter, so the loop holds no branch on
+// it; each thread taking 2 or 4 element quads an iteration, independent
+// Philox chains and Box-Mullers the scheduler interleaves; one 16-byte
+// store per quad; a grid that covers the vector.  A scalar tail handles
+// n % 4.
 //
 // Two entry points share the one kernel body.  `philox_draw` takes the
 // seed and the step by value; `philox_draw_dev` reads them from dev, the
@@ -48,13 +54,21 @@
 namespace {
 
 constexpr int kNormal = 0;
+constexpr int kUniform = 1;
+constexpr int kThreads = 256;
+// Element quads per thread and iteration (dispatch below).  From
+// kManyQuads quads on, a grid of 4-quad threads has at least 1024 blocks,
+// about as many as an H100 holds at once (132 SMs, 8 blocks of 256
+// threads each); below it normals take 2-quad threads, which keep more of
+// the card busy.
+constexpr int64_t kManyQuads = int64_t{1} << 20;
 
 // kDevScalars: seed and step come from dev = (seed, step, gate)
-template <bool kDevScalars>
-__global__ void philox_draw_kernel(float* __restrict__ out, int64_t n,
-                                   int kind, uint32_t stream_id,
-                                   uint64_t seed, uint64_t step,
-                                   const int64_t* __restrict__ dev) {
+template <bool kDevScalars, int kKind, int kQuads>
+__global__ void __launch_bounds__(kThreads)
+philox_draw_kernel(float* __restrict__ out, int64_t n, uint32_t stream_id,
+                   uint64_t seed, uint64_t step,
+                   const int64_t* __restrict__ dev) {
   if constexpr (kDevScalars) {
     seed = static_cast<uint64_t>(dev[0]);
     step = static_cast<uint64_t>(dev[1]);
@@ -62,52 +76,93 @@ __global__ void philox_draw_kernel(float* __restrict__ out, int64_t n,
   const int64_t full_quads = n / 4;
   const int64_t quads = (n + 3) / 4;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       q < quads; q += stride) {
-    float z[4];
-    if (kind == kNormal) {
-      bdl::normal4(seed, static_cast<uint64_t>(q), step, stream_id, z);
-    } else {
-      bdl::uniform4(seed, static_cast<uint64_t>(q), step, stream_id, z);
-    }
-    if (q < full_quads) {
-      reinterpret_cast<float4*>(out)[q] = make_float4(z[0], z[1], z[2], z[3]);
-    } else {
-      // constant indices into z keep it in registers
+  for (int64_t q0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       q0 < quads; q0 += kQuads * stride) {
+    float z[kQuads][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int64_t i = 4 * q + j;
-        if (i < n) out[i] = z[j];
+    for (int i = 0; i < kQuads; ++i) {
+      // a quad past the end is drawn and not stored: no branch before the
+      // stores, so the chains interleave
+      const uint64_t q = static_cast<uint64_t>(q0 + i * stride);
+      if constexpr (kKind == kNormal) {
+        bdl::normal4(seed, q, step, stream_id, z[i]);
+      } else {
+        bdl::uniform4(seed, q, step, stream_id, z[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kQuads; ++i) {
+      const int64_t q = q0 + i * stride;
+      if (q < full_quads) {
+        reinterpret_cast<float4*>(out)[q] =
+            make_float4(z[i][0], z[i][1], z[i][2], z[i][3]);
+      } else if (q < quads) {
+        // constant indices into z keep it in registers
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (4 * q + j < n) out[4 * q + j] = z[i][j];
+        }
       }
     }
   }
 }
 
-template <bool kDevScalars>
-int launch(void* out, int64_t n, int kind, uint32_t stream_id, uint64_t seed,
+// kQuads element quads per thread and iteration, over a grid that covers
+// the vector (grid-stride beyond 2^20 blocks)
+template <bool kDevScalars, int kKind, int kQuads>
+int launch(void* out, int64_t n, uint32_t stream_id, uint64_t seed,
            uint64_t step, const void* dev, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  constexpr int kThreads = 256;
-  const int64_t quads = (n + 3) / 4;
-  int64_t blocks = (quads + kThreads - 1) / kThreads;
-  if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;  // grid-stride beyond
-  philox_draw_kernel<kDevScalars><<<static_cast<unsigned>(blocks), kThreads,
-                                    0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(out), n, kind, stream_id, seed, step,
-      static_cast<const int64_t*>(dev));
+  const int64_t per_block = int64_t{kThreads} * kQuads;
+  int64_t blocks = ((n + 3) / 4 + per_block - 1) / per_block;
+  if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;
+  philox_draw_kernel<kDevScalars, kKind, kQuads>
+      <<<static_cast<unsigned>(blocks), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<float*>(out), n, stream_id, seed, step,
+          static_cast<const int64_t*>(dev));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch shapes each draw ran fastest with (draw_sweep.py, which
+// builds this file with BDL_DRAW_QUADS to time other shapes): uniforms 2
+// quads per thread; normals 4 from kManyQuads quads on, else 2.
+template <bool kDevScalars>
+int dispatch(void* out, int64_t n, int kind, uint32_t stream_id,
+             uint64_t seed, uint64_t step, const void* dev, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+#ifdef BDL_DRAW_QUADS
+  if (kind == kNormal) {
+    return launch<kDevScalars, kNormal, BDL_DRAW_QUADS>(out, n, stream_id,
+                                                        seed, step, dev,
+                                                        stream);
+  }
+  return launch<kDevScalars, kUniform, BDL_DRAW_QUADS>(out, n, stream_id,
+                                                       seed, step, dev,
+                                                       stream);
+#else
+  if (kind != kNormal) {
+    return launch<kDevScalars, kUniform, 2>(out, n, stream_id, seed, step,
+                                            dev, stream);
+  }
+  if ((n + 3) / 4 < kManyQuads) {
+    return launch<kDevScalars, kNormal, 2>(out, n, stream_id, seed, step,
+                                           dev, stream);
+  }
+  return launch<kDevScalars, kNormal, 4>(out, n, stream_id, seed, step, dev,
+                                         stream);
+#endif
 }
 
 }  // namespace
 
 extern "C" int philox_draw(void* out, int64_t n, int kind, uint32_t stream_id,
                            uint64_t seed, uint64_t step, void* stream) {
-  return launch<false>(out, n, kind, stream_id, seed, step, nullptr, stream);
+  return dispatch<false>(out, n, kind, stream_id, seed, step, nullptr, stream);
 }
 
 // dev: int64 [3] = (seed, step, gate) on out's device; the gate is unused
 extern "C" int philox_draw_dev(void* out, int64_t n, int kind,
                                uint32_t stream_id, const void* dev,
                                void* stream) {
-  return launch<true>(out, n, kind, stream_id, 0, 0, dev, stream);
+  return dispatch<true>(out, n, kind, stream_id, 0, 0, dev, stream);
 }

@@ -16,7 +16,10 @@ its momentum, `adam_sghmc_momentum`) has no kernel in either package: it
 is plain PyTorch on every device, in place on the Adam state.  `draw_` is
 the whole-vector draw of VI, MC-dropout and the Adam momentum noise: the
 philox_draw kernel on the card, a host generator keyed by (seed, stream,
-step) on the CPU.
+step) on the CPU.  `box_muller_fp32` is the four kernels' Box-Muller
+(csrc/normal_from_bits.cuh) step for step in fp32 torch ops: the tests
+hold it against float64 over every input, chip_smoke.py holds the card's
+normals against it.
 
 SGLD and SGHMC clamp the per-element lr at LR_FLOOR inside the noise scale
 and the drift, as the Pallas kernels do (bayesdll_tpu/ops/pallas_kernels.py
@@ -26,6 +29,8 @@ gives NaN or inf, and the port stays finite.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -207,15 +212,109 @@ def philox4x32_10(x, y, z, w, key0: int, key1: int):
     return x, y, z, w
 
 
+# csrc/normal_from_bits.cuh's Box-Muller constants (hex floats, as there):
+# -2 log1p(-g/2) = g + g^2 P(g), P highest degree first; cos(pi t/4) = 1 +
+# u Q(u) and sin(pi t/4) = t (pi/4 + u S(u)), u = t^2, S's last term pi/4's
+# low part
+NEG2_LOG1P_P = tuple(float.fromhex(h) for h in (
+    "0x1.09a086p-12", "0x1.1f3c64p-11", "0x1.f22e7cp-11", "0x1.1eaa56p-9",
+    "0x1.55a8f4p-8", "0x1.99d31p-7", "0x1.fffe7ap-6", "0x1.5555p-4",
+    "0x1p-2"))
+COS_Q = tuple(float.fromhex(h) for h in (
+    "0x1.d9f7cep-19", "-0x1.55c664p-12", "0x1.03c1dep-6", "-0x1.3bd3ccp-2"))
+SIN_S = tuple(float.fromhex(h) for h in (
+    "-0x1.2d7a96p-15", "0x1.465e32p-9", "-0x1.4abbbap-4", "-0x1.777a5cp-26"))
+PI_4 = float.fromhex("0x1.921fb6p-1")  # pi/4's high part
+NEG2_LN2 = float.fromhex("-0x1.62e43p+0")  # -2 ln 2 in fp32
+V_MIN = float.fromhex("0x1.ad7f2ap+0")  # fp32 1e-7 times 2^24, exactly
+
+
+def _fma32(a, b, c):
+    """fp32 a * b + c rounded once, as __fmaf_rn rounds it (a, b, c fp32
+    tensors or floats that are fp32 values): the product is exact in
+    float64, the sum is rounded there to odd (its exact error from TwoSum),
+    and rounding to odd at 53 bits, then to nearest at 24, rounds
+    correctly."""
+    like = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
+    a, b, c = (x.double() if isinstance(x, torch.Tensor) else
+               torch.tensor(x, dtype=torch.float64, device=like.device)
+               for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s)
+    return torch.where(inexact_even, torch.nextafter(s, toward), s).float()
+
+
+def neg2_log_u1_fp32(b1):
+    """normal_from_bits.cuh::neg2_log_u1 in fp32 torch ops: -2 ln(max(k
+    2^-24, 1e-7)), k = b1 >> 8, by the kernel's exponent split and
+    polynomial."""
+    v = torch.clamp((b1 >> 8).float(), min=V_MIN)
+    ix = v.view(torch.int32).long()
+    e = (ix - 0x3F2AAAAB) >> 23
+    g = _fma32((ix - (e << 23)).int().view(torch.float32), -2.0, 2.0)
+    ef = (e - 24).float()  # the kernel's magic-number conversion, exact
+    p = torch.full_like(g, NEG2_LOG1P_P[0])
+    for c in NEG2_LOG1P_P[1:]:
+        p = _fma32(p, g, c)
+    return _fma32(ef, NEG2_LN2, _fma32(p, g * g, g))
+
+
+def sqrt_newton_fp32(a):
+    """normal_from_bits.cuh::sqrt_newton, with the correctly rounded fp32
+    1/sqrt(a) in place of MUFU.RSQ's approximation (the one step where the
+    card's bits may differ by an ulp)."""
+    y = torch.rsqrt(a.double()).float()
+    r0 = a * y
+    return _fma32(_fma32(-r0, r0, a), y * 0.5, r0)
+
+
+def cos_sin_2pi_fp32(b2):
+    """normal_from_bits.cuh::cos_sin_2pi in fp32 torch ops: (cos, sin) of
+    2 pi (b2 >> 8) 2^-24, from the nearest quadrant and t in [-1, 1)."""
+    w = (b2 + 0x20000000) & _M32
+    t = _fma32(((w >> 8) & 0x3FFFFF).float(), 2.0 ** -21, -1.0)
+    u = t * t
+    q = torch.full_like(u, COS_Q[0])
+    for c in COS_Q[1:]:
+        q = _fma32(q, u, c)
+    cr = _fma32(u, q, 1.0)
+    p = torch.full_like(u, SIN_S[0])
+    for c in SIN_S[1:-1]:
+        p = _fma32(p, u, c)
+    p = _fma32(u, p, SIN_S[-1])
+    sr = _fma32(t, PI_4, t * p)
+    swap = (w >> 30) & 1 == 1
+    c = torch.where(swap, sr, cr)
+    s = torch.where(swap, cr, sr)
+    return (torch.where(((w >> 30) ^ (w >> 31)) & 1 == 1, -c, c),
+            torch.where(w >> 31 == 1, -s, s))
+
+
+def box_muller_fp32(b1, b2):
+    """normal_from_bits.cuh::box_muller step for step in fp32 (each
+    __fmaf_rn rounded once, as on the card) of two int64 tensors of Philox
+    words: (r cos, r sin) of 2 pi u2, r = sqrt(-2 ln u1).  Equal to the
+    kernel's normals bit for bit but where MUFU.RSQ's approximation moves r
+    by an ulp."""
+    r = sqrt_newton_fp32(neg2_log_u1_fp32(b1))
+    c, s = cos_sin_2pi_fp32(b2)
+    return r * c, r * s
+
+
 def philox_draw_plain(n: int, *, kind: str, stream: int, seed: int,
-                      step: int, device="cpu", offset: int = 0):
+                      step: int, device="cpu", offset: int = 0,
+                      fp32: bool = False):
     """The plain version of the philox_draw kernel: elements [offset, offset
     + n) (offset a multiple of 4) of its draw at (seed, step, stream), with
     its counter layout, its 24-bit uniforms (bit for bit) and its
     Box-Muller, here in float64 from the same uniforms and rounded to fp32
-    (so the kernel's fp32 logf, sqrtf and sincospif differ by rounding
-    only).  Integer tensor ops, as slow as they are plain: a yardstick, not
-    a path."""
+    (the yardstick the kernel's normals are held to), or with `fp32` the
+    kernel's own fp32 arithmetic (`box_muller_fp32`).  Integer tensor ops,
+    as slow as they are plain: a yardstick, not a path."""
     if offset % 4:
         raise ValueError(f"offset {offset} is not a multiple of 4")
     seed, step = int(seed) & kernels._U64, int(step) & kernels._U64
@@ -226,6 +325,9 @@ def philox_draw_plain(n: int, *, kind: str, stream: int, seed: int,
     u = [((b >> 8).float() * (1.0 / 16777216.0)) for b in words]
     if kind == "uniform":
         out = torch.stack(u, 1)
+    elif kind == "normal" and fp32:
+        out = torch.stack([*box_muller_fp32(*words[:2]),
+                           *box_muller_fp32(*words[2:])], 1)
     elif kind == "normal":
         z = []
         for u1, u2 in ((u[0], u[1]), (u[2], u[3])):

@@ -69,10 +69,13 @@ Phases, one line each:
      runs, its time and peak memory; (e) each kernel's pointer entry point
      (step, seed and gate read from the card) bitwise against its by-value
      entry point, noise on, and against its plain version, timed at the
-     MLP's and ViT-L/32's D (philox_draw also against its moments, the
-     independence of its streams and torch.randn's time), and a profiler
-     trace of one replayed MLP segment of 10 steps: each kernel 10 times on
-     the card, one cudaGraphLaunch per step and no matrix product
+     MLP's and ViT-L/32's D (philox_draw also against the kernel's own
+     fp32 arithmetic run in torch ops, bitwise or within an ulp, against
+     its moments, the independence of its streams, and beside torch.randn
+     and torch.rand; its registers, spills and SASS instructions, and those
+     of the commit before where build/parent_csrc holds its sources), and a
+     profiler trace of one replayed MLP segment of 10 steps: each kernel 10
+     times on the card, one cudaGraphLaunch per step and no matrix product
      dispatched on the host.  The per-step timings of phases 4 and 5 run
      `step_loop`, the fused ones `run_steps`.
 The MLP and ResNet runners are freed before the ViT-L/32 phases.  The
@@ -89,6 +92,8 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2657,9 +2662,9 @@ DRAW_INT_OPS_PER_ELEM = 10
 # compute capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput), a quarter of FP32_PEAK's 128 fused multiply-adds of 2 flops
 INT32_PEAK = FP32_PEAK / 4
-# normals against the plain version: the kernel's fp32 logf, sqrtf and
-# sincospif against float64 Box-Muller of the same 24-bit uniforms, |z| at
-# most 5.7; uniforms bitwise
+# normals against the plain version: the kernel's fp32 Box-Muller
+# (normal_from_bits.cuh) against float64 Box-Muller of the same 24-bit
+# uniforms, |z| at most 5.7; uniforms bitwise
 DRAW_TOL = 1e-5
 # the plain version runs on windows of this many elements at each end of a
 # vector longer than two windows
@@ -2674,22 +2679,158 @@ def draw_windows(dim: int):
     return [(0, DRAW_WINDOW), (tail, dim)]
 
 
+# the commit before's csrc/, where it has been copied (build/ is in
+# .gitignore): phase_draw_sass compiles it beside csrc/ to show what changed
+PARENT_CSRC = SCRATCH / "parent_csrc"
+# one Box-Muller pair, and the same loads and stores without it: the
+# difference of their SASS is the pair's instruction count
+BOX_MULLER_PROBE = r"""
+#include <cstdint>
+#include "normal_from_bits.cuh"
+extern "C" __global__ void bm_probe(const uint2* in, float2* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float z0, z1;
+  bdl::box_muller(in[i].x, in[i].y, z0, z1);
+  out[i] = make_float2(z0, z1);
+}
+extern "C" __global__ void bm_copy(const uint2* in, float2* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  out[i] = make_float2(__uint_as_float(in[i].x), __uint_as_float(in[i].y));
+}
+"""
+
+
+def kernel_label(mangled: str) -> str:
+    """philox_draw_kernel<dev, kind, quads>'s template arguments, read from
+    its mangled name (the commit before's kernel has only the first)."""
+    m = re.search(r"philox_draw_kernelILb(\d)E(?:Li(\d)E)?(?:Li(\d+)E)?",
+                  mangled)
+    if m is None:
+        return mangled
+    entry = "pointer" if m[1] == "1" else "by value"
+    kind = {None: "either kind", "0": "normal", "1": "uniform"}[m[2]]
+    return f"{entry}, {kind}" + (f", {m[3]} quads" if m[3] else "")
+
+
+def sass_counts(cuobjdump: str, cubin: Path) -> dict:
+    """Instructions (NOPs left out) and MUFUs of each function in cubin."""
+    text = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"instructions": 0, "mufu": 0}
+            continue
+        parts = line.split("*/")
+        if fn is None or len(parts) < 2 or not line.strip().startswith("/*"):
+            continue
+        words = parts[1].split()
+        if words and words[0].startswith("@"):  # a predicate, then the opcode
+            words = words[1:]
+        op = words[0] if words else ""
+        if op[:1].isupper() and not op.startswith("NOP"):
+            counts[fn]["instructions"] += 1
+            counts[fn]["mufu"] += op.startswith("MUFU")
+    return counts
+
+
+def phase_draw_sass(smi) -> dict:
+    """philox_draw's registers and spills for each instantiation (nvcc
+    -Xptxas -v) and the SASS instructions of one Box-Muller pair and of each
+    kernel (cuobjdump -sass, where the toolkit has it), for csrc/ and, where
+    PARENT_CSRC holds them, for the commit before's sources: all compiles
+    started together.  Returns {"after": ..., "before": ... or None}."""
+    from bayesdll_tpu_torch.ops import kernels
+    nvcc = kernels._nvcc()
+    cuobjdump = shutil.which("cuobjdump") or str(Path(nvcc).with_name(
+        "cuobjdump"))
+    flags = [f for f in kernels.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    trees = {"after": kernels.CSRC}
+    if (PARENT_CSRC / "philox_draw.cu").exists():
+        trees["before"] = PARENT_CSRC
+    jobs = {}
+    for tag, csrc in trees.items():
+        out = SCRATCH / "sass" / tag
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "bm_probe.cu").write_text(BOX_MULLER_PROBE)
+        for src in (csrc / "philox_draw.cu", out / "bm_probe.cu"):
+            cubin = out / f"{src.stem}.cubin"
+            jobs[tag, src.stem] = (cubin, subprocess.Popen(
+                [nvcc, *flags, "-cubin", "-Xptxas", "-v", "-I", str(csrc),
+                 "-o", str(cubin), str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    report = {"after": None, "before": None}
+    for (tag, stem), (cubin, proc) in jobs.items():
+        log, _ = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"nvcc -cubin {tag} {stem}:\n{log}")
+        entry = report[tag] = report[tag] or {"ptxas": {}, "sass": {}}
+        fn = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif fn and "Used" in line and "registers" in line:
+                entry["ptxas"].setdefault(kernel_label(fn), {})["registers"] = \
+                    int(line.split("Used")[1].split()[0])
+            elif fn and "spill stores" in line:
+                nums = [int(w) for w in line.replace(",", " ").split()
+                        if w.isdigit()]
+                entry["ptxas"].setdefault(kernel_label(fn), {}).update(
+                    stack_bytes=nums[0], spill_store_bytes=nums[1],
+                    spill_load_bytes=nums[2])
+        if os.path.exists(cuobjdump):
+            entry["sass"].update({kernel_label(f): c for f, c in
+                                  sass_counts(cuobjdump, cubin).items()})
+    for tag in ("before", "after"):
+        entry = report[tag]
+        if entry is None:
+            print(f"phase 6e: philox_draw {tag}: no sources at {PARENT_CSRC}",
+                  flush=True)
+            continue
+        sass = entry["sass"]
+        if "bm_probe" in sass:
+            entry["box_muller_pair_instructions"] = \
+                sass["bm_probe"]["instructions"] - sass["bm_copy"]["instructions"]
+        print(f"phase 6e: [{smi}] philox_draw {tag} (sm_90a): ptxas "
+              f"{entry['ptxas']}; SASS "
+              f"{ {k: v for k, v in sass.items() if k != 'bm_copy'} or 'cuobjdump absent'}; "
+              f"one Box-Muller pair "
+              f"{entry.get('box_muller_pair_instructions', 'not counted')} "
+              f"instructions", flush=True)
+    return report
+
+
+def ulp_diffs(a: torch.Tensor, b: torch.Tensor):
+    """(elements that differ, the largest difference in ulps) of two fp32
+    tensors of values of one sign, compared as integers."""
+    d = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    return int((d != 0).sum()), int(d.max()) if d.numel() else 0
+
+
 def phase_draw_kernel(smi, dim: int, label: str, flush):
     """(e) philox_draw at D = dim: its pointer entry point bitwise equal to
     its by-value entry point at each of DEV_POINTS, for each draw; each
-    against its plain version (uniforms bitwise, normals within DRAW_TOL);
-    the moments (normal mean within 0.01 and std within 2% of 1; uniforms
-    in [0, 1) with mean within 0.01 of 0.5); the VI and Adam draws at one
+    against its plain version (uniforms bitwise, normals within DRAW_TOL of
+    float64 Box-Muller, and against the kernel's own fp32 arithmetic run in
+    torch ops, `philox_draw_plain(fp32=True)`: bitwise, or within an ulp
+    where MUFU.RSQ rounds r otherwise, the differing elements counted); the
+    moments (normal mean within 0.01 and std within 2% of 1; uniforms in
+    [0, 1) with mean within 0.01 of 0.5); the VI and Adam draws at one
     (seed, step) uncorrelated (|r| < 0.01).  Then its times with L2
-    flushed before each launch: by value, by pointer, the plain version,
-    and torch.randn(D, generator=g) on the card (the same distribution,
-    other bits) as the library call.  Returns the kernel's record."""
+    flushed before each launch, twice in turns: by value (normal and
+    uniform), by pointer, the plain version, and torch.randn(D,
+    generator=g) and torch.rand(D, generator=g) on the card (the same
+    distributions, other bits) as the library calls; the normal draw's
+    ratio to the uniform one and its share of the bound.  Returns the
+    kernel's record."""
     from bayesdll_tpu_torch.ops import fused, kernels
     streams = {"vi": (kernels.STREAM_VI, "normal"),
                "adam": (kernels.STREAM_ADAM, "normal"),
                "mc_dropout": (kernels.STREAM_MC_DROPOUT, "uniform")}
     like = torch.empty(dim, device="cuda")
     err = 0.0
+    emu_diff, emu_elems, emu_ulp = 0, 0, 0
     for seed, step, gate in DEV_POINTS:
         dev = kernels.dev_scalars(seed, step, gate)
         for name, (sid, kind) in streams.items():
@@ -2699,15 +2840,24 @@ def phase_draw_kernel(smi, dim: int, label: str, flush):
             check(torch.equal(a, b), f"philox_draw {name} pointer vs "
                   f"by-value at D={dim}, (seed, step) = {(seed, step)}")
             for lo, hi in draw_windows(dim):
-                want = fused.philox_draw_plain(
-                    hi - lo, kind=kind, stream=sid, seed=seed, step=step,
-                    device="cuda", offset=lo)
+                kw = dict(kind=kind, stream=sid, seed=seed, step=step,
+                          device="cuda", offset=lo)
+                want = fused.philox_draw_plain(hi - lo, **kw)
                 e = float((a[lo:hi] - want).abs().max())
                 err = max(err, e)
                 check(torch.equal(a[lo:hi], want) if kind == "uniform"
                       else e <= DRAW_TOL,
                       f"philox_draw {name} vs plain at D={dim} [{lo}, {hi}), "
                       f"(seed, step) = {(seed, step)}: max abs err {e}")
+                if kind == "normal":
+                    want = fused.philox_draw_plain(hi - lo, fp32=True, **kw)
+                    n_diff, ulps = ulp_diffs(a[lo:hi], want)
+                    emu_diff, emu_elems = emu_diff + n_diff, emu_elems + hi - lo
+                    emu_ulp = max(emu_ulp, ulps)
+                    check(ulps <= 1, f"philox_draw {name} vs its fp32 "
+                          f"arithmetic at D={dim} [{lo}, {hi}), (seed, step) "
+                          f"= {(seed, step)}: {n_diff} differ, by up to "
+                          f"{ulps} ulps")
             del a, b, want
     seed, step = DEV_POINTS[1][:2]
     z = {n: kernels.philox_draw(like, kind=k, stream=sid, seed=seed,
@@ -2742,45 +2892,67 @@ def phase_draw_kernel(smi, dim: int, label: str, flush):
                             step=counter[0])
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    timed = {
+        "normal": by_value,
+        "randn": lambda: torch.randn(dim, generator=gen, device="cuda"),
+        "uniform": lambda: by_value("uniform"),
+        "rand": lambda: torch.rand(dim, generator=gen, device="cuda"),
+        "pointer": lambda: kernels.philox_draw_dev(like, dev_t, kind="normal",
+                                                   stream=sid_vi),
+    }
     p1 = cuda_ms_cold(lambda: fused.philox_draw_plain(
         dim, kind="normal", stream=sid_vi, seed=0, step=1, device="cuda"), 3,
         flush, warmup=1)
-    k_normal = cuda_ms_cold(by_value, 100, flush)
-    k_uniform = cuda_ms_cold(lambda: by_value("uniform"), 100, flush)
-    k_dev = cuda_ms_cold(lambda: kernels.philox_draw_dev(
-        like, dev_t, kind="normal", stream=sid_vi), 100, flush)
-    lib = cuda_ms_cold(lambda: torch.randn(dim, generator=gen,
-                                           device="cuda"), 100, flush)
+    runs = {k: [] for k in timed}
+    for order in (list(timed), list(timed)[::-1]):
+        for k in order:
+            runs[k].append(cuda_ms_cold(timed[k], 100, flush))
     p2 = cuda_ms_cold(lambda: fused.philox_draw_plain(
         dim, kind="normal", stream=sid_vi, seed=0, step=1, device="cuda"), 3,
         flush, warmup=1)
     k_warm = cuda_ms(by_value, 100)
+    ms = {k: sum(v) / len(v) for k, v in runs.items()}
     name = torch.cuda.get_device_name(0)
     bytes_ms = DRAW_BYTES_PER_ELEM * dim / peak_bytes_per_s(name) * 1e3
     ops_ms = DRAW_INT_OPS_PER_ELEM * dim / INT32_PEAK * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     plain_ms = (p1 + p2) / 2
+    both = {k: "/".join(f"{t * 1e3:.2f}" for t in v) for k, v in runs.items()}
     print(f"phase 6e: [{smi}] philox_draw D={dim} ({label}): pointer entry "
           f"bitwise equal to the by-value entry at (seed, step, gate) in "
           f"{DEV_POINTS} for the VI, Adam and MC-dropout draws; vs plain: "
           f"uniforms bitwise, normals max abs err {err:.3g} (tol {DRAW_TOL}); "
+          f"normals vs the kernel's fp32 arithmetic: {emu_diff} of "
+          f"{emu_elems} differ, by at most {emu_ulp} ulp; "
           f"normal mean {mean:+.2e} std {std:.5f}, uniform in [{u_lo:.3g}, "
           f"{u_hi:.8f}] mean {u_mean:.5f}, VI vs Adam r {r:+.2e}; L2 flushed "
-          f"before each launch: normal {k_normal * 1e3:.2f} us, uniform "
-          f"{k_uniform * 1e3:.2f} us, pointer entry {k_dev * 1e3:.2f} us, "
-          f"{k_warm * 1e3:.2f} us back to back; bound {bound_ms * 1e3:.2f} us "
-          f"({bound_by}: {DRAW_BYTES_PER_ELEM * dim / 1e6:.1f} MB written "
+          f"before each launch (two runs in turns): normal {both['normal']} "
+          f"us, uniform {both['uniform']} us, pointer entry "
+          f"{both['pointer']} us, torch.randn {both['randn']} us, torch.rand "
+          f"{both['rand']} us; normal {k_warm * 1e3:.2f} us back to back; "
+          f"normal / uniform {ms['normal'] / ms['uniform']:.3f}, normal / "
+          f"torch.randn {ms['normal'] / ms['randn']:.3f}, uniform / "
+          f"torch.rand {ms['uniform'] / ms['rand']:.3f}; bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}: "
+          f"{DRAW_BYTES_PER_ELEM * dim / 1e6:.1f} MB written "
           f"{bytes_ms * 1e3:.2f} us, {DRAW_INT_OPS_PER_ELEM} integer ops per "
           f"element at {INT32_PEAK / 1e12:.2f} TOP/s {ops_ms * 1e3:.2f} us) = "
-          f"{bound_ms / k_normal:.1%} of roofline; plain version "
-          f"{plain_ms * 1e3:.1f} us ({p1 * 1e3:.1f}/{p2 * 1e3:.1f}); "
-          f"torch.randn {lib * 1e3:.2f} us", flush=True)
+          f"{bound_ms / ms['normal']:.1%} of roofline for normals, "
+          f"{bound_ms / ms['uniform']:.1%} for uniforms; plain version "
+          f"{plain_ms * 1e3:.1f} us ({p1 * 1e3:.1f}/{p2 * 1e3:.1f})",
+          flush=True)
     del like
     free_device()
-    return dict(ms=k_normal, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib, max_abs_err=err,
-                uniform_ms=k_uniform, pointer_ms=k_dev, dim=dim)
+    return dict(ms=ms["normal"], plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=ms["randn"], max_abs_err=err,
+                uniform_ms=ms["uniform"], uniform_library_ms=ms["rand"],
+                pointer_ms=ms["pointer"],
+                normal_to_uniform=ms["normal"] / ms["uniform"],
+                normal_share_of_bound=bound_ms / ms["normal"],
+                fp32_arithmetic={"differing": emu_diff, "of": emu_elems,
+                                 "max_ulps": emu_ulp},
+                runs_ms=runs, dim=dim)
 
 
 def phase_fused_vit_adam(smi, vit, xs, ys, per_step_ms):
@@ -2898,6 +3070,7 @@ def main() -> int:
                                  phase_kernels(resnet.target, "resnet101")),
             **phase_sg_kernels()}
     flush = torch.zeros(64 * 2**20, device="cuda")  # 256 MB, 5x the L2
+    draw_sass = phase_draw_sass(smi)
     draw = {"mlp_mnist": phase_draw_kernel(smi, mlp_target.dim, "mlp_mnist",
                                            flush)}
     runners, by_path = {}, {}
@@ -3022,7 +3195,11 @@ def main() -> int:
         "launches": by_path["adam_csghmc vit_l_32 fused"]["philox_draw"],
         "max_abs_err": max(d["max_abs_err"] for d in draw.values()),
         **{k: vit_draw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")},
+                                    "library_ms", "uniform_ms",
+                                    "uniform_library_ms", "normal_to_uniform",
+                                    "normal_share_of_bound")},
+        "fp32_arithmetic": {p: d["fp32_arithmetic"] for p, d in draw.items()},
+        "ptxas_and_sass": draw_sass,
         "launches_by_path": {p: c["philox_draw"] for p, c in by_path.items()
                              if "philox_draw" in c},
         "times_by_path": draw,
