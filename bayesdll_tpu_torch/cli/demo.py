@@ -84,7 +84,7 @@ def parse_args(argv=None):
                    help="path to a torchvision state_dict (.pth) used as "
                         "the prior mean")
     p.add_argument("--dataset", type=str, default="mnist",
-                   help="mnist|synthetic")
+                   help="mnist|cifar10|cifar100|pets|imagenet|synthetic")
     p.add_argument("--backbone", type=str, default="mlp_mnist",
                    help="mlp_mnist|cnn_mnist|resnet50|resnet101|vit_l_32|"
                         "vit_b_16|vit_tiny")

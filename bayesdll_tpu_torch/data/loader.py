@@ -1,9 +1,11 @@
-"""Host-side array loader (copy of bayesdll_tpu.data.loader; the port loads
-no dataset that augments, so there is no augmentation hook).
+"""Host-side array loader (copy of bayesdll_tpu.data.loader).
 
 Training batches share one shape (`drop_last=True`).  Eval batches are
 padded to the batch size with a `valid` 0/1 mask, which the metric code
-applies.  Batches are numpy arrays; the runner moves them to its device.
+applies.  `augment_fn(batch_x, rng)` transforms each batch with the
+loader's RandomState after its indices are drawn (CIFAR's crop and flip),
+so the draws come in the JAX package's order.  Batches are numpy arrays;
+the runner moves them to its device.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import numpy as np
 
 class ArrayLoader:
     def __init__(self, x, y, batch_size: int, shuffle: bool = False,
-                 seed: int = 0, drop_last: bool = False):
+                 seed: int = 0, drop_last: bool = False, augment_fn=None):
         if len(x) != len(y):
             raise ValueError(f"{len(x)} inputs but {len(y)} labels")
         self.x = np.asarray(x)
@@ -24,6 +26,7 @@ class ArrayLoader:
         self._seed = seed
         self._rng = np.random.RandomState(seed)
         self.n = len(x)
+        self.augment_fn = augment_fn  # (batch_x, rng) -> batch_x
 
     def __len__(self):
         if self.drop_last:
@@ -33,7 +36,7 @@ class ArrayLoader:
     def eval_view(self):
         """An unshuffled view over the same examples that drops no batch
         (the last one padded, with its `valid` mask): the pass that must see
-        every training example once, LA's Fisher."""
+        every training example once, LA's Fisher.  It does not augment."""
         return ArrayLoader(self.x, self.y, self.batch_size, shuffle=False,
                            drop_last=False)
 
@@ -46,7 +49,8 @@ class ArrayLoader:
                            shuffle=self.shuffle,
                            seed=(self._seed + 7919 * (c + 1)
                                  + 104729 * epoch) % (2 ** 31 - 1),
-                           drop_last=self.drop_last)
+                           drop_last=self.drop_last,
+                           augment_fn=self.augment_fn)
 
     @property
     def num_examples(self):
@@ -60,6 +64,8 @@ class ArrayLoader:
         for b in range(len(self)):
             sel = idx[b * bs:(b + 1) * bs]
             xb, yb = self.x[sel], self.y[sel]
+            if self.augment_fn is not None:
+                xb = self.augment_fn(xb, self._rng)
             if len(sel) < bs:  # pad the final eval batch to the batch size
                 pad = bs - len(sel)
                 xb = np.concatenate([xb, np.zeros((pad,) + xb.shape[1:], xb.dtype)])

@@ -78,6 +78,21 @@ Phases, one line each:
      times on the card, one cudaGraphLaunch per step and no matrix product
      dispatched on the host.  The per-step timings of phases 4 and 5 run
      `step_loop`, the fused ones `run_steps`.
+  7. the real-data paths, on fixtures written from a seed into a temporary
+     directory under build/: (a) the card's host (cores, PIL, g++), the
+     native preprocessing library built from bayesdll_tpu_torch/native
+     (it must be available), held against numpy on seeded images and timed
+     per 500x375 image beside PIL's eval transform; (b) a full-size
+     CIFAR-100 (50,000 + 10,000 images of learnable grating classes)
+     through the pretraining CLI's main at its defaults (cSGHMC,
+     ResNet-101, batch 256, lr 0.1, momentum 0.9), 2 epochs per step and
+     2 fused, bit for bit equal (cuDNN deterministic), csghmc_update
+     launched once a step, finite loss and NLL, per-epoch ms/step, images/s,
+     training error and busy share, the CIFAR loader's images/s alone; a
+     mini ResNet on the fixture cut to 256 images, card against CPU; (c)
+     where PIL imports, a Pets-layout fixture (512 + 256 JPEGs at 500x375)
+     through demo_vision's main (pets, resnet101, batch 128), fp32 and bf16,
+     each epoch profiled, and ImageFileLoader's images/s alone.
 The MLP and ResNet runners are freed before the ViT-L/32 phases.  The
 script prints its total time; the line before the last is a JSON record of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -93,6 +108,7 @@ import gc
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -1083,6 +1099,11 @@ def _device_total(e) -> float:
     return e.cuda_time_total if us is None else us
 
 
+def _self_device(e) -> float:
+    us = getattr(e, "self_device_time_total", None)
+    return e.self_cuda_time_total if us is None else us
+
+
 def phase_profile(smi, what, runner, xs, ys, ms_step, sampler, pieces=False,
                   bi0=None, fused=False):
     """Where a training step's device time goes: torch.profiler over a few
@@ -1115,10 +1136,8 @@ def phase_profile(smi, what, runner, xs, ys, ms_step, sampler, pieces=False,
             piece_us[name] = max(piece_us.get(name, 0.0), _device_total(e))
         if not on_card or e.key.startswith(PIECE):
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / len(xs)
+        per_kernel[e.key] = (per_kernel.get(e.key, 0.0)
+                             + _self_device(e) / len(xs))
     total = sum(per_kernel.values())
     if total <= 0:
         print(f"phase 5: {what}: profiler recorded no device time: "
@@ -2104,19 +2123,18 @@ def watched_multichain(seen: dict):
         MultiChainRunner.train = train
 
 
-def cli_main(argv):
-    """The port's CLI main with its log kept off this script's output (kept,
-    and its tail printed, if the run fails); the log handlers it adds are
-    removed after."""
+def entry_main(main, argv):
+    """An entry point's main with its log kept off this script's output
+    (printed in its last 6,000 characters if the run fails); returns the
+    results and the log.  The log handlers it adds are removed after."""
     import io
     import logging
-    from bayesdll_tpu_torch.cli import demo
     logger = logging.getLogger("bayesdll_tpu_torch")
     handlers = list(logger.handlers)
     log = io.StringIO()
     try:
         with contextlib.redirect_stdout(log):
-            return demo.main(argv)
+            return main(argv), log.getvalue()
     except BaseException:
         print(log.getvalue()[-6000:], flush=True)
         raise
@@ -2124,6 +2142,12 @@ def cli_main(argv):
         for h in logger.handlers[len(handlers):]:
             logger.removeHandler(h)
             h.close()
+
+
+def cli_main(argv):
+    """The port's CLI main (cli/demo.py), as `entry_main` runs it."""
+    from bayesdll_tpu_torch.cli import demo
+    return entry_main(demo.main, argv)[0]
 
 
 def phase_big_chains(smi, name):
@@ -3057,6 +3081,591 @@ def phase_fused_vit_adam(smi, vit, xs, ys, per_step_ms):
     return counts
 
 
+# ---- phase 7: real data -------------------------------------------------------
+
+# the JAX pre-training driver's cell (bayesdll_tpu/cli/pretrain.py): cSGHMC
+# on ResNet-101 from scratch, CIFAR-100 (50,000 + 10,000 images of 32x32x3),
+# batch 256, lr 0.1, momentum 0.9, the reference's hparams, all at the
+# driver's defaults but the length: 2 epochs in 1 cycle, so that the second
+# epoch collects samples (every 10th step) and the test evaluation runs
+PRETRAIN_ARGV = ["--epochs", "2", "--num_cycles", "1"]
+RESNET101_CIFAR100_PARAMS = 42_705_060
+CIFAR_N = (50_000, 10_000)
+# the mini ResNet held against its CPU run: the fixture cut to 256 training
+# images (3 steps of 64 an epoch, as tests/test_torch_pretrain_cli.py runs
+# the port against the JAX package)
+CIFAR_CUT = (256, 64)
+# the Pets layout at the published image size (500 x 375), cut from 3,680
+# trainval and 3,669 test images to 512 and 256; demo_vision's defaults
+# (pets, resnet101, batch 128) for 2 epochs of 1 cycle
+PETS_N = (512, 256)
+PETS_HW = (375, 500)
+VISION_ARGV = ["--epochs", "2", "--num_cycles", "1"]
+TIMED_IMAGES = 50  # per-image preprocessing times: the mean of this many
+
+
+def resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """preprocess.cc's triangle filter (PIL's BILINEAR: the support widens
+    with the scale on a downscale) as an [n_out, n_in] float32 matrix: each
+    weight rounded to float, then divided by the row's float64 sum."""
+    scale = n_in / n_out
+    fscale = max(scale, 1.0)
+    w = np.zeros((n_out, n_in), np.float32)
+    for o in range(n_out):
+        center = (o + 0.5) * scale
+        lo = max(int(center - fscale + 0.5), 0)
+        hi = min(int(center + fscale + 0.5), n_in)
+        x = (np.arange(lo, hi) + 0.5 - center) / fscale
+        f = np.where(np.abs(x) < 1.0, 1.0 - np.abs(x), 0.0)
+        total = f.sum()
+        if total > 0:
+            w[o, lo:hi] = (f.astype(np.float32).astype(np.float64)
+                           / total).astype(np.float32)
+    return w
+
+
+def resize_plain(img: np.ndarray, dh: int, dw: int) -> np.ndarray:
+    """The library's resize in numpy: a horizontal then a vertical pass in
+    float32 (BLAS sums in its own order), + 0.5 and truncated to uint8."""
+    sh, sw = img.shape[:2]
+    tmp = np.einsum("os,ysc->yoc", resize_weights(sw, dw),
+                    img.astype(np.float32))
+    acc = np.einsum("oy,yxc->oxc", resize_weights(sh, dh), tmp)
+    return np.clip(acc + np.float32(0.5), 0, 255).astype(np.uint8)
+
+
+def normalize_plain(window: np.ndarray, mean, std) -> np.ndarray:
+    """crop_flip_normalize's arithmetic: (x * (1/255) - mean) * (1/std)."""
+    inv = np.float32(1.0) / np.asarray(std, np.float32)
+    return ((window.astype(np.float32) * np.float32(1.0 / 255.0)
+             - np.asarray(mean, np.float32)) * inv).astype(np.float32)
+
+
+def mean_ms(fn, n: int = TIMED_IMAGES) -> float:
+    fn()
+    tic = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - tic) / n * 1e3
+
+
+def phase_host_probe(smi) -> dict:
+    """7a: the host the card sits in: its cores, PIL, g++; the native
+    preprocessing library (bayesdll_tpu_torch/native) built from the
+    checkout, held against a numpy version of its arithmetic on seeded
+    images, and timed per 500 x 375 image beside PIL's eval transform."""
+    from bayesdll_tpu_torch import native
+    from bayesdll_tpu_torch.data import vision_transforms as vt
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__}"
+    except ImportError:
+        pil = None
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[:1]
+    tic = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - tic
+    print(f"phase 7a: host: nproc {os.cpu_count()}; "
+          f"{pil or 'PIL does not import'}; g++: "
+          f"{gxx[0] if gxx else 'none'}; native library "
+          f"build/native/{native.library_path().name} "
+          f"available={ok} ({build_s:.2f} s to build or load)", flush=True)
+    check(ok, "native.available() on the card's host")
+    mean, std = vt.IMAGENET_MEAN, vt.IMAGENET_STD
+    rng = np.random.RandomState(7)
+    level = 1.0 / (255.0 * float(std.min()))  # one uint8 step, normalised
+    errs = []
+    for hw, size in ((PETS_HW, 224), ((300, 280), 224), ((90, 70), 48)):
+        img = rng.randint(0, 256, hw + (3,), np.uint8)
+        top, left = 3, 5
+        for flip in (False, True):
+            got = native.crop_flip_normalize(img, top, left, size, flip,
+                                             mean, std)
+            win = img[top:top + size, left:left + size]
+            want = normalize_plain(win[:, ::-1] if flip else win, mean, std)
+            err = float(np.abs(got - want).max())
+            check(err <= 1e-5, f"crop_flip_normalize {hw} flip={flip}: {err}")
+            errs.append(err)
+        resize_to = int(size * 256 / 224)
+        got = native.eval_preprocess(img, mean, std, size=size,
+                                     resize_to=resize_to)
+        sh, sw = hw
+        rh, rw = ((native._lround(sh * resize_to / sw), resize_to)
+                  if sw < sh else (resize_to,
+                                   native._lround(sw * resize_to / sh)))
+        resized = resize_plain(img, rh, rw)
+        t, lft = (rh - size) // 2, (rw - size) // 2
+        want = normalize_plain(resized[t:t + size, lft:lft + size], mean, std)
+        diff = np.abs(got - want)
+        off = float((diff > 1e-5).mean())
+        check(float(diff.max()) <= level + 1e-5 and off < 0.01,
+              f"eval_preprocess {hw}: max {float(diff.max())}, {off:.4%} "
+              "off by a level")
+        errs.append(float(diff.max()))
+    img = rng.randint(0, 256, PETS_HW + (3,), np.uint8)
+    native_ms = mean_ms(lambda: native.eval_preprocess(img, mean, std))
+    line = (f"phase 7a: [{smi}] native eval_preprocess {native_ms:.3f} "
+            f"ms/image at {PETS_HW[1]}x{PETS_HW[0]} (resize 256 + crop 224 "
+            f"+ normalise, one thread, mean of {TIMED_IMAGES}); "
+            f"crop_flip_normalize within 1e-5 of numpy, eval_preprocess "
+            f"within one uint8 level ({level:.4f}) of numpy's resize: max abs "
+            f"err {max(errs):.3g}")
+    out = {"native_ms": native_ms, "max_abs_err": max(errs),
+           "has_pil": pil is not None}
+    if out["has_pil"]:
+        from PIL import Image
+        pimg = Image.fromarray(img)
+        out["pil_ms"] = mean_ms(lambda: vt.eval_transform(
+            pimg, use_native=False))
+        SCRATCH.mkdir(parents=True, exist_ok=True)
+        jpg = SCRATCH / f"probe_{os.getpid()}.jpg"
+        Image.fromarray(smooth_image(rng, PETS_HW)).save(jpg, quality=90)
+        out["decode_ms"] = mean_ms(lambda: vt.load_image(str(jpg)).load())
+        jpg.unlink()
+        line += (f"; PIL eval_transform {out['pil_ms']:.3f} ms/image "
+                 f"(native/PIL {native_ms / out['pil_ms']:.3f}); JPEG decode "
+                 f"{out['decode_ms']:.3f} ms/image")
+    print(line, flush=True)
+    return out
+
+
+def smooth_image(rng, hw) -> np.ndarray:
+    """A photo-like uint8 image: a colour gradient, a soft blob and mild
+    noise (JPEG sizes near a photo's)."""
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    c0, c1 = rng.uniform(40, 215, (2, 3)).astype(np.float32)
+    t = (xx / w)[..., None]
+    img = c0 * (1 - t) + c1 * t
+    cy, cx, r = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w, 0.2 * h
+    blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))[..., None]
+    img = img + blob * rng.uniform(-80, 80, 3).astype(np.float32)
+    img += rng.normal(0, 6, img.shape).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_cifar100(root: Path, seed: int, n_train: int, n_test: int):
+    """CIFAR-100's layout (cifar-100-python/{train,test}: b"data" [N, 3072]
+    uint8, channel-major, and b"fine_labels"), with images a conv net can
+    learn: class c is a grating of frequency pair c % 25 (1-5 cycles across
+    each axis) in colour c // 25 (four random colours), at a random phase,
+    plus N(0, 20) pixel noise."""
+    rng = np.random.RandomState(seed)
+    pairs = np.stack(np.meshgrid(np.arange(1, 6), np.arange(1, 6)),
+                     -1).reshape(25, 2)
+    colours = rng.uniform(-1, 1, (4, 3))
+    ii, jj = np.mgrid[0:32, 0:32]
+    base = root / "cifar-100-python"
+    base.mkdir(parents=True, exist_ok=True)
+    for split, n in (("train", n_train), ("test", n_test)):
+        y = rng.randint(0, 100, n)
+        data = np.empty((n, 3, 32, 32), np.uint8)
+        for s in range(0, n, 5000):
+            yc = y[s:s + 5000]
+            f = pairs[yc % 25]
+            phase = rng.uniform(0, 2 * np.pi, len(yc))
+            wave = np.sin(2 * np.pi * (f[:, 0, None, None] * ii
+                                       + f[:, 1, None, None] * jj) / 32
+                          + phase[:, None, None])
+            img = (128 + 70 * colours[yc // 25][:, :, None, None]
+                   * wave[:, None] + rng.normal(0, 20, (len(yc), 3, 32, 32)))
+            data[s:s + 5000] = np.clip(img, 0, 255)
+        with open(base / split, "wb") as fh:
+            pickle.dump({b"data": data.reshape(n, 3072),
+                         b"fine_labels": y.tolist()}, fh)
+
+
+def cut_cifar100(src: Path, dst: Path, n_train: int, n_test: int):
+    """The first n_train / n_test images of a CIFAR-100 folder, as another."""
+    (dst / "cifar-100-python").mkdir(parents=True, exist_ok=True)
+    for split, n in (("train", n_train), ("test", n_test)):
+        with open(src / "cifar-100-python" / split, "rb") as fh:
+            d = pickle.load(fh)
+        with open(dst / "cifar-100-python" / split, "wb") as fh:
+            pickle.dump({b"data": d[b"data"][:n],
+                         b"fine_labels": d[b"fine_labels"][:n]}, fh)
+
+
+def write_pets(root: Path, seed: int, n_trainval: int, n_test: int):
+    """oxford-iiit-pet/images/*.jpg at 500 x 375 with
+    annotations/{trainval,test}.txt, 37 breeds, written by 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+    base = root / "oxford-iiit-pet"
+    (base / "images").mkdir(parents=True, exist_ok=True)
+    (base / "annotations").mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for split, n in (("trainval", n_trainval), ("test", n_test)):
+        names = [f"breed_{i % 37}_{split}_{i}" for i in range(n)]
+        (base / "annotations" / f"{split}.txt").write_text("".join(
+            f"{nm} {i % 37 + 1} 1 1\n" for i, nm in enumerate(names)))
+        jobs += names
+
+    def one(k):
+        img = smooth_image(np.random.RandomState(seed * 100_003 + k),
+                           PETS_HW)
+        Image.fromarray(img).save(base / "images" / f"{jobs[k]}.jpg",
+                                  quality=90)
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(one, range(len(jobs))))
+
+
+@contextlib.contextmanager
+def watched_build(seen: dict, profile_epochs: bool = False):
+    """The CLI's runner and loaders, kept in `seen` as build_all returns
+    them, and the seconds of its cycle ends (the likelihood pass over the
+    training set and the cycle's checkpoint, inside the last epoch of a
+    cycle) in `seen["cycle_end_s"]`; with `profile_epochs`, each training
+    epoch runs under torch.profiler and `seen["epochs"]` gets its (host s,
+    device us)."""
+    from torch.profiler import ProfilerActivity, profile
+    from bayesdll_tpu_torch.cli import demo
+    build_all = demo.build_all
+
+    def watched(*a, **kw):
+        runner, loaders = build_all(*a, **kw)
+        seen["runner"], seen["loaders"] = runner, loaders
+        seen["cycle_end_s"] = 0.0
+        end_of_cycle = runner._end_of_cycle
+
+        def timed_end_of_cycle(cycle):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            end_of_cycle(cycle)
+            torch.cuda.synchronize()
+            seen["cycle_end_s"] += time.perf_counter() - tic
+
+        runner._end_of_cycle = timed_end_of_cycle
+        if profile_epochs:
+            one_epoch = runner.train_one_epoch
+            seen["epochs"] = []
+
+            def profiled(ep, loader):
+                torch.cuda.synchronize()
+                tic = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = one_epoch(ep, loader)
+                    torch.cuda.synchronize()
+                host = time.perf_counter() - tic
+                dev = sum(_self_device(e) for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA)
+                seen["epochs"].append((host, dev))
+                return out
+
+            runner.train_one_epoch = profiled
+        return runner, loaders
+
+    demo.build_all = watched
+    try:
+        yield seen
+    finally:
+        demo.build_all = build_all
+
+
+EPOCH_LINE = re.compile(r"\[Epoch (\d+)/\d+\] Training summary: loss = (\S+), "
+                        r"prediction error = (\S+) \(time: (\S+) seconds\)")
+
+
+def epoch_lines(log: str) -> list:
+    """(loss, training error, host seconds) of each epoch the CLI logged."""
+    return [(float(m[2]), float(m[3]), float(m[4]))
+            for m in EPOCH_LINE.finditer(log)]
+
+
+def run_entry(main, argv, seen, profile_epochs=False):
+    """An entry point's main on the card with every kernel's count set to 0
+    just before and read just after: (results, log, counts, seconds)."""
+    with watched_build(seen, profile_epochs):
+        reset_launches()
+        tic = time.perf_counter()
+        res, log = entry_main(main, argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - tic
+        counts = read_launches()
+    return res, log, counts, secs
+
+
+def loader_rate(loader) -> float:
+    """Images/s of one pass over a loader (host only, no training)."""
+    tic = time.perf_counter()
+    n = sum(len(y) for _, y, _ in loader)
+    return n / (time.perf_counter() - tic)
+
+
+def phase_pretrain_cifar100(smi, root: Path) -> dict:
+    """7b: ResNet-101 cSGHMC from scratch on the full-size CIFAR-100 fixture
+    through `python -m bayesdll_tpu_torch.cli.pretrain`'s main, per step
+    and fused (--fused_steps), cuDNN held to deterministic algorithms so
+    that the two may agree bit for bit."""
+    from bayesdll_tpu_torch.cli import pretrain
+    from bayesdll_tpu_torch.ops import kernels
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs, by_path = {}, {}
+    try:
+        for fused in (False, True):
+            label = "fused" if fused else "per step"
+            logdir = tempfile.mkdtemp(prefix="pretrain_", dir=SCRATCH)
+            seen = {}
+            try:
+                argv = PRETRAIN_ARGV + ["--data_root", str(root),
+                                        "--log_dir", logdir]
+                res, log, counts, secs = run_entry(
+                    pretrain.main, argv + (["--fused_steps"] if fused else []),
+                    seen)
+            finally:
+                shutil.rmtree(logdir, ignore_errors=True)
+            runner = seen["runner"]
+            train = seen["loaders"][0]
+            cfg = runner.cfg
+            check((cfg.method, cfg.backbone, cfg.dataset, cfg.batch_size,
+                   cfg.lr, cfg.momentum, cfg.num_classes, cfg.device) ==
+                  ("csghmc", "resnet101", "cifar100", 256, 0.1, 0.9, 100,
+                   "cuda"), f"pretrain defaults: {cfg}")
+            check(runner.target.n_params == RESNET101_CIFAR100_PARAMS,
+                  f"resnet101, 100 classes: {runner.target.n_params}")
+            steps = cfg.epochs * len(train)
+            want = {k: 0 for k in kernels.KERNELS}
+            want["csghmc_update"] = steps
+            check(counts == want and runner.bi == steps,
+                  f"pretrain {label}: launches {counts}, want {want}")
+            epochs = epoch_lines(log)
+            check(len(epochs) == cfg.epochs and all(
+                math.isfinite(loss) for loss, _, _ in epochs),
+                f"pretrain {label}: finite training losses {epochs}")
+            check("nll" in res and math.isfinite(res["nll"]),
+                  f"pretrain {label}: finite test NLL {res.get('nll')}")
+            runs[label] = dict(res=res, epochs=epochs, secs=secs,
+                               cycle_end_s=seen["cycle_end_s"],
+                               steps=len(train), runner=runner, train=train,
+                               theta=runner.state.theta.clone(),
+                               v=runner.state.v.clone(),
+                               stats=tree_clone(runner.net_state))
+            by_path[f"csghmc resnet101 cifar100 {label}"] = counts
+            if not fused:
+                runs[label]["loader_aug"] = loader_rate(train.chain_view(0, 9))
+                runs[label]["loader_plain"] = loader_rate(train.eval_view())
+            print(f"phase 7b: [{smi}] pretrain {label}: resnet101 cSGHMC "
+                  f"cifar100 ({len(train) * cfg.batch_size} of "
+                  f"{train.num_examples} training images an epoch, "
+                  f"{steps} steps) in {secs:.2f} s; launches {counts}; "
+                  f"nll={res['nll']:.6g} test_err={res['test_err']:.4f}",
+                  flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = runs["per step"], runs["fused"]
+    for key in ("theta", "v"):
+        check(torch.equal(a[key], b[key]), f"pretrain fused {key} bitwise: "
+              f"max abs diff {float((a[key] - b[key]).abs().max())}")
+    check(all(torch.equal(x, y) for x, y in zip(tree_leaves(a["stats"]),
+                                                tree_leaves(b["stats"]))),
+          "pretrain fused batch_stats bitwise")
+    check(a["res"]["train_losses"] == b["res"]["train_losses"] and
+          a["res"]["nll"] == b["res"]["nll"],
+          f"pretrain fused losses bitwise: {a['res']['train_losses']} vs "
+          f"{b['res']['train_losses']}")
+    # the busy share: the device time of a profiled window of the run's own
+    # steps (augmented batches, copied to the card), cuDNN deterministic as
+    # in the run, over each epoch's host time per step (the cycle end, in
+    # the last epoch, taken out)
+    for label, run in runs.items():
+        runner = run["runner"]
+        xs, ys = [], []
+        for x, y, _ in run["train"].chain_view(0, 3):
+            xs.append(x)
+            ys.append(y)
+            if len(xs) == PROFILED_STEPS:
+                break
+        xs = torch.from_numpy(np.stack(xs)).cuda()
+        ys = torch.from_numpy(np.stack(ys)).cuda()
+        secs = [t for _, _, t in run["epochs"]]
+        secs[-1] -= run["cycle_end_s"]
+        host_ms = [t / run["steps"] * 1e3 for t in secs]
+        torch.backends.cudnn.deterministic = True
+        try:
+            dev_us = phase_profile(
+                smi, f"csghmc resnet101 cifar100 {label}", runner, xs, ys,
+                host_ms[-1], "csghmc_update", fused=label == "fused")
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        bs = runner.cfg.batch_size
+        busy = ["not measured" if dev_us is None else
+                f"{dev_us / (ms * 1e3):.1%}" for ms in host_ms]
+        per_epoch = "; ".join(
+            f"epoch {ep}: {ms:.2f} ms/step, {bs / ms * 1e3:.0f} images/s, "
+            f"loss {loss:.4f}, training error {err:.4f}, busy {b}"
+            for ep, (ms, b, (loss, err, _)) in enumerate(zip(
+                host_ms, busy, run["epochs"])))
+        print(f"phase 7b: [{smi}] pretrain {label} per epoch (host clock, "
+              f"data loading and augmentation included, the cycle end's "
+              f"{run['cycle_end_s']:.2f} s (likelihood pass over the training "
+              f"set, nst=5, and the cycle's checkpoint) taken out of the last;"
+              f" busy = profiled device us/step over the epoch's ms/step): "
+              f"{per_epoch}", flush=True)
+        if label == "per step":
+            # the same steps with cuDNN's default (possibly nondeterministic)
+            # algorithms, as the CLI runs them
+            ms = host_s_per_step(runner, xs, ys, "pretrain default")[0] * 1e3
+            phase_profile(smi, "csghmc resnet101 cifar100 per step, cuDNN "
+                          "default algorithms, batches on the card", runner,
+                          xs, ys, ms, "csghmc_update")
+    print(f"phase 7b: [{smi}] fused equals per step bit for bit (θ, v, "
+          f"batch_stats, training losses, NLL; cuDNN deterministic); CIFAR "
+          f"train loader alone, batch 256, one thread: "
+          f"{runs['per step']['loader_aug']:.0f} images/s with crop and "
+          f"flip, {runs['per step']['loader_plain']:.0f} images/s without",
+          flush=True)
+    return by_path
+
+
+def phase_cifar_reference(root: Path):
+    """7b: the mini ResNet (stages 1,1,1,1) on the CIFAR-100 fixture cut to
+    256 training images, cSGHMC at nd = 0 for 2 epochs through prepare and
+    `train`, on the card against the same run on the CPU, fp32 with TF32
+    off; bound as phase 3b's ResNet (gap <= 2% of the walk, >= 99% of
+    elements within rtol 1e-4 atol 1e-5), the test NLL within rtol 1e-4."""
+    from bayesdll_tpu_torch.config import Config
+    from bayesdll_tpu_torch.core.prior import make_flat_target
+    from bayesdll_tpu_torch.data import prepare
+    from bayesdll_tpu_torch.methods import get_runner_cls
+    from bayesdll_tpu_torch.models.resnet import ResNet
+    cut = root.parent / "cifar_cut"
+    cut_cifar100(root, cut, *CIFAR_CUT)
+    out = {}
+    for device in REF_DEVICES:
+        cfg = Config(method="csghmc", hparams=dict(HP, nd="0.0", nst="0"),
+                     dataset="cifar100", backbone="resnet_mini", epochs=2,
+                     batch_size=64, lr=1e-3, num_cycles=1, seed=0,
+                     val_heldout=0.02, data_root=str(cut), device=device)
+        *loaders, nd = prepare(cfg)
+        target, theta, ns = make_flat_target(
+            ResNet(MINI["stages"], 100), nd_size=nd, num_classes=100,
+            rng=torch.Generator().manual_seed(0), has_batch_stats=True,
+            device=device)
+        start = {"theta": theta.clone(), "v": torch.zeros_like(theta)}
+        runner = get_runner_cls("csghmc")(target, theta, ns, cfg)
+        res = runner.train(*loaders)
+        out[device] = dict(theta=runner.state.theta, v=runner.state.v,
+                           nll=res["nll"], steps=runner.bi)
+    ref, card = (out[d] for d in REF_DEVICES)
+    shown = []
+    for key in ("theta", "v"):
+        p, r, s0 = (flat_cpu(t) for t in (card[key], ref[key], start[key]))
+        walked, gap = float((r - s0).norm()), float((p - r).norm())
+        close = float(((p - r).abs() <= 1e-5 + 1e-4 * r.abs()).double().mean())
+        check(walked > 0 and gap <= 2e-2 * walked and close >= 0.99,
+              f"cifar mini resnet card vs CPU {key}: gap {gap:.3g}, walked "
+              f"{walked:.3g}, {close:.4%} close")
+        shown.append(f"{key} gap/walked {gap / walked:.3g}, {close:.4%} of "
+                     "elements within rtol 1e-4 atol 1e-5")
+    rel = abs(card["nll"] - ref["nll"]) / abs(ref["nll"])
+    check(math.isfinite(card["nll"]) and rel <= 1e-4,
+          f"cifar mini resnet NLL card {card['nll']} vs CPU {ref['nll']}")
+    print(f"phase 7b: cifar100 fixture cut to {CIFAR_CUT[0]} + {CIFAR_CUT[1]}"
+          f" images, ResNet stages (1,1,1,1) cSGHMC nd=0, {card['steps']} "
+          f"steps of 64 with crop and flip, fp32, card vs CPU: "
+          f"{'; '.join(shown)}; test NLL {card['nll']:.6g} vs "
+          f"{ref['nll']:.6g} (rel {rel:.3g})", flush=True)
+
+
+def phase_demo_vision(smi, root: Path) -> dict:
+    """7c: the Pets-layout fixture through `python -m
+    bayesdll_tpu_torch.cli.demo_vision`'s main (pets, resnet101, batch
+    128), fp32 then bf16, each epoch profiled; and ImageFileLoader alone."""
+    from bayesdll_tpu_torch.cli import demo_vision
+    from bayesdll_tpu_torch.config import Config
+    from bayesdll_tpu_torch.data import prepare
+    from bayesdll_tpu_torch.ops import kernels
+    cfg = Config(dataset="pets", backbone="resnet101", batch_size=128,
+                 data_root=str(root), device="cuda")
+    train, _, test, nd = prepare(cfg)
+    rates = {"train": loader_rate(train), "eval": loader_rate(test)}
+    print(f"phase 7c: [{smi}] ImageFileLoader alone, {train.num_threads} "
+          f"threads, batch 128, {PETS_HW[1]}x{PETS_HW[0]} JPEGs: train "
+          f"(decode, random resized crop, flip, rotation) "
+          f"{rates['train']:.1f} images/s over {len(train) * 128} images, "
+          f"eval (decode, native resize and crop) {rates['eval']:.1f} "
+          f"images/s over {test.num_examples}", flush=True)
+    by_path = {}
+    for dtype in ("float32", "bfloat16"):
+        logdir = tempfile.mkdtemp(prefix="vision_", dir=SCRATCH)
+        seen = {}
+        try:
+            res, log, counts, secs = run_entry(
+                demo_vision.main, VISION_ARGV + [
+                    "--data_root", str(root), "--log_dir", logdir,
+                    "--compute_dtype", dtype, "--device", "cuda"],
+                seen, profile_epochs=True)
+        finally:
+            shutil.rmtree(logdir, ignore_errors=True)
+        runner = seen["runner"]
+        steps = runner.cfg.epochs * len(seen["loaders"][0])
+        want = {k: 0 for k in kernels.KERNELS}
+        want["csghmc_update"] = steps
+        check(counts == want, f"demo_vision {dtype}: launches {counts}")
+        check((runner.cfg.dataset, runner.cfg.backbone,
+               runner.cfg.num_classes) == ("pets", "resnet101", 37),
+              f"demo_vision defaults: {runner.cfg}")
+        epochs = epoch_lines(log)
+        check(len(epochs) == 2 and all(math.isfinite(e[0]) for e in epochs)
+              and math.isfinite(res.get("nll", math.nan)),
+              f"demo_vision {dtype}: finite losses {epochs} and NLL")
+        bs = runner.cfg.batch_size
+        per_epoch = "; ".join(
+            f"epoch {ep}: {host:.2f} s, {n / host:.1f} images/s, busy "
+            f"{dev / (host * 1e6):.1%}"
+            for ep, ((host, dev), n) in enumerate(zip(
+                seen["epochs"], [len(seen["loaders"][0]) * bs] * 2)))
+        by_path[f"csghmc resnet101 pets {dtype}"] = counts
+        print(f"phase 7c: [{smi}] demo_vision {dtype}: {nd} training images,"
+              f" {steps} steps of {bs} in {secs:.2f} s in all; launches "
+              f"{counts}; nll={res['nll']:.6g} test_err={res['test_err']:.4f}"
+              f"; per epoch (profiled, loader included; the last holds the "
+              f"cycle end's {seen['cycle_end_s']:.2f} s, a likelihood pass "
+              f"over the training images and a checkpoint): {per_epoch}",
+              flush=True)
+    return by_path
+
+
+def phase_real_data(smi) -> dict:
+    """Phase 7: the real-data paths (7a host and native library, 7b CIFAR-100
+    through the pretraining CLI, 7c Pets through demo_vision where PIL
+    imports), on fixtures written from seed 0 into a temporary directory
+    under build/, deleted after."""
+    probe = phase_host_probe(smi)
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="real_data_", dir=SCRATCH))
+    try:
+        tic = time.perf_counter()
+        write_cifar100(tmp / "cifar", 0, *CIFAR_N)
+        print(f"phase 7b: CIFAR-100 fixture ({CIFAR_N[0]:,} + {CIFAR_N[1]:,} "
+              f"images, 100 grating classes) written in "
+              f"{time.perf_counter() - tic:.1f} s", flush=True)
+        by_path = phase_pretrain_cifar100(smi, tmp / "cifar")
+        free_device()
+        phase_cifar_reference(tmp / "cifar")
+        if not probe["has_pil"]:
+            print("phase 7c: not run: PIL does not import on this machine, so "
+                  "no JPEG can be written or decoded here; the Pets and "
+                  "ImageNet paths are held on the CPU by "
+                  "tests/test_torch_vision_data.py", flush=True)
+        else:
+            tic = time.perf_counter()
+            write_pets(tmp / "pets", 0, *PETS_N)
+            print(f"phase 7c: Pets fixture ({PETS_N[0]} trainval + "
+                  f"{PETS_N[1]} test JPEGs at {PETS_HW[1]}x{PETS_HW[0]}, 37 "
+                  f"breeds) written in {time.perf_counter() - tic:.1f} s",
+                  flush=True)
+            by_path.update(phase_demo_vision(smi, tmp / "pets"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_device()
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3165,6 +3774,8 @@ def main() -> int:
     del vit, vit_loaders
     free_device()
     phase_vit_b_16(smi, cfg, nd_size, sched, xs, ys)
+    free_device()
+    by_path.update(phase_real_data(smi))
     print(f"chip_smoke: [{smi}] every phase passed in "
           f"{time.perf_counter() - tic0:.1f} s", flush=True)
 

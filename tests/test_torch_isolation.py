@@ -1,7 +1,6 @@
-"""The PyTorch port, chip_smoke.py, resnet_sweep.py and vit_cast_forms.py
-stand alone: they
-import nothing of JAX, flax or the JAX package (the machine with
-the card has none of them)."""
+"""The PyTorch port, chip_smoke.py, resnet_sweep.py, vit_cast_forms.py and
+draw_sweep.py stand alone: they import nothing of JAX, flax or the JAX
+package.  The CIFAR path runs without PIL."""
 
 import ast
 import json
@@ -15,7 +14,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "bayesdll_tpu")
 SOURCES = sorted((ROOT / "bayesdll_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "resnet_sweep.py", ROOT / "vit_cast_forms.py"]
+    ROOT / "chip_smoke.py", ROOT / "resnet_sweep.py", ROOT / "vit_cast_forms.py",
+    ROOT / "draw_sweep.py"]
 
 
 def _imported_roots(path: Path):
@@ -53,7 +53,10 @@ def test_importing_the_port_loads_no_jax():
         "import bayesdll_tpu_torch.models.vit\n"
         "import bayesdll_tpu_torch.models.convert, bayesdll_tpu_torch.models.layers\n"
         "import bayesdll_tpu_torch.interop, chip_smoke, resnet_sweep\n"
-        "import vit_cast_forms\n"
+        "import vit_cast_forms, draw_sweep\n"
+        "import bayesdll_tpu_torch.data.image_loader, bayesdll_tpu_torch.native\n"
+        "import bayesdll_tpu_torch.cli.pretrain\n"
+        "import bayesdll_tpu_torch.cli.demo_vision, bayesdll_tpu_torch.cli.demo_mnist\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         f"    if m.split('.')[0] in {FORBIDDEN!r})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -88,3 +91,30 @@ def test_vit_cast_forms_refuses_to_run_without_a_card():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert "ms/step" not in out.stdout
+
+
+def test_cifar_path_needs_no_pil(tmp_path):
+    """With PIL unimportable (as it may be on a machine with the card), the
+    data package and the pretraining CLI import, and `prepare` serves
+    CIFAR-10 with its crop-and-flip augmentation."""
+    from tests.torch_data_fixtures import write_cifar
+    write_cifar(tmp_path, "cifar10", n_train=40, n_test=10, seed=0)
+    code = (
+        "import sys\n"
+        "sys.modules['PIL'] = None\n"
+        "import bayesdll_tpu_torch.data, bayesdll_tpu_torch.cli.pretrain\n"
+        "from bayesdll_tpu_torch.config import Config\n"
+        "cfg = Config(dataset='cifar10', backbone='resnet50', batch_size=8,\n"
+        f"             data_root={str(tmp_path)!r}, device='cpu')\n"
+        "train, val, test, nd = bayesdll_tpu_torch.data.prepare(cfg)\n"
+        "x, y, valid = next(iter(train))\n"
+        "assert train.augment_fn is not None and x.shape == (8, 32, 32, 3)\n"
+        "try:\n"
+        "    import PIL\n"
+        "except ImportError:\n"
+        "    print('no PIL', nd, len(list(test)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["no", "PIL", "36", "2"]
