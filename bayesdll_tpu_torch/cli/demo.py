@@ -46,8 +46,16 @@ which reads the step from the card.
 
 --num_chains C > 1 wraps the runner in parallel/runner.py::MultiChainRunner:
 C chains with their own jitter, data order and seed, a chain-mixture
-predictive, and `chains_ckpt.pkl`, which --resume takes.  --data_parallel
-and --fsdp need several cards and are not ported.
+predictive, and `chains_ckpt.pkl`, which --resume takes; with
+--ckpt_backend orbax the checkpoint is the torch.distributed.checkpoint
+directory `chains_ckpt_orbax` (the JAX package's name; not orbax's format),
+and --resume takes that directory.  --data_parallel and --fsdp need several
+cards and are not ported.
+
+--profile_dir writes a torch.profiler trace of `train` (the card's kernels
+included) that TensorBoard and Perfetto load; --use_wandb logs the run's
+config and its final results to wandb where the package is installed, and
+does nothing where it is not.
 
 With perform_cold_restarts=1, Adam-cSGHMC and cSGHMC-FS re-draw θ at each
 cycle boundary from the backbone's own initialisers (`make_reinit_fn`).
@@ -132,7 +140,19 @@ def parse_args(argv=None):
                    help="state sharding over cards (not ported)")
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint path to resume training from (ckpt.pkl, "
-                        "or chains_ckpt.pkl with --num_chains)")
+                        "or with --num_chains chains_ckpt.pkl or the "
+                        "chains_ckpt_orbax directory)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of training here")
+    p.add_argument("--ckpt_backend", type=str, default="auto",
+                   choices=["auto", "pickle", "orbax"],
+                   help="multi-chain checkpoint backend: orbax = the "
+                        "torch.distributed.checkpoint directory; auto = "
+                        "that directory when a process group spans "
+                        "processes, pickle otherwise")
+    p.add_argument("--use_wandb", action="store_true")
+    p.add_argument("--wandb_project", type=str, default="bayesdll-tpu")
+    p.add_argument("--wandb_name", type=str, default=None)
     return p.parse_args(argv)
 
 
@@ -215,7 +235,8 @@ def main(argv=None):
         compute_dtype=args.compute_dtype, remat=args.remat,
         remat_policy=args.remat_policy,
         fused_attention=bool(args.fused_attention),
-        gelu_approx=bool(args.gelu_approx), device=args.device)
+        gelu_approx=bool(args.gelu_approx), device=args.device,
+        ckpt_backend=args.ckpt_backend)
 
     workdir = os.path.join(cfg.log_dir, cfg.run_name())
     os.makedirs(workdir, exist_ok=True)
@@ -228,14 +249,26 @@ def main(argv=None):
         logger.addHandler(h)
     logger.info("Args: %s", vars(args))
 
+    from bayesdll_tpu_torch.utils import profiling, wandb_compat
+
+    if args.use_wandb:
+        wandb_compat.init(project=args.wandb_project,
+                          name=args.wandb_name or cfg.run_name(),
+                          config=vars(args))
+
     runner, loaders = build_all(cfg, logger, workdir=workdir)
     start_epoch = 0
     if args.resume is not None:
         start_epoch = runner.load_ckpt(args.resume) + 1
         logger.info("Resumed from %s at epoch %d", args.resume, start_epoch)
-    results = runner.train(*loaders, start_epoch=start_epoch)
-    logger.info("Final results: %s", results)
-    return results
+    try:
+        with profiling.trace(args.profile_dir):
+            results = runner.train(*loaders, start_epoch=start_epoch)
+        logger.info("Final results: %s", results)
+        wandb_compat.summary(results)
+        return results
+    finally:
+        wandb_compat.finish()
 
 
 if __name__ == "__main__":

@@ -60,6 +60,10 @@ class Config:
     fused_attention: bool = True  # F.scaled_dot_product_attention core
     gelu_approx: bool = False  # tanh GELU; exact erf by default
     device: str = "cuda"
+    # multi-chain checkpoint backend: 'auto' = the DCP directory ('orbax',
+    # utils/checkpoint.py) when a process group spans processes, pickle
+    # otherwise
+    ckpt_backend: str = "auto"  # auto | pickle | orbax
 
     def backbone_kw(self) -> dict:
         """The keyword arguments of `create_backbone` this config sets."""

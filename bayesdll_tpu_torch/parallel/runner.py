@@ -14,12 +14,17 @@ Wraps a single-chain runner of any of the eleven methods with:
     Laplace's best-val iterate and stage-2 Fisher, cSGHMC-FS's snapshots
     and their model average;
   * BaseRunner's best-checkpoint, calibration and artifact protocol, and a
-    pickle checkpoint `chains_ckpt.pkl` that resumes bit for bit.
+    checkpoint that resumes bit for bit: the pickle `chains_ckpt.pkl`, or
+    with `ckpt_backend="orbax"` the directory `chains_ckpt_orbax`, which
+    is a `torch.distributed.checkpoint` (DCP) directory, not orbax's
+    (utils/checkpoint.py), beside its `chains_ckpt_orbax.meta.pkl`.  The
+    JAX package's names stay, so one command line and one --resume path
+    serve both packages.
 
 Chain c's draws come from its own seed (trainer.seeds[c]): its eval and
 likelihood draws are those of a single-chain run with that seed.  Every
-chain forwards with its own net_state.  The sharded orbax checkpoint and
-multi-host runs are not ported (ROADMAP.md queue 1, 'Multi-device').
+chain forwards with its own net_state.  Multi-host runs are not ported
+(ROADMAP.md queue 1, 'Multi-device').
 """
 
 from __future__ import annotations
@@ -30,12 +35,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bayesdll_tpu_torch.core import rng
 from bayesdll_tpu_torch.methods import base
 from bayesdll_tpu_torch.methods.cyclical_base import gmm_weights_of
-from bayesdll_tpu_torch.parallel.chains import (MULTI_DEVICE,
-                                                MultiChainTrainer, clone_tree)
+from bayesdll_tpu_torch.parallel.chains import MultiChainTrainer, clone_tree
+from bayesdll_tpu_torch.utils import checkpoint as ckpt
 
 
 class MultiChainRunner:
@@ -55,6 +61,9 @@ class MultiChainRunner:
         self._is_cyclical = hasattr(runner, "_ensure_sched")
         self.chain_cycle_stats = []  # chain -> cycle -> stats
         self._train_loader = None
+        # the shared train loader's RandomState at the checkpoint, which
+        # load_ckpt hands to the next `train` (see `_meta`)
+        self._loader_rng = None
 
     # BaseRunner's best-eval, artifact and calibration protocol, as is
     _eval_and_maybe_save = base.BaseRunner._eval_and_maybe_save
@@ -66,6 +75,9 @@ class MultiChainRunner:
     def train(self, train_loader, val_loader, test_loader, start_epoch=0):
         cfg, logger, r, tr = self.cfg, self.logger, self.runner, self.trainer
         self._train_loader = train_loader
+        if self._loader_rng is not None:
+            train_loader._rng.set_state(self._loader_rng)
+            self._loader_rng = None
         if self._is_cyclical:
             r._ensure_sched(len(train_loader))
             r._train_loader = train_loader
@@ -228,52 +240,122 @@ class MultiChainRunner:
 
     # ---- checkpoint -------------------------------------------------------------
 
+    def _use_orbax(self) -> bool:
+        """The checkpoint backend: `ckpt_backend="orbax"` forces the DCP
+        directory and "pickle" the pickle; the default "auto" picks the
+        directory when a process group spans processes, where the pickle
+        would gather every chain's state into one process's file."""
+        if self.cfg.ckpt_backend == "auto":
+            return dist.is_initialized() and dist.get_world_size() > 1
+        return self.cfg.ckpt_backend == "orbax"
+
+    def _meta(self, ep: int) -> dict:
+        """What a resume needs beside the chains' tensors.  The chains'
+        batches come from `chain_view(c, epoch)`, a function of chain and
+        epoch; the cycle ends' likelihood passes iterate the shared train
+        loader, whose RandomState each pass advances (its shuffle, with
+        drop_last, picks the examples), so its state is saved too: a
+        resumed run's passes then see the uninterrupted run's examples."""
+        tr = self.trainer
+        rng_ = getattr(self._train_loader, "_rng", None)
+        return {"epoch": ep, "bi": tr.bi, "method": self.runner.method_name,
+                "n_chain": tr.n_chain, "seeds": tr.seeds,
+                "chain_cycle_stats": self.chain_cycle_stats,
+                "train_loader_rng": None if rng_ is None else rng_.get_state()}
+
+    def _check_meta(self, meta: dict):
+        """The checkpoint's chains are the runner's, before a tensor is
+        read."""
+        tr = self.trainer
+        if meta["n_chain"] != tr.n_chain:
+            raise ValueError(
+                f"checkpoint has {meta['n_chain']} chains, runner has "
+                f"{tr.n_chain}; restart with matching --num_chains")
+        if meta["seeds"] != tr.seeds:
+            raise ValueError("checkpoint's chain seeds differ from the "
+                             "runner's; restart with the run's --seed")
+
+    def _loaded(self, meta: dict, path: str) -> int:
+        tr = self.trainer
+        tr.bi = self.runner.bi = int(meta.get("bi", 0))
+        self.chain_cycle_stats = meta.get("chain_cycle_stats", [])
+        self._loader_rng = meta.get("train_loader_rng")
+        self.logger.info("Multi-chain checkpoint loaded from %s (epoch %d, "
+                         "step %d)", path, meta["epoch"], tr.bi)
+        return meta["epoch"]
+
     def save_ckpt(self, ep: int, fname: str = "chains_ckpt.pkl"):
         """Every chain's sampler state and net_state, the step counter and
-        the per-chain GMM registries: what a bit-identical resume needs."""
+        the per-chain GMM registries: what a bit-identical resume needs.
+        Goes to the DCP directory when `_use_orbax()`, else to `fname`."""
         if not self.workdir:
             return None
+        if self._use_orbax():
+            return self._save_ckpt_orbax(ep)
         tr = self.trainer
         path = os.path.join(self.workdir, fname)
         payload = {
-            "epoch": ep,
-            "bi": tr.bi,
-            "method": self.runner.method_name,
-            "n_chain": tr.n_chain,
-            "seeds": tr.seeds,
+            **self._meta(ep),
             "states": [base.to_host(s) for s in tr.states],
             "net_states": [base.to_host(ns) for ns in tr.net_states],
-            "chain_cycle_stats": self.chain_cycle_stats,
         }
         with open(path, "wb") as f:
             pickle.dump(payload, f)
         self.logger.info("Multi-chain checkpoint saved at %s", path)
         return path
 
+    def _save_ckpt_orbax(self, ep: int):
+        """The chains' states and net_states as the DCP directory
+        `<workdir>/chains_ckpt_orbax` (the JAX package's name for its orbax
+        directory), their counters included; the rest of `_meta` and the
+        counters again in the sidecar `chains_ckpt_orbax.meta.pkl`, which
+        rank 0 (or the only process) writes."""
+        tr = self.trainer
+        path = ckpt.save(os.path.join(self.workdir, "chains_ckpt_orbax"),
+                         {"states": tr.states, "net_states": tr.net_states})
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            meta = {**self._meta(ep),
+                    "counters": [ckpt.host_values(s) for s in tr.states]}
+            with open(path + ".meta.pkl", "wb") as f:
+                pickle.dump(meta, f)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
+        self.logger.info("Multi-chain DCP checkpoint saved at %s", path)
+        return path
+
+    def _load_ckpt_orbax(self, path: str) -> int:
+        """Restore a `chains_ckpt_orbax` directory into the chains' own
+        tensors, in place (a fused chain's captured graphs then replay on
+        the loaded values); the sidecar is read and checked first."""
+        tr = self.trainer
+        path = os.path.abspath(path)
+        with open(path + ".meta.pkl", "rb") as f:
+            meta = pickle.load(f)
+        self._check_meta(meta)
+        restored = ckpt.restore(path, {"states": tr.states,
+                                       "net_states": tr.net_states})
+        counters = [ckpt.host_values(s) for s in restored["states"]]
+        if counters != meta["counters"]:
+            raise ValueError(f"{path}: the directory's counters {counters} "
+                             f"are not its sidecar's {meta['counters']}")
+        tr.states = restored["states"]
+        tr.net_states = restored["net_states"]
+        return self._loaded(meta, path)
+
     def load_ckpt(self, path: str) -> int:
-        """Restore a `chains_ckpt.pkl`; returns the epoch it was saved at."""
+        """Restore a `chains_ckpt.pkl` or a `chains_ckpt_orbax` directory;
+        returns the epoch it was saved at."""
         if os.path.isdir(path):
-            raise NotImplementedError(
-                f"orbax checkpoint directory {path}: {MULTI_DEVICE}")
+            return self._load_ckpt_orbax(path)
         with open(path, "rb") as f:
             payload = pickle.load(f)
+        self._check_meta(payload)
         tr = self.trainer
-        if payload["n_chain"] != tr.n_chain:
-            raise ValueError(
-                f"checkpoint has {payload['n_chain']} chains, runner has "
-                f"{tr.n_chain}; restart with matching --num_chains")
-        if payload["seeds"] != tr.seeds:
-            raise ValueError("checkpoint's chain seeds differ from the "
-                             "runner's; restart with the run's --seed")
         tr.states = [base.from_host(t, s, self.device)
                      for t, s in zip(tr.states, payload["states"])]
         tr.net_states = [base.from_host(t, s, self.device)
                          for t, s in zip(tr.net_states, payload["net_states"])]
-        tr.bi = self.runner.bi = int(payload.get("bi", 0))
-        self.chain_cycle_stats = payload.get("chain_cycle_stats", [])
-        self.logger.info("Multi-chain checkpoint loaded from %s (epoch %d, "
-                         "step %d)", path, payload["epoch"], tr.bi)
-        return payload["epoch"]
+        return self._loaded(payload, path)
 
     # ---- the combined predictive ----------------------------------------------
 

@@ -1,0 +1,109 @@
+"""Directory checkpoints through `torch.distributed.checkpoint` (DCP), the
+port's counterpart of bayesdll_tpu.utils.checkpoint, which saves through
+orbax's `StandardCheckpointer`.
+
+The default runner checkpoints are single-file pickles.  This module saves
+a sampler state as a DCP directory instead: the tensors in DCP's shard
+files, the state's other values (the host counters: a state's `step` and
+Adam's `t`, the moments' `cnt` or `n`) as DCP's pickled objects.
+
+Usage:
+    from bayesdll_tpu_torch.utils import checkpoint as ckpt
+    ckpt.save(path_dir, runner.state)
+    state = ckpt.restore(path_dir, runner.state)  # loads into its tensors
+
+A state is a dataclass, a dict, a list or tuple of them, or a tensor, nested
+as the runners nest them.  DCP takes nested dicts with string keys, so a
+dataclass goes to it as the dict of its fields and a list as a dict keyed
+by position; `restore` rebuilds the template's structure from what DCP
+loaded.
+
+Both calls run in one process without a process group (DCP then reads and
+writes every tensor itself).  A failed save or load raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import shutil
+import warnings
+
+import torch
+import torch.distributed.checkpoint as dcp
+
+# DCP warns on every call made without a process group
+_NO_GROUP = "torch.distributed is disabled, unavailable or uninitialized"
+
+
+def _to_tree(obj):
+    """`obj` as nested dicts with string keys, tensors and other values as
+    they are."""
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _to_tree(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, dict):
+        return {str(k): _to_tree(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return {str(i): _to_tree(v) for i, v in enumerate(obj)}
+    return obj
+
+
+def _from_tree(template, tree):
+    """`template`'s structure with its tensors from `tree` (the template's
+    own, loaded in place) and its other values from `tree`."""
+    if dataclasses.is_dataclass(template):
+        return dataclasses.replace(template, **{
+            f.name: _from_tree(getattr(template, f.name), tree[f.name])
+            for f in dataclasses.fields(template)})
+    if isinstance(template, dict):
+        return {k: _from_tree(v, tree[str(k)]) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_from_tree(v, tree[str(i)])
+                              for i, v in enumerate(template))
+    return tree
+
+
+def host_values(state) -> dict:
+    """The values of `state` that are not tensors (its counters), nested as
+    in DCP's tree; subtrees without one are left out."""
+    out = {}
+    for k, v in _to_tree(state).items():
+        if isinstance(v, dict):
+            v = host_values(v)
+            if v:
+                out[k] = v
+        elif not isinstance(v, torch.Tensor):
+            out[k] = v
+    return out
+
+
+def save(directory: str, state) -> str:
+    """Save a sampler state to a DCP checkpoint directory; returns its
+    absolute path.  The write goes to a sibling directory that replaces
+    `directory` once it is complete, so an earlier checkpoint there is
+    replaced whole, and none of its files is left to be read back.  DCP's
+    file writer syncs each file it writes (its default), so the data is on
+    disk when this returns; the pickle checkpoints are not synced."""
+    directory = os.path.abspath(directory)
+    tmp = directory + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=_NO_GROUP)
+        dcp.save(_to_tree(state), checkpoint_id=tmp)
+    shutil.rmtree(directory, ignore_errors=True)
+    os.replace(tmp, directory)
+    return directory
+
+
+def restore(directory: str, template):
+    """Restore a state saved with save().  `template` is the live state (or
+    a fresh one of the same structure, shapes and dtypes): its tensors are
+    loaded in place, on their own devices, and the result holds them, with
+    the saved counters and other values in the template's structure."""
+    directory = os.path.abspath(directory)
+    tree = _to_tree(template)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=_NO_GROUP)
+        dcp.load(tree, checkpoint_id=directory)
+    return _from_tree(template, tree)

@@ -93,6 +93,23 @@ Phases, one line each:
      where PIL imports, a Pets-layout fixture (512 + 256 JPEGs at 500x375)
      through demo_vision's main (pets, resnet101, batch 128), fp32 and bf16,
      each epoch profiled, and ImageFileLoader's images/s alone.
+  8. checkpoints and traces, run after the ViT-L/32 path and before the
+     fused ViT phases hold their graph pools: (a) the trained ViT-L/32
+     cSGHMC state (4.89 GB) through utils/checkpoint.py's DCP directory
+     and through the pickle payload, each restored on the card bitwise
+     with its counts, one more step from the original and from each
+     restore bitwise equal (csghmc_update once each), the seconds, GB/s
+     and bytes on disk of each save and restore, the files deleted; (b)
+     2-chain cSGHMC on the full-width MLP through the CLI with
+     --ckpt_backend orbax, 1 epoch and a --resume from chains_ckpt_orbax
+     to 2 epochs bitwise equal to the uninterrupted run (states, counts,
+     bi, cycle registries), the pickle's resume bitwise equal to it, per
+     step and fused, launches = steps x chains, and epoch 1 again in the
+     uninterrupted run's runner after an in-place directory load (its
+     graphs replayed) and after a pickle load (captured again); (c)
+     `cli.demo --profile_dir` on the MLP cSGHMC path for an epoch, per
+     step and fused: the trace names csghmc_update_kernel once a step,
+     and StepTimer against CUDA events on the same steps.
 The MLP and ResNet runners are freed before the ViT-L/32 phases.  The
 script prints its total time; the line before the last is a JSON record of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -120,6 +137,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# the H100 SXM peaks (fp32 outside the tensor cores, bf16 dense on them) and
+# the forward FLOPs of one 224x224 example, a training step 3 forwards' worth
+from bayesdll_tpu_torch.utils.profiling import (BF16_PEAK, FP32_PEAK,
+                                                FWD_FLOPS_PER_EXAMPLE)
+
 HP = {"prior_sig": "1.0", "Ninflate": "1.0", "nd": "1.0", "thin": "2",
       "bias": "informative", "nst": "2", "momentum_decay": "0.05"}
 SG_HP = dict(HP, burnin="1")  # SGLD and SGHMC: moments from epoch 1 on
@@ -146,12 +168,6 @@ def peak_bytes_per_s(name: str) -> float:
     return 3.35e12  # H100 SXM
 
 
-FP32_PEAK = 67e12  # H100 SXM, fp32 outside the tensor cores
-BF16_PEAK = 989e12  # H100 SXM, bf16 dense on the tensor cores
-# forward FLOPs of one 224x224 ResNet-101 example (7.85 GMACs, torchvision's
-# profile), as bayesdll_tpu/utils/profiling.py counts them; a training step
-# is 3 forwards' worth
-RESNET101_FWD_FLOPS = 15.7e9
 
 # the JAX bench's ResNet-101 cell (bench.py::resnet101_mfu): cSGHMC, 37
 # classes (Pets), batch 256, bf16 forward, synthetic data, 40 epochs of 2
@@ -192,9 +208,6 @@ VIT_LR = 1e-3
 VIT_ERR = 0.5  # last epoch's training error and the test error, vs 0.973
 VIT_PARAMS = 305_548_325
 VIT_DIM = 305_549_312
-# forward FLOPs of one 224x224 example (2 x parameters x tokens), as
-# bayesdll_tpu/utils/profiling.py counts them
-VIT_FWD_FLOPS = {"vit_l_32": 30.5e9, "vit_b_16": 33.8e9}
 # timed steps, profiled again from the same step (section 5's busy share
 # needs the same collect steps in both)
 VIT_STEPS = 6
@@ -980,7 +993,7 @@ def big_step_time(smi, label, runner, xs, ys, steps, profiled,
     torch.cuda.reset_peak_memory_stats()
     sec, bi0 = host_s_per_step(runner, xs, ys, label)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    fwd = RESNET101_FWD_FLOPS if name == "resnet101" else VIT_FWD_FLOPS[name]
+    fwd = FWD_FLOPS_PER_EXAMPLE[name]
     tflops = 3 * fwd * bs / sec / 1e12
     print(f"phase 4: [{smi}] {runner.method_name} training step {label} bf16 "
           f"batch {bs}: "
@@ -3666,6 +3679,357 @@ def phase_real_data(smi) -> dict:
     return by_path
 
 
+# ---- 8, checkpoints and traces ---------------------------------------------
+
+# 8b: the full-width MLP's cSGHMC on 2 chains through the CLI (batch 128,
+# lr 1e-3 as phase 3), cycles of one epoch so that the 1-epoch run and the
+# 2-epoch runs share their schedule; 8c: the same on one chain, traced
+CKPT_CLI = ["--method", "csghmc", "--backbone", "mlp_mnist",
+            "--dataset", "synthetic", "--lr", "1e-3", "--device", "cuda",
+            "--hparams", ",".join(f"{k}={v}" for k, v in HP.items())]
+ONE_EPOCH = ["--epochs", "1", "--num_cycles", "1"]
+TWO_EPOCHS = ["--epochs", "2", "--num_cycles", "2"]
+
+
+def disk_gb(path: Path) -> float:
+    files = [p for p in path.rglob("*") if p.is_file()] if path.is_dir() \
+        else [path]
+    return sum(p.stat().st_size for p in files) / 1e9
+
+
+def synced_seconds(fn):
+    """(fn(), seconds) with the card idle before and after."""
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - tic
+
+
+def phase_vit_checkpoint(smi, runner, xs, ys):
+    """8a: the trained ViT-L/32 cSGHMC state (the runner of phase 3) saved
+    through utils.checkpoint (a DCP directory) and as the pickle payload
+    (base.to_host), each restored on the card (the directory into a fresh
+    state's own tensors, the pickle into new ones) and held bitwise with
+    its counters; then one more step from the original and from each
+    restore, csghmc_update launched once each, the states after it
+    bitwise equal.  Seconds and GB/s of each save and restore, bytes on
+    disk; the files are deleted."""
+    from bayesdll_tpu_torch.methods import base
+    from bayesdll_tpu_torch.utils import checkpoint as ckpt
+    state = runner.state
+    held = state_tensors(state)
+    gb = sum(t.numel() * t.element_size() for t in held.values()) / 1e9
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="vit_l_32_state_", dir=SCRATCH))
+    out, restored = {}, {}
+    try:
+        path, save_s = synced_seconds(
+            lambda: ckpt.save(str(tmp / "chains_ckpt_orbax"), state))
+        disk = disk_gb(Path(path))
+        template = runner.init_state(torch.zeros(runner.target.dim,
+                                                 device="cuda"))
+        into = state_tensors(template)
+        back, load_s = synced_seconds(lambda: ckpt.restore(path, template))
+        check(all(state_tensors(back)[k] is t for k, t in into.items()),
+              "vit_l_32: the directory restored into the template's tensors")
+        shutil.rmtree(path)
+        out["dcp"] = (save_s, load_s, disk)
+        restored["dcp"] = back
+        del template, into, back
+
+        pkl = tmp / "state.pkl"
+
+        def pickle_save():
+            with open(pkl, "wb") as f:
+                pickle.dump(base.to_host(state), f)
+
+        def pickle_load():
+            with open(pkl, "rb") as f:
+                return base.from_host(state, pickle.load(f), runner.device)
+        _, save_s = synced_seconds(pickle_save)
+        disk = disk_gb(pkl)
+        restored["pickle"], load_s = synced_seconds(pickle_load)
+        pkl.unlink()
+        out["pickle"] = (save_s, load_s, disk)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, st in restored.items():
+        check(not differing(st, state), f"vit_l_32: the {name} round trip "
+              f"bitwise, counts equal: {differing(st, state)}")
+        check(all(t.is_cuda for t in state_tensors(st).values()),
+              f"vit_l_32: the {name} restore on the card")
+
+    ep, bi0 = runner.cfg.epochs - 1, runner.bi - 1
+    after = {}
+    for name, st in (("original", state), *restored.items()):
+        reset_launches()
+        with runner.bound(st, runner.net_state, runner.seed):
+            runner.step_loop(ep, xs[:1], ys[:1], bi0)
+            after[name] = runner.state
+        torch.cuda.synchronize()
+        counts = read_launches()
+        check(counts["csghmc_update"] == 1 and sum(counts.values()) == 1,
+              f"vit_l_32: one csghmc_update for the step from the {name} "
+              f"state: {counts}")
+    runner.state = after["original"]
+    for name in restored:
+        check(not differing(after[name], after["original"]),
+              f"vit_l_32: the step from the {name} restore is the "
+              f"original's: {differing(after[name], after['original'])}")
+    del restored, after
+    free_device()
+    text = "; ".join(
+        f"{name}: save {s:.2f} s ({gb / s:.2f} GB/s), restore {r:.2f} s "
+        f"({gb / r:.2f} GB/s), {d:.3f} GB on disk"
+        for name, (s, r, d) in out.items())
+    print(f"phase 8a: [{smi}] vit_l_32 csghmc state D={runner.target.dim} "
+          f"({len(held)} tensors, {gb:.3f} GB, counts "
+          f"{host_counts(runner.state)}): {text}; both restores bitwise "
+          "with equal counts, one more step from each bitwise equal to the "
+          "original's (csghmc_update once each); files deleted", flush=True)
+
+
+def chain_registries_equal(a, b) -> bool:
+    """Two runs' per-chain cycle registries, bitwise."""
+    if [sorted(s) for s in a] != [sorted(s) for s in b]:
+        return False
+    for sa, sb in zip(a, b):
+        for cyc, st in sa.items():
+            if set(st) != set(sb[cyc]):
+                return False
+            for k, v in st.items():
+                w = sb[cyc][k]
+                if not (np.array_equal(v, w) if isinstance(v, np.ndarray)
+                        else v == w):
+                    return False
+    return True
+
+
+def chains_differ(a, b) -> list:
+    """What differs between two multi-chain runs: each chain's state
+    (differing), the step, the cycle registries."""
+    out = [(c, d) for c, (sa, sb) in enumerate(zip(a.trainer.states,
+                                                  b.trainer.states))
+           if (d := differing(sa, sb))]
+    if a.trainer.bi != b.trainer.bi:
+        out.append(("bi", a.trainer.bi, b.trainer.bi))
+    if not chain_registries_equal(a.chain_cycle_stats, b.chain_cycle_stats):
+        out.append("chain_cycle_stats")
+    return out
+
+
+def ckpt_cli(argv, logdir: str):
+    """The CLI on 2 chains, the counts set to 0 just before and read just
+    after: (its MultiChainRunner, counts)."""
+    seen = {}
+    with watched_multichain(seen):
+        reset_launches()
+        cli_main(CKPT_CLI + ["--num_chains", "2", "--log_dir", logdir]
+                 + argv)
+        torch.cuda.synchronize()
+        counts = read_launches()
+    return seen["mc"], counts
+
+
+def graph_captures(mc) -> float:
+    """Seconds of eager steps and captures of every chain's StepGraph."""
+    r = mc.runner
+    return sum(r._step_graphs[s].capture_s for s in mc.trainer.seeds
+               if s in r._step_graphs)
+
+
+def phase_chain_resume(smi, fused: bool, by_path: dict):
+    """8b: 2-chain cSGHMC on the full-width MLP through the CLI with
+    --ckpt_backend orbax: 1 epoch, then --resume <workdir>/
+    chains_ckpt_orbax to 2 epochs, against the uninterrupted 2-epoch run;
+    the pickle backend's resume from the same epoch against the
+    directory's.  Every chain's state, the step and the cycle registries
+    bitwise; launches = steps x chains.  Then, in the uninterrupted run's
+    own runner, whose chains' graphs were captured (fused): the directory
+    loaded in place and epoch 1 again, its graphs replayed and not captured
+    again; the pickle loaded (new tensors) and epoch 1 again, captured
+    again; both bitwise equal to the resumed runs."""
+    tag = "fused" if fused else "per step"
+    flags = ["--fused_steps"] if fused else []
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chains_ckpt_", dir=SCRATCH))
+    try:
+        tic = time.perf_counter()
+        runs, counts = {}, {}
+        for name, argv in (("full", TWO_EPOCHS), ("int", ONE_EPOCH)):
+            runs[name], counts[name] = ckpt_cli(
+                argv + flags + ["--ckpt_backend", "orbax"], str(root / name))
+        mc_int = runs["int"]
+        directory = Path(mc_int.workdir) / "chains_ckpt_orbax"
+        mc_int.cfg.ckpt_backend = "pickle"
+        pkl = Path(mc_int.save_ckpt(0))
+        sizes = {"orbax": disk_gb(directory), "pickle": disk_gb(pkl)}
+        for backend, path in (("orbax", directory), ("pickle", pkl)):
+            runs[backend], counts[backend] = ckpt_cli(
+                TWO_EPOCHS + flags + ["--ckpt_backend", backend, "--resume",
+                                      str(path)], str(root / backend))
+        n = len(runs["full"]._train_loader)
+        for name, epochs in (("full", 2), ("int", 1), ("orbax", 1),
+                             ("pickle", 1)):
+            c = counts[name]
+            check(c["csghmc_update"] == epochs * n * 2
+                  and sum(c.values()) == c["csghmc_update"],
+                  f"8b {tag} {name}: launches {c} == {epochs} x {n} steps x "
+                  "2 chains")
+        for name, ref in (("orbax", "full"), ("pickle", "orbax")):
+            diff = chains_differ(runs[name], runs[ref])
+            check(not diff, f"8b {tag}: the {name} resume against the {ref} "
+                  f"run: {diff}")
+        by_path[f"csghmc mlp_mnist 2 chains orbax resume {tag}"] = \
+            counts["orbax"]
+
+        mc = runs["full"]
+        loader = mc._train_loader
+        inplace = {}
+        for backend, path in (("orbax", directory), ("pickle", pkl)):
+            ptrs = [t.data_ptr() for s in mc.trainer.states
+                    for t in state_tensors(s).values()]
+            captured = graph_captures(mc)
+            mc.load_ckpt(str(path))
+            same = ptrs == [t.data_ptr() for s in mc.trainer.states
+                            for t in state_tensors(s).values()]
+            reset_launches()
+            mc.train(loader, None, None, start_epoch=1)
+            torch.cuda.synchronize()
+            c = read_launches()
+            check(c["csghmc_update"] == n * 2,
+                  f"8b {tag}: in-runner {backend} load, launches {c}")
+            diff = chains_differ(mc, runs["orbax"])
+            check(not diff, f"8b {tag}: epoch 1 after an in-runner {backend} "
+                  f"load against the resumed run: {diff}")
+            recaptured = graph_captures(mc) > captured
+            check(same == (backend == "orbax"),
+                  f"8b {tag}: the {backend} load keeps the chains' tensors: "
+                  f"{same}")
+            if fused:
+                check(recaptured == (backend == "pickle"),
+                      f"8b {tag}: after the {backend} load the graphs were "
+                      f"{'captured again' if recaptured else 'replayed'}")
+            inplace[backend] = ("in place" if same else "new tensors") + (
+                (", captured again" if recaptured else ", replayed")
+                if fused else "")
+        secs = time.perf_counter() - tic
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 8b: [{smi}] csghmc mlp_mnist 2 chains {tag}, "
+          f"{n} steps an epoch: 1 epoch then --resume from chains_ckpt_orbax "
+          f"({sizes['orbax']:.4f} GB) to 2 epochs, bitwise equal to the "
+          f"uninterrupted run (both chains' states and counts, bi, the cycle "
+          f"registries); the pickle's resume (chains_ckpt.pkl, "
+          f"{sizes['pickle']:.4f} GB) bitwise equal to it; launches "
+          f"{ {k: v['csghmc_update'] for k, v in counts.items()} }; epoch 1 "
+          f"again in the uninterrupted run's runner after a load: {inplace}, "
+          f"bitwise; {secs:.1f} s", flush=True)
+
+
+@contextlib.contextmanager
+def timed_cli_steps(timer, pairs, seen):
+    """The CLI's runner with every step (`_one_step`) or fused segment
+    (`run_steps`) inside `timer.measure` (fenced on θ) and between two CUDA
+    events; pairs gets (start, end, steps)."""
+    from bayesdll_tpu_torch.cli import demo
+    build_all = demo.build_all
+
+    def watched(*a, **kw):
+        runner, loaders = build_all(*a, **kw)
+        seen["runner"], seen["loaders"] = runner, loaders
+        for name in ("_one_step", "run_steps"):
+            def timed(*args, _inner=getattr(runner, name), _name=name):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                with timer.measure(runner.state.theta):
+                    start.record()
+                    out = _inner(*args)
+                    end.record()
+                pairs.append((start, end, len(args[1])
+                              if _name == "run_steps" else 1))
+                return out
+            setattr(runner, name, timed)
+        return runner, loaders
+
+    demo.build_all = watched
+    try:
+        yield
+    finally:
+        demo.build_all = build_all
+
+
+def phase_cli_trace(smi, fused: bool):
+    """8c: `cli.demo --profile_dir` on the MLP cSGHMC path for one epoch:
+    the trace (TensorBoard's JSON) names csghmc_update, once a step per
+    step (fused: what the trace shows of the replayed graphs is recorded);
+    StepTimer's steps against CUDA events around the same steps."""
+    from bayesdll_tpu_torch.utils import profiling
+    tag = "fused" if fused else "per step"
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="cli_trace_", dir=SCRATCH))
+    timer, pairs, seen = profiling.StepTimer(), [], {}
+    try:
+        with timed_cli_steps(timer, pairs, seen):
+            reset_launches()
+            cli_main(CKPT_CLI + ONE_EPOCH + (["--fused_steps"] if fused
+                                            else [])
+                     + ["--log_dir", str(root / "logs"),
+                        "--profile_dir", str(root / "trace")])
+            torch.cuda.synchronize()
+            counts = read_launches()
+        traces = list((root / "trace").glob("*.pt.trace.json"))
+        check(len(traces) == 1, f"8c {tag}: one trace file: {traces}")
+        trace_mb = traces[0].stat().st_size / 1e6
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    steps = len(seen["loaders"][0])
+    kernel = [e for e in events if e.get("cat") == "kernel"]
+    named = sum("csghmc_update_kernel" in e.get("name", "") for e in kernel)
+    graph_launches = sum(e.get("name") == "cudaGraphLaunch" for e in events)
+    check(counts["csghmc_update"] == steps,
+          f"8c {tag}: launches {counts} == {steps} steps")
+    if not fused:
+        check(named == steps, f"8c {tag}: the trace names csghmc_update "
+              f"{named} times, {steps} steps")
+    stepped = sum(k for _, _, k in pairs)
+    check(stepped == steps, f"8c {tag}: timed {stepped} of {steps} steps")
+    event_ms = sum(s.elapsed_time(e) for s, e, _ in pairs) / steps
+    stats = timer.stats()
+    timer_ms = sum(timer.samples) / steps * 1e3
+    replays = ""
+    if fused:
+        replays = (" (the eager steps and every replay)" if named == steps
+                   else " (not every replay is in the trace)")
+    check(timer_ms >= event_ms * 0.999,
+          f"8c {tag}: StepTimer {timer_ms} ms/step, fenced, below the CUDA "
+          f"events' {event_ms} ms/step")
+    print(f"phase 8c: [{smi}] cli.demo --profile_dir, csghmc mlp_mnist "
+          f"{tag}, {steps} steps: trace {trace_mb:.1f} MB, "
+          f"{len(kernel)} kernel events, csghmc_update_kernel {named} times "
+          f"in {steps} steps{replays}, cudaGraphLaunch {graph_launches}; "
+          f"launches {counts['csghmc_update']}; "
+          f"StepTimer {timer_ms:.4f} ms/step ({len(timer.samples)} samples: "
+          f"p50 {stats['p50_s'] * 1e3:.4f} ms, p95 {stats['p95_s'] * 1e3:.4f} "
+          f"ms) against CUDA events {event_ms:.4f} ms/step, under the "
+          "profiler", flush=True)
+
+
+def phase_checkpoints_and_traces(smi, vit, xs, ys, by_path: dict):
+    """8: checkpoints and traces."""
+    tic = time.perf_counter()
+    phase_vit_checkpoint(smi, vit, xs, ys)
+    for fused in (False, True):
+        phase_chain_resume(smi, fused, by_path)
+    for fused in (False, True):
+        phase_cli_trace(smi, fused)
+    print(f"phase 8: [{smi}] checkpoints and traces in "
+          f"{time.perf_counter() - tic:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3760,6 +4124,7 @@ def main() -> int:
     phase_vit_reference()
     times["vit_l_32"] = kernel_times_at(smi, vit.target)
     xs, ys = device_batches(vit_loaders[0])
+    phase_checkpoints_and_traces(smi, vit, xs, ys, by_path)
     per_step = phase_vit_steps(smi, vit, xs, ys)
     adam_step = phase_vit_adam_step(smi, vit, xs, ys)
     dev_us["vit_l_32"] = phase_fused_kernels(smi, vit.target, "vit_l_32",

@@ -57,6 +57,9 @@ def test_importing_the_port_loads_no_jax():
         "import bayesdll_tpu_torch.data.image_loader, bayesdll_tpu_torch.native\n"
         "import bayesdll_tpu_torch.cli.pretrain\n"
         "import bayesdll_tpu_torch.cli.demo_vision, bayesdll_tpu_torch.cli.demo_mnist\n"
+        "import bayesdll_tpu_torch.utils.checkpoint, bayesdll_tpu_torch.utils.term\n"
+        "import bayesdll_tpu_torch.utils.profiling\n"
+        "import bayesdll_tpu_torch.utils.wandb_compat\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         f"    if m.split('.')[0] in {FORBIDDEN!r})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -241,15 +241,22 @@ def test_multichain_artifact_protocol(tmp_path):
     assert {"ece", "nll", "topt", "best_epoch"} <= set(results)
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["per_step", "fused"])
+@pytest.mark.parametrize("backend,ckpt_name", [
+    ("pickle", "chains_ckpt.pkl"), ("orbax", "chains_ckpt_orbax")])
 @pytest.mark.parametrize("method,hp", [("sgld", SGLD_HP),
                                        ("csghmc", CSGHMC_HP)])
-def test_multichain_resume_bit_identical(method, hp, tmp_path):
+def test_multichain_resume_bit_identical(method, hp, backend, ckpt_name,
+                                         fused, tmp_path):
     """tests/test_multichain_runner.py:106: a run resumed from
-    chains_ckpt.pkl continues exactly as the uninterrupted run; the
-    chains' data orders depend on (chain, epoch) only.  cSGHMC's registry
-    of its first cycle survives the checkpoint."""
+    chains_ckpt.pkl, or from the chains_ckpt_orbax directory
+    (`ckpt_backend="orbax"`), per step or fused, continues exactly as the
+    uninterrupted run; the chains' data orders depend on (chain, epoch)
+    only.  cSGHMC's registry of its first cycle survives the checkpoint."""
     def fresh(epochs, name):
         runner, loaders = build(method, hp, epochs=epochs, num_cycles=epochs)
+        runner.cfg.ckpt_backend = backend
+        runner.cfg.fused_steps = fused
         return MultiChainRunner(runner, 2, workdir=str(tmp_path / name)), \
             loaders
 
@@ -259,14 +266,22 @@ def test_multichain_resume_bit_identical(method, hp, tmp_path):
     mc_a.train(*loaders)
     mc_b, loaders = fresh(2, "res")
     mc_b.runner.cfg.num_cycles = 2
-    ep = mc_b.load_ckpt(str(tmp_path / "int" / "chains_ckpt.pkl"))
+    ep = mc_b.load_ckpt(str(tmp_path / "int" / ckpt_name))
     assert torch.equal(mc_b.trainer.iterates(), mc_a.trainer.iterates())
     mc_b.train(*loaders, start_epoch=ep + 1)
     assert torch.equal(mc_b.trainer.iterates(), mc_full.trainer.iterates())
     assert mc_b.trainer.bi == mc_full.trainer.bi
+    for b, full in zip(mc_b.trainer.states, mc_full.trainer.states):
+        if method == "csghmc":
+            assert torch.equal(b.v, full.v)
+        assert b.step == full.step
     if method == "csghmc":
         for a, b in zip(mc_b.chain_cycle_stats, mc_full.chain_cycle_stats):
             assert set(a) == set(b) == {1, 2}
+            for cyc in a:
+                for key in ("mean", "var", "likelihoods"):
+                    np.testing.assert_array_equal(a[cyc][key], b[cyc][key])
+                assert a[cyc]["n"] == b[cyc]["n"]
 
 
 def test_multichain_many_chains_distinct():
