@@ -1,6 +1,6 @@
 """The command line: train a ported method on one chain or, with
---num_chains C, on C chains one after another on the card (counterpart of
-bayesdll_tpu.cli.demo).
+--num_chains C, on C chains one after another on the card, or over the
+ranks of a multi-process run (counterpart of bayesdll_tpu.cli.demo).
 
   python -m bayesdll_tpu_torch.cli.demo --method csghmc --backbone mlp_mnist \\
       --dataset synthetic --epochs 4 --num_cycles 2 --lr 1e-2 \\
@@ -49,8 +49,27 @@ C chains with their own jitter, data order and seed, a chain-mixture
 predictive, and `chains_ckpt.pkl`, which --resume takes; with
 --ckpt_backend orbax the checkpoint is the torch.distributed.checkpoint
 directory `chains_ckpt_orbax` (the JAX package's name; not orbax's format),
-and --resume takes that directory.  --data_parallel and --fsdp need several
-cards and are not ported.
+and --resume takes that directory.
+
+Multi-process runs (parallel/mesh.py): every process runs this command
+with --multihost --coordinator HOST:PORT --num_processes N --process_id R
+(rank 0 listens at HOST:PORT); one process per card over NCCL, or with
+--dist_backend gloo several processes sharing one card.  The chains go
+over the 'chain' axis of a ('chain', 'data') mesh (its size the largest
+divisor of --num_chains up to N / --data_parallel); --data_parallel D
+splits each chain's batch over D ranks, its gradient averaged over them;
+--fsdp also slices each chain's flat vectors over them.  With
+--data_parallel, --fsdp or more than one process the chains go through
+MultiChainRunner even at --num_chains 1.  --tensor_parallel M runs the ViT
+Megatron-style over a (D data x M model) mesh, single chain only
+(parallel/tp.py).  Every rank trains; rank 0 logs to the terminal and
+writes the artifacts, the others log to logs.rank<R>.txt.
+
+  python -m bayesdll_tpu_torch.cli.demo --method csghmc --dataset synthetic \\
+      --epochs 2 --num_cycles 1 --lr 1e-3 --data_parallel 2 --fsdp \\
+      --multihost --coordinator 127.0.0.1:29500 --num_processes 2 \\
+      --process_id R --device cuda \\
+      --hparams prior_sig=1.0,Ninflate=1.0,nd=1.0,thin=2,bias=informative,nst=2
 
 --profile_dir writes a torch.profiler trace of `train` (the card's kernels
 included) that TensorBoard and Perfetto load; --use_wandb logs the run's
@@ -75,10 +94,12 @@ from __future__ import annotations
 
 import argparse
 import logging
+import math
 import os
 import sys
 
 import torch
+import torch.distributed as dist
 
 
 def parse_args(argv=None):
@@ -135,9 +156,26 @@ def parse_args(argv=None):
                    help="run each segment of steps as replays of a captured "
                         "CUDA graph of the step")
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="batch sharding over cards (not ported)")
+                   help="within-chain batch sharding over the 'data' ranks")
     p.add_argument("--fsdp", action="store_true",
-                   help="state sharding over cards (not ported)")
+                   help="also shard each chain's flat vectors over the "
+                        "'data' ranks")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="Megatron tensor parallelism of the ViT over the "
+                        "'model' ranks (with --data_parallel on a ('data', "
+                        "'model') mesh; single chain only)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a process group of --num_processes ranks at "
+                        "--coordinator before anything is built")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="host:port of rank 0's TCP store")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="the process group's backend: nccl on cuda, gloo "
+                        "on cpu by default; gloo on cuda lets several "
+                        "ranks share one card")
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint path to resume training from (ckpt.pkl, "
                         "or with --num_chains chains_ckpt.pkl or the "
@@ -157,17 +195,37 @@ def parse_args(argv=None):
 
 
 def build_all(cfg, logger, workdir=None):
-    """Data + backbone + prior + runner."""
+    """Data + backbone + prior + runner; over the process group (when one
+    exists) the TP or ('chain', 'data') layout of the JAX package's
+    build_all."""
     from bayesdll_tpu_torch.core.prior import make_flat_target
     from bayesdll_tpu_torch.data import prepare
     from bayesdll_tpu_torch.methods import get_runner_cls
     from bayesdll_tpu_torch.models import convert, create_backbone
+    from bayesdll_tpu_torch.parallel import mesh as mesh_util
 
     train, val, test, nd = prepare(cfg)
     logger.info("dataset %s prepared: ND=%d, num_classes=%d",
                 cfg.dataset, nd, cfg.num_classes)
+    world = mesh_util.world_size()
+    data_parallel = (cfg.mesh_shape or {}).get("data", 1)
+    backbone_kw = cfg.backbone_kw()
+    tp_mesh = None
+    if cfg.tensor_parallel > 1:
+        # Megatron TP over a ('data', 'model') mesh, single chain only
+        if cfg.num_chains > 1:
+            raise ValueError(
+                "--tensor_parallel requires --num_chains 1 (chains over TP "
+                "groups are a multi-host layout, one process group per "
+                "chain)")
+        from bayesdll_tpu_torch.parallel import (make_tp_constraints,
+                                                 make_tp_mesh)
+        tp_mesh = make_tp_mesh(data_parallel, cfg.tensor_parallel)
+        backbone_kw["tp"] = make_tp_constraints(tp_mesh)
+        logger.info("tensor-parallel mesh: %s", dict(zip(
+            tp_mesh.mesh_dim_names, tp_mesh.mesh.shape)))
     model, _input_shape, meta = create_backbone(
-        cfg.backbone, num_classes=cfg.num_classes, **cfg.backbone_kw())
+        cfg.backbone, num_classes=cfg.num_classes, **backbone_kw)
 
     theta0_params = None
     if cfg.pretrained is not None:
@@ -179,7 +237,9 @@ def build_all(cfg, logger, workdir=None):
         model, nd_size=nd, num_classes=cfg.num_classes,
         rng=torch.Generator().manual_seed(cfg.seed),
         theta0_params=theta0_params,
-        has_batch_stats=meta["has_batch_stats"], device=cfg.device)
+        has_batch_stats=meta["has_batch_stats"], device=cfg.device,
+        # every rank's slice of a flat vector whole element quads
+        pad_to=math.lcm(1024, 4 * world))
     if cfg.pretrained is not None:
         # the workhorse starts from the pretrained body and a random head
         theta_init = convert.pretrained_workhorse_theta(
@@ -190,10 +250,25 @@ def build_all(cfg, logger, workdir=None):
                                         logger=logger, workdir=workdir)
     if hasattr(runner, "set_reinit_fn"):
         runner.set_reinit_fn(make_reinit_fn(model, target, cfg.seed))
-    if cfg.num_chains > 1:
+    if tp_mesh is not None:
+        from bayesdll_tpu_torch.parallel import shard_runner_for_tp
+        if dist.get_rank() != 0:
+            runner.workdir = None  # rank 0 writes the artifacts
+        return shard_runner_for_tp(runner, tp_mesh), (train, val, test)
+    if cfg.num_chains > 1 or data_parallel > 1 or cfg.fsdp or world > 1:
         from bayesdll_tpu_torch.parallel import MultiChainRunner
+        mesh = None
+        if dist.is_initialized():
+            # the chain axis: the largest divisor of num_chains that fits
+            avail = max(1, world // data_parallel)
+            axis = max(d for d in range(1, min(avail, cfg.num_chains) + 1)
+                       if cfg.num_chains % d == 0)
+            mesh = mesh_util.make_mesh(axis, data_parallel)
+        elif data_parallel > 1:
+            raise ValueError(f"--data_parallel {data_parallel} needs that "
+                             f"many ranks: launch with --multihost")
         runner = MultiChainRunner(runner, cfg.num_chains, logger=logger,
-                                  workdir=workdir)
+                                  workdir=workdir, fsdp=cfg.fsdp, mesh=mesh)
     return runner, (train, val, test)
 
 
@@ -216,9 +291,12 @@ def make_reinit_fn(model, target, seed: int):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.data_parallel > 1 or args.fsdp:
-        from bayesdll_tpu_torch.parallel.chains import MULTI_DEVICE
-        raise NotImplementedError(f"--data_parallel and --fsdp: {MULTI_DEVICE}")
+    if args.multihost:
+        # before anything is built: the mesh spans the process group
+        from bayesdll_tpu_torch.parallel import init_distributed
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id, backend=args.dist_backend,
+                         device=args.device)
     from bayesdll_tpu_torch.config import Config
 
     cfg = Config(
@@ -236,22 +314,33 @@ def main(argv=None):
         remat_policy=args.remat_policy,
         fused_attention=bool(args.fused_attention),
         gelu_approx=bool(args.gelu_approx), device=args.device,
-        ckpt_backend=args.ckpt_backend)
+        ckpt_backend=args.ckpt_backend,
+        mesh_shape={"chain": args.num_chains, "data": args.data_parallel},
+        fsdp=args.fsdp, tensor_parallel=args.tensor_parallel)
 
+    rank = 0
+    if dist.is_initialized():
+        # one run directory for every rank: rank 0's time stamp
+        name = [cfg.run_name()]
+        dist.broadcast_object_list(name, src=0)
+        cfg._run_name = name[0]
+        rank = dist.get_rank()
     workdir = os.path.join(cfg.log_dir, cfg.run_name())
     os.makedirs(workdir, exist_ok=True)
     logger = logging.getLogger("bayesdll_tpu_torch")
     logger.setLevel(logging.INFO)
     fmt = logging.Formatter("[%(asctime)s] %(message)s")
-    for h in (logging.FileHandler(os.path.join(workdir, "logs.txt")),
-              logging.StreamHandler(sys.stdout)):
+    handlers = (logging.FileHandler(os.path.join(workdir, "logs.txt")),
+                logging.StreamHandler(sys.stdout)) if rank == 0 else \
+        (logging.FileHandler(os.path.join(workdir, f"logs.rank{rank}.txt")),)
+    for h in handlers:
         h.setFormatter(fmt)
         logger.addHandler(h)
     logger.info("Args: %s", vars(args))
 
     from bayesdll_tpu_torch.utils import profiling, wandb_compat
 
-    if args.use_wandb:
+    if args.use_wandb and rank == 0:
         wandb_compat.init(project=args.wandb_project,
                           name=args.wandb_name or cfg.run_name(),
                           config=vars(args))

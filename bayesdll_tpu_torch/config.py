@@ -2,8 +2,9 @@
 
 The reference CLI's flags and its ``--hparams`` 'k1=v1,k2=v2' string as a
 dataclass, plus `compute_dtype` (the forward's dtype), the ViT knobs of the
-JAX package's config, `fused_steps`, and `device`: every run goes to the CUDA card unless
-the caller asks for "cpu".
+JAX package's config, `fused_steps`, the multi-device layout (`mesh_shape`,
+`fsdp`, `tensor_parallel`), and `device`: every run goes to the CUDA card
+unless the caller asks for "cpu".
 """
 
 from __future__ import annotations
@@ -51,6 +52,13 @@ class Config:
     data_root: str = "data"
     num_classes: int = 10
     num_chains: int = 1  # independent chains, run one after another per step
+    # the ('chain', 'data') layout over ranks, e.g. {'chain': 2, 'data': 2}
+    # (parallel/mesh.py); None or 'data' 1: no batch split
+    mesh_shape: Optional[Dict[str, int]] = None
+    fsdp: bool = False  # shard each chain's flat vectors over its 'data' ranks
+    # Megatron tensor parallelism of the ViT over a ('data', 'model') mesh
+    # (parallel/tp.py), single chain only
+    tensor_parallel: int = 1
     # segments of steps as replays of a captured CUDA graph (methods/graphed.py)
     fused_steps: bool = False
     compute_dtype: str = "float32"  # "bfloat16" for the big backbones

@@ -29,9 +29,11 @@
 // fixed for a run and stay by value in both.  At the same (seed, step,
 // gate) the two write the same bits.
 //
-// Contract: all pointers 16-byte aligned, fp32, n elements each, g and lr
-// not aliasing θ or v.  Launches on `stream`, allocates nothing, does not
-// synchronise; returns cudaGetLastError() after the launch.
+// Contract: elem0 a multiple of 4 with every global quad below 2^32 (else
+// cudaErrorInvalidValue and no launch), all pointers 16-byte aligned, fp32,
+// n elements each, g and lr not aliasing θ or v.  Launches on `stream`,
+// allocates nothing, does not synchronise; returns cudaGetLastError() after
+// the launch.
 
 #include <cstdint>
 
@@ -48,6 +50,7 @@ struct Scalars {
   int gate;
   uint64_t seed;
   uint64_t step;
+  uint64_t quad0;  // global quad of element 0 (elem0 / 4)
 };
 
 __device__ __forceinline__ void update_one(float g, float& th, float& v,
@@ -79,8 +82,10 @@ __global__ void csghmc_update_kernel(const float* __restrict__ g,
   for (int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        q < quads; q += stride) {
     float z[4] = {0.f, 0.f, 0.f, 0.f};
-    if (s.gate) bdl::normal4(s.seed, static_cast<uint64_t>(q), s.step,
-                             bdl::kStreamCsghmc, z);
+    if (s.gate) {
+      bdl::normal4(s.seed, s.quad0 + static_cast<uint64_t>(q), s.step,
+                   bdl::kStreamCsghmc, z);
+    }
     if (q < full_quads) {
       const float4 g4 = reinterpret_cast<const float4*>(g)[q];
       const float4 lr4 = reinterpret_cast<const float4*>(lr)[q];
@@ -126,19 +131,27 @@ int launch(const void* g, void* theta, void* v, const void* lr, int64_t n,
 
 }  // namespace
 
+// elem0: the global index of element 0, a multiple of 4 (see
+// normal_from_bits.cuh); 0 for a whole vector
 extern "C" int csghmc_update(const void* g, void* theta, void* v,
-                             const void* lr, int64_t n, float prior_sig,
-                             float one_minus_alpha, float noise_pref, int gate,
-                             uint64_t seed, uint64_t step, void* stream) {
-  const Scalars s{prior_sig, one_minus_alpha, noise_pref, gate, seed, step};
+                             const void* lr, int64_t n, int64_t elem0,
+                             float prior_sig, float one_minus_alpha,
+                             float noise_pref, int gate, uint64_t seed,
+                             uint64_t step, void* stream) {
+  if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
+  const Scalars s{prior_sig, one_minus_alpha, noise_pref, gate, seed, step,
+                  static_cast<uint64_t>(elem0 / 4)};
   return launch<false>(g, theta, v, lr, n, s, nullptr, stream);
 }
 
 // dev: int64 [3] = (seed, step, gate) on the vectors' device
 extern "C" int csghmc_update_dev(const void* g, void* theta, void* v,
-                                 const void* lr, int64_t n, float prior_sig,
-                                 float one_minus_alpha, float noise_pref,
-                                 const void* dev, void* stream) {
-  const Scalars s{prior_sig, one_minus_alpha, noise_pref, 0, 0, 0};
+                                 const void* lr, int64_t n, int64_t elem0,
+                                 float prior_sig, float one_minus_alpha,
+                                 float noise_pref, const void* dev,
+                                 void* stream) {
+  if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
+  const Scalars s{prior_sig, one_minus_alpha, noise_pref, 0, 0, 0,
+                  static_cast<uint64_t>(elem0 / 4)};
   return launch<true>(g, theta, v, lr, n, s, dev, stream);
 }

@@ -41,8 +41,14 @@
 // points read (the gate unused here).  At the same (seed, step) the two
 // write the same bits.
 //
+// A launch may draw a shard of a longer vector: elem0, the global index of
+// its first element (a multiple of 4), shifts the counter's quad, so the
+// shards' draws at their offsets concatenate to the whole vector's draw
+// (normal_from_bits.cuh).
+//
 // Contract: out 16-byte aligned fp32 of n elements; kind 0 normal, 1
-// uniform.  Launches on `stream`, allocates nothing, does not synchronise;
+// uniform; elem0 a multiple of 4 with every global quad below 2^32 (else
+// cudaErrorInvalidValue and no launch).  Launches on `stream`, allocates nothing, does not synchronise;
 // returns cudaGetLastError() after the launch.
 
 #include <cstdint>
@@ -66,8 +72,8 @@ constexpr int64_t kManyQuads = int64_t{1} << 20;
 // kDevScalars: seed and step come from dev = (seed, step, gate)
 template <bool kDevScalars, int kKind, int kQuads>
 __global__ void __launch_bounds__(kThreads)
-philox_draw_kernel(float* __restrict__ out, int64_t n, uint32_t stream_id,
-                   uint64_t seed, uint64_t step,
+philox_draw_kernel(float* __restrict__ out, int64_t n, uint64_t quad0,
+                   uint32_t stream_id, uint64_t seed, uint64_t step,
                    const int64_t* __restrict__ dev) {
   if constexpr (kDevScalars) {
     seed = static_cast<uint64_t>(dev[0]);
@@ -83,7 +89,7 @@ philox_draw_kernel(float* __restrict__ out, int64_t n, uint32_t stream_id,
     for (int i = 0; i < kQuads; ++i) {
       // a quad past the end is drawn and not stored: no branch before the
       // stores, so the chains interleave
-      const uint64_t q = static_cast<uint64_t>(q0 + i * stride);
+      const uint64_t q = quad0 + static_cast<uint64_t>(q0 + i * stride);
       if constexpr (kKind == kNormal) {
         bdl::normal4(seed, q, step, stream_id, z[i]);
       } else {
@@ -110,15 +116,15 @@ philox_draw_kernel(float* __restrict__ out, int64_t n, uint32_t stream_id,
 // kQuads element quads per thread and iteration, over a grid that covers
 // the vector (grid-stride beyond 2^20 blocks)
 template <bool kDevScalars, int kKind, int kQuads>
-int launch(void* out, int64_t n, uint32_t stream_id, uint64_t seed,
-           uint64_t step, const void* dev, void* stream) {
+int launch(void* out, int64_t n, uint64_t quad0, uint32_t stream_id,
+           uint64_t seed, uint64_t step, const void* dev, void* stream) {
   const int64_t per_block = int64_t{kThreads} * kQuads;
   int64_t blocks = ((n + 3) / 4 + per_block - 1) / per_block;
   if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;
   philox_draw_kernel<kDevScalars, kKind, kQuads>
       <<<static_cast<unsigned>(blocks), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(
-          static_cast<float*>(out), n, stream_id, seed, step,
+          static_cast<float*>(out), n, quad0, stream_id, seed, step,
           static_cast<const int64_t*>(dev));
   return static_cast<int>(cudaGetLastError());
 }
@@ -127,42 +133,49 @@ int launch(void* out, int64_t n, uint32_t stream_id, uint64_t seed,
 // builds this file with BDL_DRAW_QUADS to time other shapes): uniforms 2
 // quads per thread; normals 4 from kManyQuads quads on, else 2.
 template <bool kDevScalars>
-int dispatch(void* out, int64_t n, int kind, uint32_t stream_id,
-             uint64_t seed, uint64_t step, const void* dev, void* stream) {
+int dispatch(void* out, int64_t n, int64_t elem0, int kind,
+             uint32_t stream_id, uint64_t seed, uint64_t step,
+             const void* dev, void* stream) {
+  if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
+  const uint64_t quad0 = static_cast<uint64_t>(elem0 / 4);
 #ifdef BDL_DRAW_QUADS
   if (kind == kNormal) {
-    return launch<kDevScalars, kNormal, BDL_DRAW_QUADS>(out, n, stream_id,
+    return launch<kDevScalars, kNormal, BDL_DRAW_QUADS>(out, n, quad0, stream_id,
                                                         seed, step, dev,
                                                         stream);
   }
-  return launch<kDevScalars, kUniform, BDL_DRAW_QUADS>(out, n, stream_id,
+  return launch<kDevScalars, kUniform, BDL_DRAW_QUADS>(out, n, quad0, stream_id,
                                                        seed, step, dev,
                                                        stream);
 #else
   if (kind != kNormal) {
-    return launch<kDevScalars, kUniform, 2>(out, n, stream_id, seed, step,
+    return launch<kDevScalars, kUniform, 2>(out, n, quad0, stream_id, seed, step,
                                             dev, stream);
   }
   if ((n + 3) / 4 < kManyQuads) {
-    return launch<kDevScalars, kNormal, 2>(out, n, stream_id, seed, step,
+    return launch<kDevScalars, kNormal, 2>(out, n, quad0, stream_id, seed, step,
                                            dev, stream);
   }
-  return launch<kDevScalars, kNormal, 4>(out, n, stream_id, seed, step, dev,
+  return launch<kDevScalars, kNormal, 4>(out, n, quad0, stream_id, seed, step, dev,
                                          stream);
 #endif
 }
 
 }  // namespace
 
-extern "C" int philox_draw(void* out, int64_t n, int kind, uint32_t stream_id,
-                           uint64_t seed, uint64_t step, void* stream) {
-  return dispatch<false>(out, n, kind, stream_id, seed, step, nullptr, stream);
+// elem0: the global index of element 0, a multiple of 4; 0 for a whole
+// vector
+extern "C" int philox_draw(void* out, int64_t n, int64_t elem0, int kind,
+                           uint32_t stream_id, uint64_t seed, uint64_t step,
+                           void* stream) {
+  return dispatch<false>(out, n, elem0, kind, stream_id, seed, step, nullptr,
+                         stream);
 }
 
 // dev: int64 [3] = (seed, step, gate) on out's device; the gate is unused
-extern "C" int philox_draw_dev(void* out, int64_t n, int kind,
-                               uint32_t stream_id, const void* dev,
+extern "C" int philox_draw_dev(void* out, int64_t n, int64_t elem0,
+                               int kind, uint32_t stream_id, const void* dev,
                                void* stream) {
-  return dispatch<true>(out, n, kind, stream_id, 0, 0, dev, stream);
+  return dispatch<true>(out, n, elem0, kind, stream_id, 0, 0, dev, stream);
 }

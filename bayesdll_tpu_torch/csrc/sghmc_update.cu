@@ -27,10 +27,11 @@
 // before each replay.  The float constants stay by value in both.  At the
 // same (seed, step) the two write the same bits.
 //
-// Contract: all pointers 16-byte aligned, fp32, n elements each; g and v
-// alias neither each other nor θ, θ0, mask or lr.  Launches on `stream`,
-// allocates nothing, does not synchronise; returns cudaGetLastError() after
-// the launch.
+// Contract: elem0 a multiple of 4 with every global quad below 2^32 (else
+// cudaErrorInvalidValue and no launch), all pointers 16-byte aligned, fp32,
+// n elements each; g and v alias neither each other nor θ, θ0, mask or lr.
+// Launches on `stream`, allocates nothing, does not synchronise; returns
+// cudaGetLastError() after the launch.
 
 #include <cstdint>
 
@@ -48,6 +49,7 @@ struct Scalars {
   float two_alpha;        // 2α, rounded on the host
   uint64_t seed;
   uint64_t step;
+  uint64_t quad0;  // global quad of element 0 (elem0 / 4)
 };
 
 __device__ __forceinline__ void update_one(float& g, float& v, float th,
@@ -85,8 +87,10 @@ __global__ void sghmc_update_kernel(float* __restrict__ g,
   for (int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        q < quads; q += stride) {
     float z[4] = {0.f, 0.f, 0.f, 0.f};
-    if (s.nd != 0.f) bdl::normal4(s.seed, static_cast<uint64_t>(q), s.step,
-                                  bdl::kStreamSghmc, z);
+    if (s.nd != 0.f) {
+      bdl::normal4(s.seed, s.quad0 + static_cast<uint64_t>(q), s.step,
+                   bdl::kStreamSghmc, z);
+    }
     if (q < full_quads) {
       float4 g4 = reinterpret_cast<const float4*>(g)[q];
       float4 v4 = reinterpret_cast<const float4*>(v)[q];
@@ -136,21 +140,28 @@ int launch(void* g, const void* theta, const void* theta0, void* v,
 
 }  // namespace
 
+// elem0: the global index of element 0, a multiple of 4 (see
+// normal_from_bits.cuh); 0 for a whole vector
 extern "C" int sghmc_update(void* g, const void* theta, const void* theta0,
                             void* v, const void* mask, const void* lr,
-                            int64_t n, float sig2, float n_eff, float nd,
-                            float one_minus_alpha, float two_alpha,
+                            int64_t n, int64_t elem0, float sig2, float n_eff,
+                            float nd, float one_minus_alpha, float two_alpha,
                             uint64_t seed, uint64_t step, void* stream) {
-  const Scalars s{sig2, n_eff, nd, one_minus_alpha, two_alpha, seed, step};
+  if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
+  const Scalars s{sig2, n_eff, nd, one_minus_alpha, two_alpha, seed, step,
+                  static_cast<uint64_t>(elem0 / 4)};
   return launch<false>(g, theta, theta0, v, mask, lr, n, s, nullptr, stream);
 }
 
 // dev: int64 [3] = (seed, step, unused) on the vectors' device
 extern "C" int sghmc_update_dev(void* g, const void* theta, const void* theta0,
                                 void* v, const void* mask, const void* lr,
-                                int64_t n, float sig2, float n_eff, float nd,
-                                float one_minus_alpha, float two_alpha,
-                                const void* dev, void* stream) {
-  const Scalars s{sig2, n_eff, nd, one_minus_alpha, two_alpha, 0, 0};
+                                int64_t n, int64_t elem0, float sig2,
+                                float n_eff, float nd, float one_minus_alpha,
+                                float two_alpha, const void* dev,
+                                void* stream) {
+  if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
+  const Scalars s{sig2, n_eff, nd, one_minus_alpha, two_alpha, 0, 0,
+                  static_cast<uint64_t>(elem0 / 4)};
   return launch<true>(g, theta, theta0, v, mask, lr, n, s, dev, stream);
 }

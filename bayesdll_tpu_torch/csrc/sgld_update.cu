@@ -26,9 +26,11 @@
 // before each replay.  The float constants stay by value in both.  At the
 // same (seed, step) the two write the same bits.
 //
-// Contract: all pointers 16-byte aligned, fp32, n elements each, g not
-// aliasing θ, θ0, mask or lr.  Launches on `stream`, allocates nothing, does
-// not synchronise; returns cudaGetLastError() after the launch.
+// Contract: elem0 a multiple of 4 with every global quad below 2^32 (else
+// cudaErrorInvalidValue and no launch), all pointers 16-byte aligned, fp32,
+// n elements each, g not aliasing θ, θ0, mask or lr.  Launches on `stream`,
+// allocates nothing, does not synchronise; returns cudaGetLastError() after
+// the launch.
 
 #include <cstdint>
 
@@ -44,6 +46,7 @@ struct Scalars {
   float nd;
   uint64_t seed;
   uint64_t step;
+  uint64_t quad0;  // global quad of element 0 (elem0 / 4)
 };
 
 __device__ __forceinline__ float update_one(float g, float th, float th0,
@@ -78,8 +81,10 @@ __global__ void sgld_update_kernel(float* __restrict__ g,
   for (int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        q < quads; q += stride) {
     float z[4] = {0.f, 0.f, 0.f, 0.f};
-    if (s.nd != 0.f) bdl::normal4(s.seed, static_cast<uint64_t>(q), s.step,
-                                  bdl::kStreamSgld, z);
+    if (s.nd != 0.f) {
+      bdl::normal4(s.seed, s.quad0 + static_cast<uint64_t>(q), s.step,
+                   bdl::kStreamSgld, z);
+    }
     if (q < full_quads) {
       float4 g4 = reinterpret_cast<const float4*>(g)[q];
       const float4 th4 = reinterpret_cast<const float4*>(theta)[q];
@@ -121,19 +126,23 @@ int launch(void* g, const void* theta, const void* theta0, const void* mask,
 
 }  // namespace
 
+// elem0: the global index of element 0, a multiple of 4 (see
+// normal_from_bits.cuh); 0 for a whole vector
 extern "C" int sgld_update(void* g, const void* theta, const void* theta0,
                            const void* mask, const void* lr, int64_t n,
-                           float sig2, float n_eff, float nd, uint64_t seed,
-                           uint64_t step, void* stream) {
-  const Scalars s{sig2, n_eff, nd, seed, step};
+                           int64_t elem0, float sig2, float n_eff, float nd,
+                           uint64_t seed, uint64_t step, void* stream) {
+  if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
+  const Scalars s{sig2, n_eff, nd, seed, step, static_cast<uint64_t>(elem0 / 4)};
   return launch<false>(g, theta, theta0, mask, lr, n, s, nullptr, stream);
 }
 
 // dev: int64 [3] = (seed, step, unused) on the vectors' device
 extern "C" int sgld_update_dev(void* g, const void* theta, const void* theta0,
                                const void* mask, const void* lr, int64_t n,
-                               float sig2, float n_eff, float nd,
-                               const void* dev, void* stream) {
-  const Scalars s{sig2, n_eff, nd, 0, 0};
+                               int64_t elem0, float sig2, float n_eff,
+                               float nd, const void* dev, void* stream) {
+  if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
+  const Scalars s{sig2, n_eff, nd, 0, 0, static_cast<uint64_t>(elem0 / 4)};
   return launch<true>(g, theta, theta0, mask, lr, n, s, dev, stream);
 }

@@ -2,8 +2,9 @@
 
 The parity tests hand the JAX package's parameters (a nested dict, turned
 into numpy by the caller), its flat vectors, its `batch_stats` and a
-multi-chain trainer's stacked chain states to the port through these
-functions, so the port itself never imports JAX.
+multi-chain trainer's stacked chain states (whole, or as one rank of a
+mesh holds them) to the port through these functions, so the port itself
+never imports JAX.
 """
 
 from __future__ import annotations
@@ -86,3 +87,16 @@ def chain_states(runner, states, net_states, n_chain: int, device="cuda"):
              for c in range(n_chain)],
             [tree_to(_chain_slice(net_states, c), device)
              for c in range(n_chain)])
+
+
+def rank_chain_states(trainer, states, net_states, device="cuda"):
+    """(states, net_states) for a port MultiChainTrainer over a mesh from
+    the JAX trainer's stacked ones ([C, ...] leaves, as `chain_states`
+    takes them): the trainer's own chains (`trainer.chains`, by global
+    index), each as the rank holds it (its fsdp shard, else whole)."""
+    runner = trainer.runner
+    return ([trainer.local_state(base.from_host(
+        runner.state, _chain_slice(states, c), device))
+        for c in trainer.chains],
+        [tree_to(_chain_slice(net_states, c), device)
+         for c in trainer.chains])

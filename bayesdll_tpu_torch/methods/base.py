@@ -12,7 +12,12 @@ random draw of that step.
 
 For the multi-chain trainer (parallel/chains.py), `iterate`/`with_iterate`
 name the primary vector of a state (θ, or the variational mean), and
-`bound` runs the runner on one chain's state, net_state and seed.
+`bound` runs the runner on one chain's state, net_state and seed.  On a
+rank that holds a shard of a chain's flat vectors (fsdp, tensor
+parallelism: parallel/shard.py), `shard` is that shard while the step runs:
+`draw_args` then places the kernels' and the draws' noise at the shard's
+global offset, and `shard_sum` sums a per-element loss term over the
+ranks.
 
 Per-step loss and error stay on the device; the host reads them once per
 epoch, so the training loop never waits on the card.
@@ -120,6 +125,8 @@ def from_host(template, saved, device):
 class BaseRunner:
     method_name = "base"
     FUSED_BYTES_BUDGET = 256 * 1024 * 1024  # max stacked batch bytes/segment
+    shard = None  # the step's parallel/shard.FlatShard, or None
+    writer = True  # writes the plots (one rank of a multi-process run)
 
     def __init__(self, target, theta_init, net_state, cfg, logger=None,
                  workdir: Optional[str] = None):
@@ -239,9 +246,16 @@ class BaseRunner:
         """The draw arguments of a sampler kernel or of `fused.draw_`: the
         host's seed and step on the per-step path, the device row `dev`
         (seed, step, gate) on the fused path."""
-        if "dev" in scalars:
-            return {"dev": scalars["dev"]}
-        return {"seed": self.seed, "step": step}
+        args = {"dev": scalars["dev"]} if "dev" in scalars else \
+            {"seed": self.seed, "step": step}
+        if self.shard is not None and self.shard.sharded:
+            args.update(elem0=self.shard.elem0, total=self.shard.total)
+        return args
+
+    def shard_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """A sum over the flat vector's elements, `t` the sum over this
+        rank's part of them: the whole sum on a sharded rank, `t` else."""
+        return t if self.shard is None else self.shard.sum(t)
 
     @staticmethod
     def collect_sample(state, scalars):
@@ -477,7 +491,8 @@ class BaseRunner:
         targets_test, logits_test = test_pack[2], test_pack[3]
         # plots go to the workdir where matplotlib is installed; the other
         # artifacts do not need it
-        plot_dir = self.workdir if calibration.can_plot() else None
+        plot_dir = self.workdir if self.writer and calibration.can_plot() \
+            else None
         plot = os.path.join(plot_dir, "reliability_T1.png") \
             if plot_dir else None
         ece, mce, nll = calibration.analyze(

@@ -104,11 +104,13 @@ class Runner(csghmc.Runner):
             return
         tr = mc_runner.trainer
         cycle = self.sched.cycle_number_py(tr.bi - 1)
-        for c in range(tr.n_chain):
-            theta_np = base.to_host(tr.states[c].theta)
+        # every chain's, whole, on every rank
+        snaps = tr.gather_chains([
+            (base.to_host(tr.full_state(i).theta), base.to_host(ns))
+            for i, ns in enumerate(tr.net_states)])
+        for c, (theta_np, ns_np) in enumerate(snaps):
             self.full_samples[(c, ep)] = theta_np
-            self.full_sample_net_states[(c, ep)] = base.to_host(
-                tr.net_states[c])
+            self.full_sample_net_states[(c, ep)] = ns_np
             if self.workdir:
                 path = os.path.join(self.workdir,
                                     f"full_samples_net_chain{c}_ep{ep}.pkl")

@@ -207,10 +207,12 @@ class CyclicalRunnerBase(base.BaseRunner):
 
     def multi_chain_cycle_start(self, trainer, cycle: int):
         """on_cycle_start for every chain of a multi-chain trainer (its
-        `states`), each cold restart drawn from the chain's own seed."""
+        `states`, the rank's own), each cold restart drawn from the chain's
+        own seed, as the rank holds it (`local_vector`)."""
         thetas = self._multi_chain_restart_thetas(trainer, cycle)
         for c, state in enumerate(trainer.states):
-            self._cycle_reset(state, None if thetas is None else thetas[c])
+            self._cycle_reset(state, None if thetas is None
+                              else trainer.local_vector(thetas[c]))
 
     def _cycle_reset(self, state, theta):
         """The per-cycle reset of `state` (in place), θ replaced by `theta`

@@ -45,7 +45,8 @@ included): a graph reads the addresses it captured, so a step that binds a
 state field to a new tensor raises here.
 
 On the CPU the same body runs eagerly for every step, on the same static
-buffers and tables.
+buffers and tables; so it does on the card for a step whose collectives a
+graph cannot hold (a rank's step over gloo, parallel/shard.py).
 """
 
 from __future__ import annotations
@@ -277,7 +278,8 @@ class StepGraph:
         b["idx"].zero_()
         b["count"].fill_(float(_moments_count(runner.state)))
         collects = flts[:, 2] > 0
-        if device.type != "cuda":
+        if device.type != "cuda" or not getattr(runner.shard, "capturable",
+                                                True):
             for c in collects:
                 self._step(runner, bool(c))
         else:

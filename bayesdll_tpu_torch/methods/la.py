@@ -98,7 +98,8 @@ class Runner(base.BaseRunner):
         dev = state.theta - self.target.theta0
         g = g + self.mask * dev / sig2 / self.n_eff
         loss = loss_ce.detach() \
-            + 0.5 * torch.sum(self.mask * dev * dev) / sig2 / self.n_eff
+            + 0.5 * self.shard_sum(torch.sum(self.mask * dev * dev)) / sig2 \
+            / self.n_eff
         # theta and buf change IN PLACE once the graph is consumed
         sgd_step(state.theta, g, state.buf, self.lr_vec, self.cfg.momentum,
                  state.step)

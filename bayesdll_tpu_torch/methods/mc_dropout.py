@@ -105,7 +105,7 @@ class Runner(base.BaseRunner):
 
         dev = state.m - t.theta0
         kl_coeff = self._kl_coeff()
-        loss_kl = 0.5 * torch.sum(kl_coeff * dev * dev) / sig2
+        loss_kl = 0.5 * self.shard_sum(torch.sum(kl_coeff * dev * dev)) / sig2
         g_m = g * z + self.kld * kl_coeff * dev / sig2 / nd_size
         # m and buf change IN PLACE
         sgd_step(state.m, g_m, state.buf, self.lr_vec, self.cfg.momentum,

@@ -51,7 +51,7 @@ class Runner(base.BaseRunner):
         logits = logits.detach()
 
         dev = state.theta - self.target.theta0
-        loss_l2 = torch.sum(self.mask * dev * dev)
+        loss_l2 = self.shard_sum(torch.sum(self.mask * dev * dev))
         g = g + self.wd * self.mask * dev
         # theta and buf change IN PLACE once the graph is consumed
         sgd_step(state.theta, g, state.buf, self.lr_vec, self.cfg.momentum,

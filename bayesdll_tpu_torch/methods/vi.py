@@ -96,6 +96,7 @@ class Runner(base.BaseRunner):
         g_m, g_s, loss_kl = elbo_terms(
             g, theta, state.m, s, t.theta0, self.kmask,
             sig2=self.prior_sig ** 2, kld=self.kld, nd_size=nd_size)
+        loss_kl = self.shard_sum(loss_kl)
         # m, s_ and their buffers change IN PLACE
         sgd_step(state.m, g_m, state.buf_m, self.lr_vec, self.cfg.momentum,
                  state.step)

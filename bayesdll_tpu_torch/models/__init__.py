@@ -5,7 +5,8 @@ input_shape, meta)` with meta's `has_batch_stats` and `has_dropout` flags.
 Every backbone names its readout submodule ``head`` so that
 `core/flat.path_masks` finds the head parameters.  The ViT factories also
 take the JAX factories' `remat`, `remat_policy`, `fused_attention` and
-`gelu_approx`; the other backbones ignore them.  Building
+`gelu_approx`, and `tp` (parallel/tp.py: Megatron tensor parallelism);
+the other backbones ignore them.  Building
 a backbone allocates no weights (models/layers.py), so the data pipeline
 builds one just to read its input shape.
 """
@@ -69,7 +70,8 @@ def _vit(name, num_classes, kw):
                 remat=bool(kw.get("remat", False)),
                 remat_policy=kw.get("remat_policy", ""),
                 fused_attention=bool(kw.get("fused_attention", True)),
-                gelu_approx=bool(kw.get("gelu_approx", False)))
+                gelu_approx=bool(kw.get("gelu_approx", False)),
+                tp=kw.get("tp"))
     side = arch["image_size"]
     return model, (side, side, 3), {"has_batch_stats": False,
                                     "has_dropout": False}

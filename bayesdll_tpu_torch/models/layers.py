@@ -140,6 +140,14 @@ class BatchNorm(nn.Module):
     the statistics the normalisation saved).  In eval mode the running
     averages normalise and `stats` comes back unchanged.  y has x's dtype;
     the statistics and the affine map are fp32.
+
+    With a process `group` (`set_batch_norm_group`: a chain's 'data' ranks,
+    each holding a slice of its batch), train mode takes the batch mean and
+    variance over the whole chain batch, as the JAX package's SPMD program
+    does when the batch is sharded: the per-channel sums, then the sums of
+    squared deviations from their mean (two passes, as the library's batch
+    norm takes the variance on one rank), are summed over the group through
+    all-reduces that autograd differentiates.
     """
 
     def __init__(self, features: int, momentum: float = 0.9,
@@ -149,6 +157,22 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.scale = shape_only(features)
         self.bias = shape_only(features)
+        self.group = None
+
+    def _group_batch_stats(self, x):
+        """(mean, var) of x per channel over the whole batch of the group's
+        ranks, fp32, differentiable."""
+        from torch.distributed.nn import functional as dist_fn
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        count = x.numel() // x.shape[1] * torch.distributed.get_world_size(
+            self.group)
+        mean = dist_fn.all_reduce(xf.sum(dims), group=self.group) / count
+        dev = xf - mean.view(shape)
+        var = dist_fn.all_reduce((dev * dev).sum(dims),
+                                 group=self.group) / count
+        return mean, var
 
     def forward(self, x, stats, train: bool):
         if not train:
@@ -157,6 +181,17 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(x.float(), stats["mean"], stats["var"],
                              self.scale, self.bias, training=False, eps=self.eps)
             return y.to(x.dtype), stats
+        if self.group is not None:
+            mean, var = self._group_batch_stats(x)
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            mul = torch.rsqrt(var + self.eps) * self.scale
+            y = (x.float() - mean.view(shape)) * mul.view(shape) \
+                + self.bias.view(shape)
+            m = self.momentum
+            with torch.no_grad():
+                new = {"mean": m * stats["mean"] + (1.0 - m) * mean.detach(),
+                       "var": m * stats["var"] + (1.0 - m) * var.detach()}
+            return y.to(x.dtype), new
         # saves for backward what the library's batch norm saves: the input
         # and the per-channel mean and 1/std
         y, mean, invstd = torch.native_batch_norm(
@@ -167,6 +202,15 @@ class BatchNorm(nn.Module):
             new = {"mean": m * stats["mean"] + (1.0 - m) * mean,
                    "var": m * stats["var"] + (1.0 - m) * var}
         return y, new
+
+
+def set_batch_norm_group(module: nn.Module, group) -> int:
+    """Every BatchNorm of `module` takes its training statistics over the
+    ranks of process `group` (None: its own batch).  Returns how many."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.group = group
+    return len(norms)
 
 
 def _put(tree: dict, path: str, leaf):

@@ -36,6 +36,17 @@ recomputing in the backward pass what the policy does not save:
            recomputed, as in JAX.
 The last two are selective checkpointing policies over the block's ATen
 ops.  None of them changes the numbers.
+
+Tensor parallelism (`tp`, parallel/tp.py::make_tp_constraints): each block
+runs Megatron-style over the ranks of a 'model' group, as the JAX package's
+constrain_inner / constrain_outer hooks have XLA place it: qkv is
+column-parallel, split by heads (model rank m holds heads [m·H/n,
+(m+1)·H/n) of q, k and v, and their attention), mlp_dense_0 is
+column-parallel, out and mlp_dense_1 are row-parallel, their partial
+products summed over the group before the bias.  Every rank unravels the
+whole θ and slices the leaves it uses; the block's carry [B, T, D] is
+whole on every rank.  The attention core is the same call on the rank's
+heads.
 """
 
 from __future__ import annotations
@@ -140,7 +151,8 @@ class ViT(nn.Module):
                  heads: int = 16, mlp_dim: int = 4096, image_size: int = 224,
                  num_classes: int = 1000, dtype: str = "float32",
                  remat: bool = False, remat_policy: str = "",
-                 fused_attention: bool = True, gelu_approx: bool = False):
+                 fused_attention: bool = True, gelu_approx: bool = False,
+                 tp=None):
         super().__init__()
         if remat and remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {remat_policy!r}; "
@@ -151,6 +163,10 @@ class ViT(nn.Module):
         self.remat, self.remat_policy = remat, remat_policy
         self.fused_attention = fused_attention
         self.gelu = "tanh" if gelu_approx else "none"
+        self.tp = tp
+        if tp is not None and (heads % tp.size or mlp_dim % tp.size):
+            raise ValueError(f"{heads} heads and mlp_dim {mlp_dim} do not "
+                             f"split over {tp.size} model ranks")
         self.conv_proj = Conv(3, dim, patch, stride=patch, use_bias=True,
                               dtype=dt)
         self.class_token = shape_only(1, 1, dim)
@@ -159,10 +175,11 @@ class ViT(nn.Module):
         self.ln = LayerNorm(dim)
         self.head = Dense(dim, num_classes, dtype=dt)
 
-    def _attend(self, qkv):
-        """Attention core: [B, T, 3D] packed qkv -> [B, T, D] in dtype."""
+    def _attend(self, qkv, d=None, h=None):
+        """Attention core: [B, T, 3d] packed qkv of h heads (default the
+        model's d and heads) -> [B, T, d] in dtype."""
         b, t, _ = qkv.shape
-        d, h = self.dim, self.heads
+        d, h = d or self.dim, h or self.heads
         q, k, v = (a.view(b, t, h, d // h).transpose(1, 2)
                    for a in qkv.split(d, dim=-1))  # [B, H, T, hd]
         if self.fused_attention:
@@ -187,7 +204,32 @@ class ViT(nn.Module):
         return x + dense(F.gelu(hidden, approximate=self.gelu),
                          w.mlp_1_kernel, w.mlp_1_bias, dt)
 
+    def _block_tp(self, x, w: LayerWeights):
+        """The pre-LN block on model rank m of n: its heads' columns of qkv
+        and its columns of mlp_dense_0 (after Megatron's f: identity
+        forward, sum over the group backward), its rows of out and
+        mlp_dense_1 (summed over the group before the bias: Megatron's
+        g)."""
+        dt, tp = self.dtype, self.tp
+        m, n = tp.rank, tp.size
+        dl, hl, ml = self.dim // n, self.heads // n, self.mlp_dim // n
+        cols = slice(m * dl, (m + 1) * dl)
+        qkv_k = w.qkv_kernel.unflatten(1, (3, self.dim))[:, :, cols].flatten(1)
+        qkv_b = w.qkv_bias.unflatten(0, (3, self.dim))[:, cols].flatten()
+        qkv = dense(tp.copy_in(layer_norm(x, w.ln_1_scale, w.ln_1_bias)),
+                    qkv_k, qkv_b, dt)
+        part = self._attend(qkv, dl, hl) @ w.out_kernel[cols].to(dt)
+        x = x + (tp.reduce_out(part) + w.out_bias.to(dt))
+        hid = slice(m * ml, (m + 1) * ml)
+        hidden = dense(tp.copy_in(layer_norm(x, w.ln_2_scale, w.ln_2_bias)),
+                       w.mlp_0_kernel[:, hid], w.mlp_0_bias[hid], dt)
+        part = F.gelu(hidden, approximate=self.gelu).to(dt) \
+            @ w.mlp_1_kernel[hid].to(dt)
+        return x + (tp.reduce_out(part) + w.mlp_1_bias.to(dt))
+
     def _run_block(self, x, w: LayerWeights):
+        if self.tp is not None:
+            return self._block_tp(x, w)
         if not self.remat:
             return self._block(x, w)
         policy = {"": None, "dots": _save_dots,

@@ -16,7 +16,13 @@ its momentum, `adam_sghmc_momentum`) has no kernel in either package: it
 is plain PyTorch on every device, in place on the Adam state.  `draw_` is
 the whole-vector draw of VI, MC-dropout and the Adam momentum noise: the
 philox_draw kernel on the card, a host generator keyed by (seed, stream,
-step) on the CPU.  `box_muller_fp32` is the four kernels' Box-Muller
+step) on the CPU.  Each of these takes `elem0` and `total` for a shard of
+a longer vector (one rank's slice of a sharded flat state): the kernels
+draw the noise of global elements [elem0, elem0 + n) of a vector of `total`
+elements; the CPU draws the whole vector's noise from its generator and
+takes the shard's slice, so the shards of a sharded run see the replicated
+run's noise on either device.  `box_muller_fp32` is the four kernels'
+Box-Muller
 (csrc/normal_from_bits.cuh) step for step in fp32 torch ops: the tests
 hold it against float64 over every input, chip_smoke.py holds the card's
 normals against it.
@@ -188,6 +194,31 @@ def _cpu_generator(t: torch.Tensor, name: str, seed: int, step: int):
     return rng.generator("cpu", int(seed), rng.TRAIN_CPU, int(step))
 
 
+def shard_of_draw(draw, like: torch.Tensor, gen, elem0: int, total):
+    """`draw` (torch.randn or torch.rand) from `gen` shaped as `like` (1-D);
+    for a shard at elem0 of a vector of `total` elements, the slice
+    [elem0, elem0 + n) of the whole vector's draw."""
+    n = like.shape[0]
+    if total is None:
+        return draw(like.shape, generator=gen, dtype=torch.float32)
+    if elem0 < 0 or elem0 + n > total:
+        raise ValueError(f"shard [{elem0}, {elem0 + n}) is not inside a "
+                         f"vector of {total}")
+    return draw(int(total), generator=gen, dtype=torch.float32)[
+        elem0:elem0 + n]
+
+
+def _noise(t: torch.Tensor, name: str, seed: int, step: int, elem0: int,
+           total):
+    """The plain version's noise argument: the generator keyed by (seed,
+    step) for a whole vector, or for a shard the whole vector's normals'
+    slice (`shard_of_draw`)."""
+    gen = _cpu_generator(t, name, seed, step)
+    if total is None:
+        return {"generator": gen}
+    return {"noise": shard_of_draw(torch.randn, t, gen, elem0, total)}
+
+
 _M32 = 0xFFFFFFFF
 
 
@@ -349,20 +380,23 @@ _HOST_STREAM = {kernels.STREAM_VI: rng.VI, kernels.STREAM_ADAM: rng.ADAM,
 
 
 def draw_(like, *, kind: str, stream: int, seed: int = 0, step: int = 0,
-          dev=None):
+          dev=None, elem0: int = 0, total=None):
     """A new fp32 vector shaped as `like` (1-D) of N(0, 1) (kind "normal")
     or U[0, 1) (kind "uniform") draws, a pure function of (seed, step,
     stream), `stream` one of kernels.DRAW_STREAMS.  On a CUDA tensor the
     philox_draw kernel, which launches or raises; on a CPU tensor the plain
     version, torch.randn or torch.rand from the generator keyed by (seed,
-    the stream's host stream, step).  The two give other bits of the same
-    distribution.  `dev` (seed, step, gate), when given, stands for seed
-    and step."""
+    the stream's host stream, step).  The two give
+    other bits of the same distribution.  `dev` (seed, step, gate), when
+    given, stands for seed and step.  With `total`, `like` is the shard at
+    elem0 of a vector of `total` elements, and the draw is that slice of
+    the whole vector's draw."""
     if like.is_cuda:
         if dev is not None:
-            return kernels.philox_draw_dev(like, dev, kind=kind, stream=stream)
+            return kernels.philox_draw_dev(like, dev, kind=kind, stream=stream,
+                                           elem0=elem0)
         return kernels.philox_draw(like, kind=kind, stream=stream, seed=seed,
-                                   step=step)
+                                   step=step, elem0=elem0)
     if like.device.type != "cpu":
         raise ValueError(f"draw_: no path for device {like.device}")
     if kind not in kernels.DRAW_KINDS:
@@ -374,7 +408,7 @@ def draw_(like, *, kind: str, stream: int, seed: int = 0, step: int = 0,
     seed, step, _ = _host_scalars(dev, seed, step)
     gen = rng.generator("cpu", seed, _HOST_STREAM[stream], step)
     draw = torch.randn if kind == "normal" else torch.rand
-    return draw(like.shape, generator=gen, dtype=torch.float32)
+    return shard_of_draw(draw, like, gen, elem0, total)
 
 
 def _host_scalars(dev, seed, step, gate=False):
@@ -388,25 +422,28 @@ def _host_scalars(dev, seed, step, gate=False):
 
 def csghmc_update_(g, theta, v, *, prior_sig: float, n_eff: float, nd: float,
                    alpha: float, lr, should_sample: bool = False,
-                   seed: int = 0, step: int = 0, dev=None):
+                   seed: int = 0, step: int = 0, dev=None, elem0: int = 0,
+                   total=None):
     """csghmc_update IN PLACE on theta and v; the noise is a pure function of
     (seed, step).  CUDA tensors go to the kernel, which launches or raises;
     CPU tensors take the plain version.  `dev` (seed, step, gate), when
-    given, stands for seed, step and should_sample."""
+    given, stands for seed, step and should_sample; `elem0` and `total`
+    place a shard in its whole vector (module docstring)."""
     if theta.is_cuda:
         pref = kernels.noise_prefactor(nd, alpha, n_eff)
         if dev is not None:
             return kernels.csghmc_update_dev(g, theta, v, lr, dev,
                                              prior_sig=prior_sig, alpha=alpha,
-                                             noise_pref=pref)
+                                             noise_pref=pref, elem0=elem0)
         return kernels.csghmc_update(
             g, theta, v, lr, prior_sig=prior_sig, alpha=alpha,
-            noise_pref=pref, gate=should_sample, seed=seed, step=step)
+            noise_pref=pref, gate=should_sample, seed=seed, step=step,
+            elem0=elem0)
     seed, step, should_sample = _host_scalars(dev, seed, step, should_sample)
     th_new, v_new = csghmc_update(
         g, theta, v, prior_sig=prior_sig, n_eff=n_eff, nd=nd, alpha=alpha,
         lr=lr, should_sample=should_sample,
-        generator=_cpu_generator(theta, "csghmc_update_", seed, step))
+        **_noise(theta, "csghmc_update_", seed, step, elem0, total))
     theta.copy_(th_new)
     v.copy_(v_new)
     return theta, v
@@ -414,44 +451,48 @@ def csghmc_update_(g, theta, v, *, prior_sig: float, n_eff: float, nd: float,
 
 def sgld_update_(g, theta, theta0, prior_mask, lr, *, prior_sig: float,
                  n_eff: float, nd: float, seed: int = 0, step: int = 0,
-                 dev=None):
+                 dev=None, elem0: int = 0, total=None):
     """sgld_update IN PLACE on g; the noise is a pure function of (seed,
     step).  CUDA tensors go to the kernel, which launches or raises; CPU
     tensors take the plain version.  `dev`, when given, stands for seed and
-    step."""
+    step; `elem0` and `total` place a shard in its whole vector."""
     if g.is_cuda:
         if dev is not None:
             return kernels.sgld_update_dev(g, theta, theta0, prior_mask, lr,
                                            dev, prior_sig=prior_sig,
-                                           n_eff=n_eff, nd=nd)
+                                           n_eff=n_eff, nd=nd, elem0=elem0)
         return kernels.sgld_update(g, theta, theta0, prior_mask, lr,
                                    prior_sig=prior_sig, n_eff=n_eff, nd=nd,
-                                   seed=seed, step=step)
+                                   seed=seed, step=step, elem0=elem0)
     seed, step, _ = _host_scalars(dev, seed, step)
-    gen = _cpu_generator(g, "sgld_update_", seed, step)
+    noise = _noise(g, "sgld_update_", seed, step, elem0, total) \
+        if nd != 0.0 else {}
     return g.copy_(sgld_update(g, theta, theta0, prior_mask, lr,
                                prior_sig=prior_sig, n_eff=n_eff, nd=nd,
-                               generator=gen))
+                               **noise))
 
 
 def sghmc_update_(g, theta, theta0, v, prior_mask, lr, *, prior_sig: float,
                   n_eff: float, nd: float, alpha: float, seed: int = 0,
-                  step: int = 0, dev=None):
+                  step: int = 0, dev=None, elem0: int = 0, total=None):
     """sghmc_update IN PLACE on g and v, as sgld_update_ dispatches.
     Returns (g, v)."""
     if g.is_cuda:
         if dev is not None:
             return kernels.sghmc_update_dev(g, theta, theta0, v, prior_mask,
                                             lr, dev, prior_sig=prior_sig,
-                                            n_eff=n_eff, nd=nd, alpha=alpha)
+                                            n_eff=n_eff, nd=nd, alpha=alpha,
+                                            elem0=elem0)
         return kernels.sghmc_update(g, theta, theta0, v, prior_mask, lr,
                                     prior_sig=prior_sig, n_eff=n_eff, nd=nd,
-                                    alpha=alpha, seed=seed, step=step)
+                                    alpha=alpha, seed=seed, step=step,
+                                    elem0=elem0)
     seed, step, _ = _host_scalars(dev, seed, step)
-    gen = _cpu_generator(g, "sghmc_update_", seed, step)
+    noise = _noise(g, "sghmc_update_", seed, step, elem0, total) \
+        if nd != 0.0 else {}
     g_new, v_new = sghmc_update(g, theta, theta0, v, prior_mask, lr,
                                 prior_sig=prior_sig, n_eff=n_eff, nd=nd,
-                                alpha=alpha, generator=gen)
+                                alpha=alpha, **noise)
     g.copy_(g_new)
     v.copy_(v_new)
     return g, v

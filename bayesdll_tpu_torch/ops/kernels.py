@@ -17,6 +17,10 @@ path's captured CUDA graph fills before each replay.  It counts into the
 same `<name>.launches`; a launch recorded into a graph counts once at the
 capture, and the graph's runner (methods/graphed.py) sets the counts so
 that each replay adds its launches (`launch_counts`, `set_launch_counts`).
+Every wrapper takes `elem0`, the global index of its vectors' first element
+when they are one rank's shard of a longer flat vector (`check_offset`):
+the noise is then that of the shard's own elements in the whole vector's
+draw, so the shards' launches concatenate to one whole-vector launch.
 """
 
 from __future__ import annotations
@@ -96,28 +100,31 @@ def _library(name: str) -> ctypes.CDLL:
 
 _P, _I64, _F, _U = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_uint64
 _ARGTYPES = {
-    # g, theta, v, lr, n, prior_sig, 1-alpha, noise_pref, gate, seed, step, stream
-    "csghmc_update": [_P, _P, _P, _P, _I64, _F, _F, _F, ctypes.c_int, _U, _U, _P],
-    # g, theta, theta0, mask, lr, n, sigma^2, N, nd, seed, step, stream
-    "sgld_update": [_P, _P, _P, _P, _P, _I64, _F, _F, _F, _U, _U, _P],
-    # g, theta, theta0, v, mask, lr, n, sigma^2, N, nd, 1-alpha, 2 alpha,
-    # seed, step, stream
-    "sghmc_update": [_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _U, _U, _P],
-    # out, n, kind, stream id, seed, step, stream
-    "philox_draw": [_P, _I64, ctypes.c_int, ctypes.c_uint32, _U, _U, _P],
+    # g, theta, v, lr, n, elem0, prior_sig, 1-alpha, noise_pref, gate, seed,
+    # step, stream
+    "csghmc_update": [_P, _P, _P, _P, _I64, _I64, _F, _F, _F, ctypes.c_int, _U,
+                      _U, _P],
+    # g, theta, theta0, mask, lr, n, elem0, sigma^2, N, nd, seed, step, stream
+    "sgld_update": [_P, _P, _P, _P, _P, _I64, _I64, _F, _F, _F, _U, _U, _P],
+    # g, theta, theta0, v, mask, lr, n, elem0, sigma^2, N, nd, 1-alpha,
+    # 2 alpha, seed, step, stream
+    "sghmc_update": [_P, _P, _P, _P, _P, _P, _I64, _I64, _F, _F, _F, _F, _F,
+                     _U, _U, _P],
+    # out, n, elem0, kind, stream id, seed, step, stream
+    "philox_draw": [_P, _I64, _I64, ctypes.c_int, ctypes.c_uint32, _U, _U, _P],
 }
 # the pointer entry points: (seed, step, gate) from the int64 tensor `dev`
 _ARGTYPES.update({
-    # g, theta, v, lr, n, prior_sig, 1-alpha, noise_pref, dev, stream
-    "csghmc_update_dev": [_P, _P, _P, _P, _I64, _F, _F, _F, _P, _P],
-    # g, theta, theta0, mask, lr, n, sigma^2, N, nd, dev, stream
-    "sgld_update_dev": [_P, _P, _P, _P, _P, _I64, _F, _F, _F, _P, _P],
-    # g, theta, theta0, v, mask, lr, n, sigma^2, N, nd, 1-alpha, 2 alpha,
-    # dev, stream
-    "sghmc_update_dev": [_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _P,
-                         _P],
-    # out, n, kind, stream id, dev, stream
-    "philox_draw_dev": [_P, _I64, ctypes.c_int, ctypes.c_uint32, _P, _P],
+    # g, theta, v, lr, n, elem0, prior_sig, 1-alpha, noise_pref, dev, stream
+    "csghmc_update_dev": [_P, _P, _P, _P, _I64, _I64, _F, _F, _F, _P, _P],
+    # g, theta, theta0, mask, lr, n, elem0, sigma^2, N, nd, dev, stream
+    "sgld_update_dev": [_P, _P, _P, _P, _P, _I64, _I64, _F, _F, _F, _P, _P],
+    # g, theta, theta0, v, mask, lr, n, elem0, sigma^2, N, nd, 1-alpha,
+    # 2 alpha, dev, stream
+    "sghmc_update_dev": [_P, _P, _P, _P, _P, _P, _I64, _I64, _F, _F, _F, _F,
+                         _F, _P, _P],
+    # out, n, elem0, kind, stream id, dev, stream
+    "philox_draw_dev": [_P, _I64, _I64, ctypes.c_int, ctypes.c_uint32, _P, _P],
 })
 DEV_SCALARS = 3  # (seed, step, gate), the pointer entry points' int64 row
 # philox_draw's stream ids (csrc/normal_from_bits.cuh): one for each method
@@ -184,6 +191,19 @@ def _check_dev(dev: torch.Tensor, like: torch.Tensor):
         raise ValueError("dev: kernel needs an 8-byte aligned pointer")
 
 
+def check_offset(elem0: int, n: int) -> int:
+    """A launch's global element offset (csrc/normal_from_bits.cuh): a
+    non-negative multiple of 4 with every global element quad of the
+    launch below 2^32, the Philox counter word that holds it."""
+    elem0 = int(elem0)
+    if elem0 < 0 or elem0 % 4:
+        raise ValueError(f"elem0 {elem0} is not a non-negative multiple of 4")
+    if (elem0 + n + 3) // 4 > 1 << 32:
+        raise ValueError(f"elements [{elem0}, {elem0 + n}) pass the 2^32 "
+                         f"element quads of the Philox counter word")
+    return elem0
+
+
 def launch_counts() -> dict:
     """Every kernel's launch count."""
     return {name: globals()[name].launches for name in KERNELS}
@@ -200,7 +220,8 @@ def _raise_on(err: int, name: str):
 
 
 def csghmc_update(g, theta, v, lr, *, prior_sig: float, alpha: float,
-                  noise_pref: float, gate: bool, seed: int, step: int):
+                  noise_pref: float, gate: bool, seed: int, step: int,
+                  elem0: int = 0):
     """cSGHMC update on the card, IN PLACE on theta and v (csrc/csghmc_update.cu):
 
         v     <- (1 - alpha) v - lr * (g + prior_sig * theta)
@@ -208,7 +229,8 @@ def csghmc_update(g, theta, v, lr, *, prior_sig: float, alpha: float,
         theta <- theta + v
 
     noise_pref = nd * sqrt(2 alpha) / N; z is Philox noise keyed by `seed`
-    at counter `step`.  Returns (theta, v).
+    at counter `step`, of global elements [elem0, elem0 + n) (the vectors
+    a shard of a longer one at that offset).  Returns (theta, v).
     """
     _check_vectors(g=g, theta=theta, v=v, lr=lr)
     _check_no_overlap(dict(theta=theta, v=v), dict(g=g, lr=lr))
@@ -217,7 +239,8 @@ def csghmc_update(g, theta, v, lr, *, prior_sig: float, alpha: float,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.csghmc_update(
             g.data_ptr(), theta.data_ptr(), v.data_ptr(), lr.data_ptr(),
-            theta.numel(), float(prior_sig), float(1.0 - alpha),
+            theta.numel(), check_offset(elem0, theta.numel()),
+            float(prior_sig), float(1.0 - alpha),
             float(noise_pref), int(bool(gate)), int(seed) & _U64,
             int(step) & _U64, stream)
     _raise_on(err, "csghmc_update")
@@ -228,30 +251,8 @@ def csghmc_update(g, theta, v, lr, *, prior_sig: float, alpha: float,
 csghmc_update.launches = 0
 
 
-def sghmc_update_dev(g, theta, theta0, v, mask, lr, dev, *, prior_sig: float,
-                     n_eff: float, nd: float, alpha: float):
-    """sghmc_update with (seed, step) read on the card from `dev` (int64
-    [3], the last unused), through the pointer entry point.  Counts into
-    sghmc_update.launches.  Returns (g, v)."""
-    _check_vectors(g=g, theta=theta, theta0=theta0, v=v, mask=mask, lr=lr)
-    _check_no_overlap(dict(g=g, v=v), dict(theta=theta, theta0=theta0,
-                                           mask=mask, lr=lr))
-    _check_dev(dev, g)
-    lib = _library("sghmc_update")
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sghmc_update_dev(
-            g.data_ptr(), theta.data_ptr(), theta0.data_ptr(), v.data_ptr(),
-            mask.data_ptr(), lr.data_ptr(), g.numel(), float(prior_sig ** 2),
-            float(n_eff), float(nd), float(1.0 - alpha), float(2.0 * alpha),
-            dev.data_ptr(), stream)
-    _raise_on(err, "sghmc_update_dev")
-    sghmc_update.launches += 1
-    return g, v
-
-
 def csghmc_update_dev(g, theta, v, lr, dev, *, prior_sig: float,
-                      alpha: float, noise_pref: float):
+                      alpha: float, noise_pref: float, elem0: int = 0):
     """csghmc_update with (seed, step, gate) read on the card from `dev`,
     an int64 tensor of 3 (`dev_scalars`), through the pointer entry point:
     the same bits as csghmc_update at the same values.  Counts into
@@ -264,21 +265,23 @@ def csghmc_update_dev(g, theta, v, lr, dev, *, prior_sig: float,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.csghmc_update_dev(
             g.data_ptr(), theta.data_ptr(), v.data_ptr(), lr.data_ptr(),
-            theta.numel(), float(prior_sig), float(1.0 - alpha),
-            float(noise_pref), dev.data_ptr(), stream)
+            theta.numel(), check_offset(elem0, theta.numel()),
+            float(prior_sig), float(1.0 - alpha), float(noise_pref),
+            dev.data_ptr(), stream)
     _raise_on(err, "csghmc_update_dev")
     csghmc_update.launches += 1
     return theta, v
 
 
 def sgld_update(g, theta, theta0, mask, lr, *, prior_sig: float, n_eff: float,
-                nd: float, seed: int, step: int):
+                nd: float, seed: int, step: int, elem0: int = 0):
     """SGLD crafted gradient on the card, IN PLACE on g (csrc/sgld_update.cu):
 
         g <- g + mask * (theta - theta0) / prior_sig^2 / N
                + nd * sqrt(2 / (N * max(lr, 1e-30))) * z
 
-    z is Philox noise keyed by `seed` at counter `step`.  Returns g.
+    z is Philox noise keyed by `seed` at counter `step`, of global elements
+    [elem0, elem0 + n).  Returns g.
     """
     _check_vectors(g=g, theta=theta, theta0=theta0, mask=mask, lr=lr)
     _check_no_overlap(dict(g=g), dict(theta=theta, theta0=theta0, mask=mask,
@@ -288,8 +291,9 @@ def sgld_update(g, theta, theta0, mask, lr, *, prior_sig: float, n_eff: float,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sgld_update(
             g.data_ptr(), theta.data_ptr(), theta0.data_ptr(), mask.data_ptr(),
-            lr.data_ptr(), g.numel(), float(prior_sig ** 2), float(n_eff),
-            float(nd), int(seed) & _U64, int(step) & _U64, stream)
+            lr.data_ptr(), g.numel(), check_offset(elem0, g.numel()),
+            float(prior_sig ** 2), float(n_eff), float(nd), int(seed) & _U64,
+            int(step) & _U64, stream)
     _raise_on(err, "sgld_update")
     sgld_update.launches += 1
     return g
@@ -299,7 +303,7 @@ sgld_update.launches = 0
 
 
 def sgld_update_dev(g, theta, theta0, mask, lr, dev, *, prior_sig: float,
-                    n_eff: float, nd: float):
+                    n_eff: float, nd: float, elem0: int = 0):
     """sgld_update with (seed, step) read on the card from `dev` (int64
     [3], the last unused), through the pointer entry point.  Counts into
     sgld_update.launches.  Returns g."""
@@ -312,15 +316,17 @@ def sgld_update_dev(g, theta, theta0, mask, lr, dev, *, prior_sig: float,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sgld_update_dev(
             g.data_ptr(), theta.data_ptr(), theta0.data_ptr(), mask.data_ptr(),
-            lr.data_ptr(), g.numel(), float(prior_sig ** 2), float(n_eff),
-            float(nd), dev.data_ptr(), stream)
+            lr.data_ptr(), g.numel(), check_offset(elem0, g.numel()),
+            float(prior_sig ** 2), float(n_eff), float(nd), dev.data_ptr(),
+            stream)
     _raise_on(err, "sgld_update_dev")
     sgld_update.launches += 1
     return g
 
 
 def sghmc_update(g, theta, theta0, v, mask, lr, *, prior_sig: float,
-                 n_eff: float, nd: float, alpha: float, seed: int, step: int):
+                 n_eff: float, nd: float, alpha: float, seed: int, step: int,
+                 elem0: int = 0):
     """SGHMC momentum update on the card, IN PLACE on g and v
     (csrc/sghmc_update.cu), with lr clamped at 1e-30:
 
@@ -328,7 +334,8 @@ def sghmc_update(g, theta, theta0, v, mask, lr, *, prior_sig: float,
              + nd * sqrt(2 alpha / (N * lr)) * z
         g <- g + v
 
-    z is Philox noise keyed by `seed` at counter `step`.  Returns (g, v).
+    z is Philox noise keyed by `seed` at counter `step`, of global elements
+    [elem0, elem0 + n).  Returns (g, v).
     """
     _check_vectors(g=g, theta=theta, theta0=theta0, v=v, mask=mask, lr=lr)
     _check_no_overlap(dict(g=g, v=v), dict(theta=theta, theta0=theta0,
@@ -338,7 +345,8 @@ def sghmc_update(g, theta, theta0, v, mask, lr, *, prior_sig: float,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sghmc_update(
             g.data_ptr(), theta.data_ptr(), theta0.data_ptr(), v.data_ptr(),
-            mask.data_ptr(), lr.data_ptr(), g.numel(), float(prior_sig ** 2),
+            mask.data_ptr(), lr.data_ptr(), g.numel(),
+            check_offset(elem0, g.numel()), float(prior_sig ** 2),
             float(n_eff), float(nd), float(1.0 - alpha), float(2.0 * alpha),
             int(seed) & _U64, int(step) & _U64, stream)
     _raise_on(err, "sghmc_update")
@@ -350,7 +358,7 @@ sghmc_update.launches = 0
 
 
 def sghmc_update_dev(g, theta, theta0, v, mask, lr, dev, *, prior_sig: float,
-                     n_eff: float, nd: float, alpha: float):
+                     n_eff: float, nd: float, alpha: float, elem0: int = 0):
     """sghmc_update with (seed, step) read on the card from `dev` (int64
     [3], the last unused), through the pointer entry point.  Counts into
     sghmc_update.launches.  Returns (g, v)."""
@@ -363,7 +371,8 @@ def sghmc_update_dev(g, theta, theta0, v, mask, lr, dev, *, prior_sig: float,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sghmc_update_dev(
             g.data_ptr(), theta.data_ptr(), theta0.data_ptr(), v.data_ptr(),
-            mask.data_ptr(), lr.data_ptr(), g.numel(), float(prior_sig ** 2),
+            mask.data_ptr(), lr.data_ptr(), g.numel(),
+            check_offset(elem0, g.numel()), float(prior_sig ** 2),
             float(n_eff), float(nd), float(1.0 - alpha), float(2.0 * alpha),
             dev.data_ptr(), stream)
     _raise_on(err, "sghmc_update_dev")
@@ -388,14 +397,17 @@ def _draw_args(like, kind: str, stream: int):
     return out, DRAW_KINDS[kind], int(stream)
 
 
-def philox_draw(like, *, kind: str, stream: int, seed: int, step: int):
+def philox_draw(like, *, kind: str, stream: int, seed: int, step: int,
+                elem0: int = 0):
     """A new fp32 vector shaped as `like` on its card (csrc/philox_draw.cu):
     N(0, 1) (kind "normal") or U[0, 1) (kind "uniform") draws, a pure
-    function of (seed, step, stream), `stream` one of DRAW_STREAMS."""
+    function of (seed, step, stream), `stream` one of DRAW_STREAMS: the
+    elements [elem0, elem0 + n) of that draw of a longer vector."""
     out, k, sid = _draw_args(like, kind, stream)
     lib = _library("philox_draw")
     with torch.cuda.device(out.device):
-        err = lib.philox_draw(out.data_ptr(), out.numel(), k, sid,
+        err = lib.philox_draw(out.data_ptr(), out.numel(),
+                              check_offset(elem0, out.numel()), k, sid,
                               int(seed) & _U64, int(step) & _U64,
                               torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "philox_draw")
@@ -406,7 +418,7 @@ def philox_draw(like, *, kind: str, stream: int, seed: int, step: int):
 philox_draw.launches = 0
 
 
-def philox_draw_dev(like, dev, *, kind: str, stream: int):
+def philox_draw_dev(like, dev, *, kind: str, stream: int, elem0: int = 0):
     """philox_draw with (seed, step) read on the card from `dev` (int64 [3],
     the last unused), through the pointer entry point: the same bits as
     philox_draw at the same values.  Counts into philox_draw.launches."""
@@ -414,7 +426,8 @@ def philox_draw_dev(like, dev, *, kind: str, stream: int):
     _check_dev(dev, out)
     lib = _library("philox_draw")
     with torch.cuda.device(out.device):
-        err = lib.philox_draw_dev(out.data_ptr(), out.numel(), k, sid,
+        err = lib.philox_draw_dev(out.data_ptr(), out.numel(),
+                                  check_offset(elem0, out.numel()), k, sid,
                                   dev.data_ptr(),
                                   torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "philox_draw_dev")

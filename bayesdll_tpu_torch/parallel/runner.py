@@ -1,5 +1,6 @@
 """Multi-chain runner: the train / eval / calibrate workflow of C chains on
-one card (counterpart of bayesdll_tpu.parallel.runner).
+one card or over the ranks of a ('chain', 'data') mesh (counterpart of
+bayesdll_tpu.parallel.runner).
 
 Wraps a single-chain runner of any of the eleven methods with:
   * the chains' training (parallel/chains.py);
@@ -21,10 +22,22 @@ Wraps a single-chain runner of any of the eleven methods with:
     JAX package's names stay, so one command line and one --resume path
     serve both packages.
 
-Chain c's draws come from its own seed (trainer.seeds[c]): its eval and
-likelihood draws are those of a single-chain run with that seed.  Every
-chain forwards with its own net_state.  Multi-host runs are not ported
-(ROADMAP.md queue 1, 'Multi-device').
+Chain c's draws come from its own seed (trainer.all_seeds[c]): its eval
+and likelihood draws are those of a single-chain run with that seed.
+Every chain forwards with its own net_state.
+
+Over ranks each rank trains its own chains (parallel/chains.py), and what
+evaluation and the cycle ends need of every chain is gathered, as the JAX
+package's `_fetch_global` gathers it: the cycle-end moments and
+likelihoods (each rank computes its own chains', from their whole vectors
+under fsdp), Laplace's stage-2 means and variances, the chains' states and
+net_states for the predictive.  Every rank then evaluates every chain on
+the same data and reads the same NLL.  The DCP checkpoint keys each chain
+by its global index (and an fsdp shard by its data rank as well); each
+rank saves and loads its own chains or shards, rank 0 writes the sidecar
+after the save, behind a barrier.  A forced pickle gathers every chain's
+whole state into the file each process writes (one path: the writes are
+atomic, of the same bytes).  Only rank 0 writes the other artifacts.
 """
 
 from __future__ import annotations
@@ -46,17 +59,24 @@ from bayesdll_tpu_torch.utils import checkpoint as ckpt
 
 class MultiChainRunner:
     def __init__(self, runner, n_chain: int = None, *, logger=None,
-                 workdir=None, fsdp: bool = False):
+                 workdir=None, fsdp: bool = False, mesh=None):
         self.runner = runner
-        self.trainer = MultiChainTrainer(runner, n_chain, fsdp=fsdp)
+        self.trainer = MultiChainTrainer(runner, n_chain, mesh=mesh,
+                                         fsdp=fsdp)
         self.logger = logger or runner.logger
         self.workdir = workdir or runner.workdir
+        # the rank that writes the artifacts; the others keep the workdir
+        # for the DCP checkpoint, which every rank writes
+        self.writer = not dist.is_initialized() or dist.get_rank() == 0
+        if not self.writer:
+            runner.workdir = None
         if self.workdir:
             os.makedirs(self.workdir, exist_ok=True)
         self.cfg = runner.cfg
         self.device = runner.device
         self.results = {}
         self._la_stage2 = None  # (means [C, D], vars [C, D]) after stage 2
+        self._la_net_states = None  # every chain's, for stage 2's mixture
         self._la_best = None  # [losses [C], thetas [C], net_states [C]]
         self._is_cyclical = hasattr(runner, "_ensure_sched")
         self.chain_cycle_stats = []  # chain -> cycle -> stats
@@ -83,8 +103,8 @@ class MultiChainRunner:
             r._train_loader = train_loader
             if not self.chain_cycle_stats:  # load_ckpt may have filled it
                 self.chain_cycle_stats = [{} for _ in range(tr.n_chain)]
-        logger.info("Start multi-chain training: %d chains on %s",
-                    tr.n_chain, self.device)
+        logger.info("Start multi-chain training: %d chains x %d data shards "
+                    "on %s", tr.n_chain, tr.n_data, self.device)
         best_loss = np.inf
         tic0 = time.time()
         is_la = hasattr(r, "estimate_variance")
@@ -133,17 +153,19 @@ class MultiChainRunner:
 
     @torch.no_grad()
     def _per_chain_point_losses(self, loader) -> np.ndarray:
-        """[C] mean CE of each chain's iterate over `loader` (eval mode,
-        its own net_state)."""
+        """[k] mean CE of each of this rank's chains' iterates over `loader`
+        (eval mode, its own net_state)."""
         r, tr = self.runner, self.trainer
-        tot = [torch.zeros((), device=self.device) for _ in range(tr.n_chain)]
+        k = len(tr.chains)
+        thetas = [r.iterate(tr.full_state(i)) for i in range(k)]
+        tot = [torch.zeros((), device=self.device) for _ in range(k)]
         n = 0.0
         for x, y, valid in loader:
             xd, yd = self._to_device(x), self._to_device(y).long()
             vd = self._to_device(valid)
-            for c in range(tr.n_chain):
-                logits, _ = r.target.forward(r.iterate(tr.states[c]),
-                                             tr.net_states[c], xd, train=False)
+            for c in range(k):
+                logits, _ = r.target.forward(thetas[c], tr.net_states[c], xd,
+                                             train=False)
                 picked = torch.log_softmax(logits, -1).gather(
                     1, yd[:, None])[:, 0]
                 tot[c] += torch.sum(-picked * vd)
@@ -151,87 +173,104 @@ class MultiChainRunner:
         return np.array([float(t) for t in tot]) / max(n, 1.0)
 
     def _track_la_best(self, loader, ep: int):
-        """Each chain's best-val iterate and its net_state (copies), which
-        stage 2 takes as the MAP, as the reference reloads its best
-        checkpoint (`methods/la.py:124-143`)."""
+        """Each of this rank's chains' best-val iterate (whole) and its
+        net_state (copies), which stage 2 takes as the MAP, as the reference
+        reloads its best checkpoint (`methods/la.py:124-143`)."""
         if loader is None:
             return  # stage 2 then takes the final iterates
         tr = self.trainer
+        k = len(tr.chains)
         losses = self._per_chain_point_losses(loader)
         if self._la_best is None:
-            self._la_best = [losses, [None] * tr.n_chain,
-                             [None] * tr.n_chain]
-            improved = np.ones(tr.n_chain, bool)
+            self._la_best = [losses, [None] * k, [None] * k]
+            improved = np.ones(k, bool)
         else:
             improved = losses < self._la_best[0]
             if improved.any():
-                self.logger.info("LA best-val improved on chains %s at epoch "
-                                 "%d", np.nonzero(improved)[0].tolist(), ep)
+                self.logger.info(
+                    "LA best-val improved on chains %s at epoch %d",
+                    [tr.chains[i] for i in np.nonzero(improved)[0]], ep)
         best_l, best_t, best_ns = self._la_best
-        for c in np.nonzero(improved)[0]:
-            best_l[c] = losses[c]
-            best_t[c] = self.runner.iterate(tr.states[c]).clone()
-            best_ns[c] = clone_tree(tr.net_states[c])
+        for i in np.nonzero(improved)[0]:
+            best_l[i] = losses[i]
+            best_t[i] = self.runner.iterate(tr.full_state(i)).clone()
+            best_ns[i] = clone_tree(tr.net_states[i])
 
     def _chain_laplace(self, train_loader):
-        """Stage 2 per chain, one after another: the diagonal Fisher at the
-        chain's best-val iterate (else its final one) with the matching
-        net_state.  Returns (means, vars), [C, D] each."""
+        """Stage 2 per chain, one after another (each rank its own chains):
+        the diagonal Fisher at the chain's best-val iterate (else its final
+        one) with the matching net_state.  Returns every chain's (means,
+        vars), [C, D] each, and keeps their net_states in _la_net_states."""
         r, tr = self.runner, self.trainer
-        means, vars_, secs = [], [], []
+        means, vars_, secs, nss = [], [], [], []
         saved_map = r.map_theta
         try:
-            for c in range(tr.n_chain):
+            for i, c in enumerate(tr.chains):
+                full = tr.full_state(i)
                 if self._la_best is not None:
-                    theta, ns = self._la_best[1][c], self._la_best[2][c]
+                    theta, ns = self._la_best[1][i], self._la_best[2][i]
                 else:
-                    theta, ns = r.iterate(tr.states[c]), tr.net_states[c]
+                    theta, ns = r.iterate(full), tr.net_states[i]
                 self.logger.info("LA stage 2: Fisher for chain %d/%d", c,
                                  tr.n_chain)
                 tic = time.time()
-                with r.bound(tr.states[c], ns, tr.seeds[c]):
+                with r.bound(full, ns, tr.seeds[i]):
                     r.map_theta = theta
                     vars_.append(r.estimate_variance(train_loader))
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 secs.append(time.time() - tic)
                 means.append(theta)
+                nss.append(ns)
         finally:
             r.map_theta = saved_map
-        self.results["fisher_time_per_chain"] = secs
-        return torch.stack(means), torch.stack(vars_)
+        self.results["fisher_time_per_chain"] = tr.gather_chains(secs)
+        mv = tr.gather_trees([{"m": m, "v": v} for m, v in zip(means, vars_)])
+        self._la_net_states = tr.gather_trees(nss)
+        return (torch.stack([t["m"] for t in mv]),
+                torch.stack([t["v"] for t in mv]))
 
     # ---- the cyclical methods, per chain ----------------------------------------
 
     def _cyclical_after_batch(self, ep: int):
         """At a cycle's last step, on every chain: its cycle's moments and
-        full-train likelihoods (`_chain_likelihoods`), then fresh moments
-        and the method's cycle-start reset."""
+        full-train likelihoods (`_chain_likelihoods`; each rank its own
+        chains', gathered), then fresh moments and the method's cycle-start
+        reset."""
         r, tr = self.runner, self.trainer
         step = tr.bi - 1
         if not r.sched.last_in_cycle_py(step):
             return
         cycle = r.sched.cycle_number_py(step)
-        liks = self._chain_likelihoods()
-        for c, state in enumerate(tr.states):
+        full = [tr.full_state(i) for i in range(len(tr.chains))]
+        liks = self._chain_likelihoods(full)
+        stats = []
+        for state, lik in zip(full, liks):
             mean, var = state.moments.mean_var()
-            self.chain_cycle_stats[c][cycle] = {
-                "mean": base.to_host(mean), "var": base.to_host(var),
-                "n": int(r._moments_count(state)), "likelihoods": liks[c]}
+            stats.append({"mean": base.to_host(mean), "var": base.to_host(var),
+                          "n": int(r._moments_count(state)),
+                          "likelihoods": lik})
+        liks = []
+        for c, st in enumerate(tr.gather_chains(stats)):
+            self.chain_cycle_stats[c][cycle] = st
+            liks.append(st["likelihoods"])
         self.logger.info(
             "Completed cycle %d on %d chains (mean likelihood %.3e)",
             cycle, tr.n_chain, float(np.mean([lk.mean() for lk in liks])))
         tr.reset_cycle_moments()
         r.multi_chain_cycle_start(tr, cycle + 1)
 
-    def _chain_likelihoods(self):
-        """Each chain's full-train likelihoods of nst samples around its
-        LIK_CENTER with its cycle's variance, every chain on the same
-        examples (one pass over the loader), with its own net_state and
-        its own draws."""
+    def _chain_likelihoods(self, states=None):
+        """Each of this rank's chains' full-train likelihoods of nst samples
+        around its LIK_CENTER with its cycle's variance (`states` its whole
+        states, gathered when not given), every chain on the same examples
+        (one pass over the loader), with its own net_state and its own
+        draws."""
         tr = self.trainer
+        if states is None:
+            states = [tr.full_state(i) for i in range(len(tr.chains))]
         return self.runner.chains_likelihoods(
-            self._train_loader, list(zip(tr.states, tr.net_states, tr.seeds)))
+            self._train_loader, list(zip(states, tr.net_states, tr.seeds)))
 
     def gmm_weights_per_chain(self):
         """Each chain's GMM weights over its cycles, normalised within the
@@ -259,7 +298,7 @@ class MultiChainRunner:
         tr = self.trainer
         rng_ = getattr(self._train_loader, "_rng", None)
         return {"epoch": ep, "bi": tr.bi, "method": self.runner.method_name,
-                "n_chain": tr.n_chain, "seeds": tr.seeds,
+                "n_chain": tr.n_chain, "seeds": tr.all_seeds,
                 "chain_cycle_stats": self.chain_cycle_stats,
                 "train_loader_rng": None if rng_ is None else rng_.get_state()}
 
@@ -271,7 +310,7 @@ class MultiChainRunner:
             raise ValueError(
                 f"checkpoint has {meta['n_chain']} chains, runner has "
                 f"{tr.n_chain}; restart with matching --num_chains")
-        if meta["seeds"] != tr.seeds:
+        if meta["seeds"] != tr.all_seeds:
             raise ValueError("checkpoint's chain seeds differ from the "
                              "runner's; restart with the run's --seed")
 
@@ -287,22 +326,39 @@ class MultiChainRunner:
     def save_ckpt(self, ep: int, fname: str = "chains_ckpt.pkl"):
         """Every chain's sampler state and net_state, the step counter and
         the per-chain GMM registries: what a bit-identical resume needs.
-        Goes to the DCP directory when `_use_orbax()`, else to `fname`."""
+        Goes to the DCP directory when `_use_orbax()`, else to `fname`,
+        which every process writes whole (through a file of its own,
+        renamed into place)."""
         if not self.workdir:
             return None
         if self._use_orbax():
             return self._save_ckpt_orbax(ep)
-        tr = self.trainer
+        states, net_states, _ = self.trainer.all_chains()
         path = os.path.join(self.workdir, fname)
         payload = {
             **self._meta(ep),
-            "states": [base.to_host(s) for s in tr.states],
-            "net_states": [base.to_host(ns) for ns in tr.net_states],
+            "states": [base.to_host(s) for s in states],
+            "net_states": [base.to_host(ns) for ns in net_states],
         }
-        with open(path, "wb") as f:
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
             pickle.dump(payload, f)
+        os.replace(tmp, path)
         self.logger.info("Multi-chain checkpoint saved at %s", path)
         return path
+
+    def _dcp_tree(self):
+        """This rank's chains for DCP: the states keyed by the chain's
+        global index (and an fsdp shard's data rank), the net_states by the
+        index.  Without a mesh, or with one that shards nothing, the keys
+        are those of the lists of every chain."""
+        tr = self.trainer
+        sharded = tr.shard is not None and tr.shard.sharded
+        key = (lambda c: f"{c}-shard{tr.data_rank}of{tr.n_data}") \
+            if sharded else str
+        return {"states": {key(c): s for c, s in zip(tr.chains, tr.states)},
+                "net_states": {str(c): ns for c, ns in
+                               zip(tr.chains, tr.net_states)}}
 
     def _save_ckpt_orbax(self, ep: int):
         """The chains' states and net_states as the DCP directory
@@ -312,10 +368,10 @@ class MultiChainRunner:
         rank 0 (or the only process) writes."""
         tr = self.trainer
         path = ckpt.save(os.path.join(self.workdir, "chains_ckpt_orbax"),
-                         {"states": tr.states, "net_states": tr.net_states})
-        if not dist.is_initialized() or dist.get_rank() == 0:
-            meta = {**self._meta(ep),
-                    "counters": [ckpt.host_values(s) for s in tr.states]}
+                         self._dcp_tree())
+        counters = tr.gather_chains([ckpt.host_values(s) for s in tr.states])
+        if self.writer:
+            meta = {**self._meta(ep), "counters": counters}
             with open(path + ".meta.pkl", "wb") as f:
                 pickle.dump(meta, f)
         if dist.is_initialized() and dist.get_world_size() > 1:
@@ -332,14 +388,17 @@ class MultiChainRunner:
         with open(path + ".meta.pkl", "rb") as f:
             meta = pickle.load(f)
         self._check_meta(meta)
-        restored = ckpt.restore(path, {"states": tr.states,
-                                       "net_states": tr.net_states})
-        counters = [ckpt.host_values(s) for s in restored["states"]]
-        if counters != meta["counters"]:
+        tree = self._dcp_tree()
+        restored = ckpt.restore(path, tree)
+        states = [restored["states"][k] for k in tree["states"]]
+        counters = [ckpt.host_values(s) for s in states]
+        want = [meta["counters"][c] for c in tr.chains]
+        if counters != want:
             raise ValueError(f"{path}: the directory's counters {counters} "
-                             f"are not its sidecar's {meta['counters']}")
-        tr.states = restored["states"]
-        tr.net_states = restored["net_states"]
+                             f"are not its sidecar's {want}")
+        tr.states = states
+        tr.net_states = [restored["net_states"][k]
+                         for k in tree["net_states"]]
         return self._loaded(meta, path)
 
     def load_ckpt(self, path: str) -> int:
@@ -351,10 +410,12 @@ class MultiChainRunner:
             payload = pickle.load(f)
         self._check_meta(payload)
         tr = self.trainer
-        tr.states = [base.from_host(t, s, self.device)
-                     for t, s in zip(tr.states, payload["states"])]
-        tr.net_states = [base.from_host(t, s, self.device)
-                         for t, s in zip(tr.net_states, payload["net_states"])]
+        tr.states = [tr.local_state(base.from_host(
+            tr.states[i], payload["states"][c], self.device))
+            for i, c in enumerate(tr.chains)]
+        tr.net_states = [base.from_host(tr.net_states[i],
+                                        payload["net_states"][c], self.device)
+                         for i, c in enumerate(tr.chains)]
         return self._loaded(payload, path)
 
     # ---- the combined predictive ----------------------------------------------
@@ -370,35 +431,39 @@ class MultiChainRunner:
         if self._is_cyclical and any(self.chain_cycle_stats):
             return self._gmm_evaluate(loader)
         if self._la_stage2 is not None:
-            means, vars_ = self._la_stage2
-            ns = self._la_best[2] if self._la_best is not None else None
-            return self._gaussian_evaluate(loader, means, vars_, ns)
+            return self._gaussian_evaluate(loader, *self._la_stage2,
+                                           self._la_net_states)
         return self._generic_evaluate(loader)
+
+    def save_logits(self, *args, **kw):
+        if self.writer:
+            return base.BaseRunner.save_logits(self, *args, **kw)
+        return None
 
     def _gmm_evaluate(self, loader):
         """Within each chain the GMM weights over its cycles, across chains
         equal weights; chain c's component of cycle k draws as a
         single-chain run with the chain's seed draws for cycle k."""
         tr = self.trainer
+        _, net_states, seeds = tr.all_chains(states=False)
         comps = []
         for c, w in enumerate(self.gmm_weights_per_chain()):
             for cyc, wv in sorted(w.items()):
                 if wv >= 1e-10:
                     st = self.chain_cycle_stats[c][cyc]
                     comps.append((wv / tr.n_chain, st["mean"], st["var"],
-                                  tr.net_states[c], tr.seeds[c], cyc))
+                                  net_states[c], seeds[c], cyc))
         return self.runner.mixture_evaluate(loader, comps)
 
-    def _gaussian_evaluate(self, loader, means, vars_, net_states=None):
+    def _gaussian_evaluate(self, loader, means, vars_, net_states):
         """The mixture of the chains' N(means[c], vars_[c]), each chain
-        forwarding with its net_state (default: its trained one)."""
+        forwarding with its net_state in `net_states`."""
         r, tr = self.runner, self.trainer
-        net_states = net_states or tr.net_states
 
         def pred(x, i):
             return torch.cat([base.gaussian_sample_logits(
                 r.target, net_states[c], means[c], vars_[c], x,
-                rng.generator(self.device, tr.seeds[c], rng.EVAL, 0, i),
+                rng.generator(self.device, tr.all_seeds[c], rng.EVAL, 0, i),
                 r.nst) for c in range(tr.n_chain)])
         return self._predictive_loop(loader, pred)
 
@@ -406,14 +471,14 @@ class MultiChainRunner:
         """Each chain's `pred_state` and `_predict_logits` under its own
         binding, the chains' samples pooled."""
         r, tr = self.runner, self.trainer
-        ps = [r.pred_state_from(s, ns)
-              for s, ns in zip(tr.states, tr.net_states)]
+        states, net_states, seeds = tr.all_chains()
+        ps = [r.pred_state_from(s, ns) for s, ns in zip(states, net_states)]
 
         def pred(x, i):
             out = []
             for c in range(tr.n_chain):
-                with r.bound(tr.states[c], tr.net_states[c], tr.seeds[c]):
+                with r.bound(states[c], net_states[c], seeds[c]):
                     out.append(r._predict_logits(ps[c], x, rng.generator(
-                        self.device, tr.seeds[c], rng.EVAL, 0, i)))
+                        self.device, seeds[c], rng.EVAL, 0, i)))
             return torch.cat(out)
         return self._predictive_loop(loader, pred)

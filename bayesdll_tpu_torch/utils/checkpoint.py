@@ -19,7 +19,10 @@ by position; `restore` rebuilds the template's structure from what DCP
 loaded.
 
 Both calls run in one process without a process group (DCP then reads and
-writes every tensor itself).  A failed save or load raises.
+writes every tensor itself), or on every rank of one: each rank then saves
+and loads the entries of its own tree (entries of one key on several ranks
+are one replicated value, which DCP writes once), and rank 0 alone moves
+the directories, between barriers.  A failed save or load raises.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import shutil
 import warnings
 
 import torch
+import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 
 # DCP warns on every call made without a process group
@@ -87,12 +91,23 @@ def save(directory: str, state) -> str:
     disk when this returns; the pickle checkpoints are not synced."""
     directory = os.path.abspath(directory)
     tmp = directory + ".tmp"
-    shutil.rmtree(tmp, ignore_errors=True)
+    ranks = dist.is_initialized() and dist.get_world_size() > 1
+    first = not ranks or dist.get_rank() == 0
+
+    def barrier():
+        if ranks:
+            dist.barrier()
+    if first:
+        shutil.rmtree(tmp, ignore_errors=True)
+    barrier()
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=_NO_GROUP)
         dcp.save(_to_tree(state), checkpoint_id=tmp)
-    shutil.rmtree(directory, ignore_errors=True)
-    os.replace(tmp, directory)
+    barrier()
+    if first:
+        shutil.rmtree(directory, ignore_errors=True)
+        os.replace(tmp, directory)
+    barrier()
     return directory
 
 

@@ -110,6 +110,23 @@ Phases, one line each:
      `cli.demo --profile_dir` on the MLP cSGHMC path for an epoch, per
      step and fused: the trace names csghmc_update_kernel once a step,
      and StepTimer against CUDA events on the same steps.
+  9. multi-device (parallel/): (a) each of the four kernels on 2 and 4
+     shards of the MLP's and of ViT-L/32's D at their global offsets
+     (`elem0`), by value and through the pointer entry, bitwise equal to
+     one whole-vector launch, one launch per shard; (b) the process-group
+     path in a world of one rank over NCCL (`--multihost`, a
+     ('chain', 'data') mesh, the gradient's all-reduce, the losses'
+     gathers): 2-chain cSGHMC on the full-width MLP through the CLI and
+     ViT-L/32 cSGHMC (bf16, batch 128) with --fsdp, each bitwise equal to
+     the single-process run per step and fused, with ms/step beside the
+     single process's; (c) two ranks sharing the card over gloo (NCCL
+     refuses two ranks on one GPU), each a CLI process with --multihost:
+     the MLP with --data_parallel 2 at nd = 0 against the single step,
+     with --fsdp bitwise equal to replicated data parallel at nd > 0 (half
+     of D per rank), --num_chains 2 over the ranks bitwise the
+     single-process chains, a DCP save and resume at world 2 bitwise, and
+     ViT-L/32 at --tensor_parallel 2 for 2 steps against the
+     single-process steps; every rank process ends with the phase.
 The MLP and ResNet runners are freed before the ViT-L/32 phases.  The
 script prints its total time; the line before the last is a JSON record of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -2109,10 +2126,10 @@ def watched_multichain(seen: dict):
         seen["mc"] = self
         likelihoods, laplace = self._chain_likelihoods, self._chain_laplace
 
-        def timed_likelihoods():
+        def timed_likelihoods(*args):
             torch.cuda.synchronize()
             tic = time.perf_counter()
-            out = likelihoods()
+            out = likelihoods(*args)
             torch.cuda.synchronize()
             seen.setdefault("lik_secs", []).append(time.perf_counter() - tic)
             return out
@@ -4030,6 +4047,628 @@ def phase_checkpoints_and_traces(smi, vit, xs, ys, by_path: dict):
           f"{time.perf_counter() - tic:.1f} s", flush=True)
 
 
+# ---- phase 9: multi-device ---------------------------------------------------
+
+# 9a's shard counts, and the kernels' seed, step and gate there
+SHARD_COUNTS = (2, 4)
+SHARD_DRAW = dict(seed=(1 << 63) + 5, step=(1 << 32) + 9)
+
+
+def shard_vectors(d: int) -> dict:
+    """The operands of the four kernels at D: fp32 vectors on the card, lr
+    head-free and positive, a 0/1 mask."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    vec = {k: s * torch.randn(d, generator=gen, device="cuda")
+           for k, s in (("g", 0.1), ("theta", 0.05), ("theta0", 0.05),
+                        ("v", 0.01))}
+    vec["lr"] = 1e-2 * (1.0 + torch.rand(d, generator=gen, device="cuda"))
+    vec["mask"] = (torch.rand(d, generator=gen, device="cuda") > 0.1).float()
+    return vec
+
+
+# what each kernel writes in place (philox_draw writes a new vector)
+SHARD_WRITES = {"csghmc_update": ("theta", "v"), "sgld_update": ("g",),
+                "sghmc_update": ("g", "v"), "philox_draw": ()}
+
+
+def shard_call(name, vec, lo, hi, pointer: bool):
+    """`name`'s wrapper on vec's [lo, hi) at elem0 = lo, by value or
+    through its pointer entry; returns the draw (philox_draw) or None."""
+    from bayesdll_tpu_torch.ops import kernels
+    a = {k: t[lo:hi] for k, t in vec.items()}
+    seed, step = SHARD_DRAW["seed"], SHARD_DRAW["step"]
+    dev = kernels.dev_scalars(seed, step, True) if pointer else None
+    by = {"dev": dev} if pointer else {"seed": seed, "step": step}
+    kw = dict(elem0=lo)
+    if name == "csghmc_update":
+        pref = kernels.noise_prefactor(1.0, 0.05, 1000.0)
+        if pointer:
+            kernels.csghmc_update_dev(a["g"], a["theta"], a["v"], a["lr"], dev,
+                                      prior_sig=1.0, alpha=0.05,
+                                      noise_pref=pref, **kw)
+        else:
+            kernels.csghmc_update(a["g"], a["theta"], a["v"], a["lr"],
+                                  prior_sig=1.0, alpha=0.05, noise_pref=pref,
+                                  gate=True, seed=seed, step=step, **kw)
+        return None
+    sg = dict(prior_sig=1.0, n_eff=1000.0, nd=1.0, **kw)
+    if name == "sgld_update":
+        fn = kernels.sgld_update_dev if pointer else kernels.sgld_update
+        args = (a["g"], a["theta"], a["theta0"], a["mask"], a["lr"])
+    elif name == "sghmc_update":
+        fn = kernels.sghmc_update_dev if pointer else kernels.sghmc_update
+        args = (a["g"], a["theta"], a["theta0"], a["v"], a["mask"], a["lr"])
+        sg["alpha"] = 0.05
+    else:
+        fn = kernels.philox_draw_dev if pointer else kernels.philox_draw
+        draw = dict(kind="normal", stream=kernels.STREAM_VI, **kw)
+        return fn(a["g"], dev, **draw) if pointer else fn(a["g"], seed=seed,
+                                                           step=step, **draw)
+    if pointer:
+        fn(*args, dev, **sg)
+    else:
+        fn(*args, seed=seed, step=step, **sg)
+    return None
+
+
+def shard_run(name, vec, d, n, pointer):
+    """n shard launches of `name` over copies of `vec`: the written vectors
+    (or the draws) concatenated, and the launches counted."""
+    out = {k: t.clone() for k, t in vec.items()}
+    reset_launches()
+    size = d // n
+    draws = [shard_call(name, out, r * size, (r + 1) * size, pointer)
+             for r in range(n)]
+    torch.cuda.synchronize()
+    counts = read_launches()
+    if name == "philox_draw":
+        return [torch.cat(draws)], counts
+    return [out[k] for k in SHARD_WRITES[name]], counts
+
+
+def phase_shard_kernels(smi, dims: dict) -> dict:
+    """9a: each kernel on 2 and 4 shards of D at their global offsets, by
+    value and through the pointer entry, against one whole-vector launch:
+    bitwise, one launch per shard.  Returns the launches."""
+    from bayesdll_tpu_torch.ops import kernels
+    tic = time.perf_counter()
+    launches = {}
+    for label, d in dims.items():
+        vec = shard_vectors(d)
+        for name in kernels.KERNELS:
+            for pointer in (False, True):
+                whole, _ = shard_run(name, vec, d, 1, pointer)
+                for n in SHARD_COUNTS:
+                    got, counts = shard_run(name, vec, d, n, pointer)
+                    check(counts[name] == n and sum(counts.values()) == n,
+                          f"9a {name} {n} shards: launches {counts}")
+                    same = all(torch.equal(a, b) for a, b in zip(got, whole))
+                    check(same, f"9a {name} at D={d}, {n} shards "
+                          f"({'pointer' if pointer else 'by value'}): the "
+                          "shards' concatenation is not the whole launch")
+                    launches[name] = launches.get(name, 0) + n
+                del whole
+        del vec
+        free_device()
+    print(f"phase 9a: [{smi}] csghmc_update, sgld_update, sghmc_update, "
+          f"philox_draw on {list(SHARD_COUNTS)} shards at their global "
+          f"offsets, by value and through the pointer entry, at D = "
+          f"{dims}: each concatenation bitwise equal to one whole-vector "
+          f"launch (noise on, seed 2^63+5, step 2^32+9), one launch per "
+          f"shard; {time.perf_counter() - tic:.1f} s", flush=True)
+    return launches
+
+
+def free_tcp_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+MULTIHOST_1 = ["--multihost", "--num_processes", "1", "--process_id", "0"]
+
+
+@contextlib.contextmanager
+def world_1():
+    """The CLI's --multihost arguments for a world of one rank over NCCL
+    (the card); the process group destroyed after."""
+    import torch.distributed as dist
+    try:
+        yield MULTIHOST_1 + ["--coordinator", f"127.0.0.1:{free_tcp_port()}"]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def chain_states_differ(a, b) -> list:
+    """Chain c's differing tensors between two lists of states."""
+    return [(c, d) for c, (sa, sb) in enumerate(zip(a, b))
+            if (d := differing(sa, sb))]
+
+
+def chain_steps_ms(mc, xs, ys) -> float:
+    """ms/step of `mc`'s trainer over len(xs) per-step steps (step_loop),
+    host clock to a synchronize."""
+    tr = mc.trainer
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    tr.step_loop(0, xs, ys, tr.bi)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - tic) * 1e3 / len(xs)
+
+
+def in_turns(runs: dict, xs, ys) -> dict:
+    """ms/step of the two runners of `runs` ("single", "world 1") timed in
+    turns, single, world 1, world 1, single, after one untimed step each;
+    each runner's mean."""
+    for mc in runs.values():
+        chain_steps_ms(mc, xs[:1], ys[:1])
+    ms = {name: [] for name in runs}
+    for name in ("single", "world 1", "world 1", "single"):
+        ms[name].append(chain_steps_ms(runs[name], xs, ys))
+    return {name: sum(v) / len(v) for name, v in ms.items()}
+
+
+def phase_world1_mlp(smi, by_path) -> dict:
+    """9b: 2-chain cSGHMC on the full-width MLP through the CLI, single
+    process and as a world of one rank over NCCL (the process-group path:
+    the ('chain', 'data') mesh, the gradient's all-reduce, the losses'
+    gathers), per step and fused: every chain's state bitwise equal; then
+    ms/step of each, in turns."""
+    argv = CKPT_CLI + ["--num_chains", "2"] + ONE_EPOCH
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="world1_", dir=SCRATCH))
+    ms = {}
+
+    def cli_run(name, flags, tag):
+        seen = {}
+        with watched_multichain(seen):
+            reset_launches()
+            cli_main(argv + flags + ["--log_dir", str(root / name)])
+            torch.cuda.synchronize()
+            counts = read_launches()
+        mc = seen["mc"]
+        check(counts["csghmc_update"] == 2 * len(mc._train_loader),
+              f"9b mlp {name} {tag}: launches {counts}")
+        check((mc.trainer.mesh is not None) == (name == "world 1"),
+              f"9b mlp {name}: a mesh only in the world-1 run")
+        return mc, counts
+    try:
+        for fused in (False, True):
+            flags = ["--fused_steps"] if fused else []
+            tag = "fused" if fused else "per step"
+            runs = {"single": cli_run("single", flags, tag)[0]}
+            with world_1() as extra:
+                runs["world 1"], counts = cli_run("world 1", flags + extra,
+                                                  tag)
+                by_path[f"csghmc mlp_mnist 2 chains world 1 nccl {tag}"] = \
+                    counts
+                diff = chain_states_differ(runs["single"].trainer.states,
+                                           runs["world 1"].trainer.states)
+                check(not diff, f"9b mlp {tag}: single against world 1: "
+                      f"{diff}")
+                check(chain_registries_equal(
+                    runs["single"].chain_cycle_stats,
+                    runs["world 1"].chain_cycle_stats),
+                    f"9b mlp {tag}: the cycle registries")
+                if not fused:
+                    xs, ys = stacked_batches(runs["single"]._train_loader,
+                                             20)
+                    ms = in_turns(
+                        runs, xs[:, None].expand(-1, 2, *xs.shape[1:]),
+                        ys[:, None].expand(-1, 2, -1))
+            del runs
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 9b: [{smi}] csghmc mlp_mnist 2 chains batch 128 through "
+          f"the CLI, single process and --multihost world 1 over NCCL, per "
+          f"step and fused: every chain's state and the cycle registries "
+          f"bitwise equal; step_loop in turns {ms['single']:.3f} ms/step "
+          f"single, {ms['world 1']:.3f} ms/step world 1 "
+          f"({ms['world 1'] / ms['single'] - 1:+.1%})", flush=True)
+    return ms
+
+
+def vit_fsdp_runner(world: bool):
+    """The ViT-L/32 cSGHMC multi-chain runner of 9b through the CLI's
+    build_all: one chain, --fsdp, data_parallel 1; under a world of one
+    rank over NCCL when `world`."""
+    import logging
+
+    from bayesdll_tpu_torch.cli import demo
+    from bayesdll_tpu_torch.config import Config
+    from bayesdll_tpu_torch.parallel import init_distributed
+    if world:
+        init_distributed(f"127.0.0.1:{free_tcp_port()}", 1, 0)
+    cfg = Config(method="csghmc", hparams=dict(VIT_HP), dataset="synthetic",
+                 lr=VIT_LR, seed=0, device="cuda", fsdp=True,
+                 mesh_shape={"chain": 1, "data": 1}, **VIT)
+    mc, loaders = demo.build_all(cfg, logging.getLogger("chip_smoke.9b"))
+    mc.runner._ensure_sched(len(loaders[0]))  # what train sets first
+    check((mc.trainer.mesh is not None) == world
+          and (mc.trainer.shard is not None
+               and mc.trainer.shard.sharded) == world,
+          f"9b vit: mesh and fsdp shard present = {world}")
+    return mc, loaders
+
+
+def phase_world1_vit(smi, by_path) -> dict:
+    """9b: ViT-L/32 cSGHMC (batch 128, bf16, full width) with --fsdp at
+    data_parallel 1, single process and as a world of one rank over NCCL:
+    3 steps per step, then a fused segment of 3, θ and v bitwise equal
+    after each; ms/step of each, in turns."""
+    import torch.distributed as dist
+    runs, out = {}, {}
+    try:
+        for name in ("single", "world 1"):
+            mc, loaders = vit_fsdp_runner(name == "world 1")
+            xs, ys = stacked_batches(loaders[0], 6)
+            xs, ys = xs[:, None], ys[:, None]
+            tr = mc.trainer
+            reset_launches()
+            tr.step_loop(0, xs[:3], ys[:3], 0)
+            torch.cuda.synchronize()
+            per_step = read_launches()
+            snap = tr.full_state(0).theta.clone()
+            reset_launches()
+            tr.run_steps(0, xs[3:6], ys[3:6], 3)
+            torch.cuda.synchronize()
+            fused = read_launches()
+            check(per_step["csghmc_update"] == 3
+                  and fused["csghmc_update"] == 3,
+                  f"9b vit {name}: launches {per_step} {fused}")
+            if name == "world 1":
+                by_path["csghmc vit_l_32 fsdp world 1 nccl"] = per_step
+                by_path["csghmc vit_l_32 fsdp world 1 nccl fused"] = fused
+            full = tr.full_state(0)
+            out[name] = (snap, full.theta.clone(), full.v.clone())
+            runs[name] = mc
+            del full, snap, loaders
+            # the fused segment's graphs and their pool: the two runners
+            # are then timed per step side by side
+            mc.runner._step_graphs.clear()
+            free_device()
+        same = [torch.equal(a, b)
+                for a, b in zip(out["single"], out["world 1"])]
+        check(all(same), f"9b vit: θ after the per-step steps, θ and v "
+              f"after the fused segment, single against world 1: {same}")
+        del out
+        ms = in_turns(runs, xs[:4], ys[:4])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    del runs, mc, tr, xs, ys
+    free_device()
+    print(f"phase 9b: [{smi}] csghmc vit_l_32 bf16 batch 128 --fsdp at "
+          f"data_parallel 1, single process and world 1 over NCCL: θ after "
+          f"3 per-step steps and θ, v after a fused segment of 3 bitwise "
+          f"equal; step_loop in turns {ms['single']:.1f} ms/step single, "
+          f"{ms['world 1']:.1f} ms/step world 1 "
+          f"({ms['world 1'] / ms['single'] - 1:+.2%})", flush=True)
+    return ms
+
+
+# 9c: a rank of the CLI, one process each: the CLI's main with its runner
+# kept, its kernel launches counted from 0, its first step's states and its
+# final whole states (every chain's) written to a pickle
+RANK_RUN = r'''
+import json, pickle, sys, time
+import torch
+import bayesdll_tpu_torch.data as data
+from bayesdll_tpu_torch.cli import demo
+from bayesdll_tpu_torch.methods import base
+from bayesdll_tpu_torch.ops import kernels
+from bayesdll_tpu_torch.parallel import chains, runner as mcr
+out_path, cut, argv = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3:]
+prepare = data.prepare
+def cut_prepare(cfg):
+    cfg.synthetic_n_train, cfg.synthetic_n_test = cut
+    return prepare(cfg)
+data.prepare = cut_prepare
+seen = {}
+train = mcr.MultiChainRunner.train
+def keep(self, *a, **k):
+    seen["mc"] = self
+    return train(self, *a, **k)
+mcr.MultiChainRunner.train = keep
+base_train = base.BaseRunner.train
+def keep_single(self, *a, **k):
+    seen.setdefault("single", self)
+    return base_train(self, *a, **k)
+base.BaseRunner.train = keep_single
+step_local = chains.MultiChainTrainer._step_local
+def first(self, *a, **k):
+    out = step_local(self, *a, **k)
+    if "first" not in seen:
+        seen["first"] = [base.to_host(s) for s in self.all_chains()[0]]
+    return out
+chains.MultiChainTrainer._step_local = first
+for name in kernels.KERNELS:
+    getattr(kernels, name).launches = 0
+tic = time.perf_counter()
+res = demo.main(argv)
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+out = {"counts": kernels.launch_counts(), "secs": time.perf_counter() - tic,
+       "nll": res["nll"], "train_losses": res["train_losses"]}
+if "mc" in seen:
+    tr = seen["mc"].trainer
+    out.update(states=[base.to_host(s) for s in tr.all_chains()[0]],
+               local=[int(s.theta.shape[0]) for s in tr.states],
+               first=seen.get("first"), workdir=seen["mc"].workdir)
+else:  # the tensor-parallel runner: its shard's length
+    out.update(local=[int(seen["single"].state.theta.shape[0])])
+with open(out_path, "wb") as f:
+    pickle.dump(out, f)
+'''
+# the synthetic sets of 9c's runs: (train, test) examples
+MLP_CUT = (1024, 256)
+VIT_CUT = (288, 128)  # 2 training batches of 128 after the val split
+
+
+def launch_ranks(argv, logdir: Path, cut, started: list):
+    """The CLI on 2 ranks sharing the card over gloo, joined by --multihost:
+    (the processes, their output pickles, their logs); the processes are
+    appended to `started` too."""
+    logdir.mkdir(parents=True, exist_ok=True)
+    port = free_tcp_port()
+    outs = [logdir / f"rank{r}.pkl" for r in range(2)]
+    logs = [logdir / f"rank{r}.log" for r in range(2)]
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", RANK_RUN, str(outs[r]),
+                 json.dumps(list(cut)), *argv, "--log_dir", str(logdir),
+                 "--multihost", "--coordinator", f"127.0.0.1:{port}",
+                 "--num_processes", "2", "--process_id", str(r),
+                 "--dist_backend", "gloo", "--device", "cuda"],
+                cwd=Path(__file__).resolve().parent, stdout=f,
+                stderr=subprocess.STDOUT))
+    started.extend(procs)
+    return procs, outs, logs
+
+
+def wait_ranks(job, what: str, timeout: float = 300.0) -> list:
+    """Both ranks' pickles; a rank that fails fails the phase (its log's
+    end printed), the other rank stopped."""
+    procs, outs, logs = job
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            print(f"9c {what} rank {r} log:\n{logs[r].read_text()[-6000:]}",
+                  flush=True)
+        raise RuntimeError(f"check failed: 9c {what}: ranks {bad} failed")
+    out = []
+    for path in outs:
+        with open(path, "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def host_trees_equal(a, b) -> bool:
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(host_trees_equal, a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(host_trees_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+@contextlib.contextmanager
+def cut_synthetic(cut):
+    """The synthetic sets of this process's runs cut as RANK_RUN cuts the
+    ranks'."""
+    import bayesdll_tpu_torch.data as data
+    prepare = data.prepare
+
+    def cut_prepare(cfg):
+        cfg.synthetic_n_train, cfg.synthetic_n_test = cut
+        return prepare(cfg)
+    data.prepare = cut_prepare
+    try:
+        yield
+    finally:
+        data.prepare = prepare
+
+
+def single_reference(argv, cut, logdir: Path, first=False):
+    """The CLI in this process, single: (its runner, its first step's
+    whole states when `first`)."""
+    from bayesdll_tpu_torch.methods import base
+    from bayesdll_tpu_torch.parallel import chains
+    seen = {}
+    step_local = chains.MultiChainTrainer._step_local
+
+    def keep_first(self, *a, **k):
+        out = step_local(self, *a, **k)
+        if "first" not in seen:
+            seen["first"] = [base.to_host(s) for s in self.all_chains()[0]]
+        return out
+    chains.MultiChainTrainer._step_local = keep_first
+    try:
+        with cut_synthetic(cut), watched_multichain(seen):
+            res = cli_main(argv + ["--log_dir", str(logdir)])
+    finally:
+        chains.MultiChainTrainer._step_local = step_local
+    return seen.get("mc"), seen.get("first"), res
+
+
+CSGHMC_ND0 = ",".join(f"{k}={v}" for k, v in dict(HP, nd="0.0").items())
+CLI_9C = ["--method", "csghmc", "--backbone", "mlp_mnist", "--dataset",
+          "synthetic", "--lr", "1e-3", "--device", "cuda"]
+HP_9C = ["--hparams", ",".join(f"{k}={v}" for k, v in HP.items())]
+VIT_9C = ["--method", "csghmc", "--backbone", "vit_l_32", "--num_classes",
+          "37", "--dataset", "synthetic", "--batch_size", "128",
+          "--compute_dtype", "bfloat16", "--epochs", "1", "--num_cycles", "1",
+          "--lr", str(VIT_LR), "--device", "cuda", "--hparams",
+          ",".join(f"{k}={v}" for k, v in dict(VIT_HP, nst="1").items())]
+# bf16 forward: TP sums each row-parallel product's partials in bf16 over
+# the ranks, where one card sums them inside one product in fp32
+VIT_TP_RTOL = 2e-2
+
+
+def phase_two_ranks(smi, by_path) -> dict:
+    """9c: two ranks sharing the card over gloo, each a CLI process with
+    --multihost (NCCL refuses two ranks on one card): the full-width MLP
+    cSGHMC with --data_parallel 2 at nd = 0 against the single-process
+    step; with --fsdp at nd > 0 bitwise equal to the replicated data
+    parallel run, each vector on a rank half of D; --num_chains 2 over the
+    2 ranks, each chain bitwise its single-process run; a DCP save and
+    resume at world 2 bitwise; ViT-L/32 at --tensor_parallel 2 for 2 steps
+    against the single-process steps."""
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="two_ranks_", dir=SCRATCH))
+    tic = time.perf_counter()
+    info, started = {}, []
+    try:
+        nd0 = CLI_9C + ["--hparams", CSGHMC_ND0, "--num_chains", "1"]
+        noisy = CLI_9C + HP_9C
+        runs = {
+            "dp nd0": (nd0 + ["--data_parallel", "2"] + ONE_EPOCH, MLP_CUT),
+            "dp": (noisy + ["--data_parallel", "2"] + ONE_EPOCH, MLP_CUT),
+            "fsdp": (noisy + ["--data_parallel", "2", "--fsdp"] + ONE_EPOCH,
+                     MLP_CUT),
+            "chains": (noisy + ["--num_chains", "2"] + ONE_EPOCH, MLP_CUT),
+            "chains full": (noisy + ["--num_chains", "2"] + TWO_EPOCHS,
+                            MLP_CUT),
+        }
+        jobs = {k: launch_ranks(a, root / k.replace(" ", "_"), c, started)
+                for k, (a, c) in runs.items()}
+        tp = launch_ranks(VIT_9C + ["--tensor_parallel", "2"], root / "tp",
+                          VIT_CUT, started)
+        # the single-process references meanwhile (MultiChainRunner: a
+        # single --fsdp run has nothing to shard and keeps the chains'
+        # jitter)
+        ref_nd0, ref_first, _ = single_reference(
+            nd0 + ["--fsdp"] + ONE_EPOCH, MLP_CUT, root / "ref_nd0",
+            first=True)
+        ref_chains, _, _ = single_reference(
+            noisy + ["--num_chains", "2"] + ONE_EPOCH, MLP_CUT,
+            root / "ref_chains")
+        out = {k: wait_ranks(j, k) for k, j in jobs.items()}
+        d = ref_nd0.trainer.runner.target.dim
+        n_steps = len(ref_nd0._train_loader)
+        for k, ranks in out.items():
+            check(host_trees_equal(ranks[0]["states"], ranks[1]["states"])
+                  and ranks[0]["nll"] == ranks[1]["nll"],
+                  f"9c {k}: the two ranks' whole states and NLL")
+            n_chain = len(ranks[0]["states"])
+            steps = len(ranks[0]["train_losses"]) * n_steps
+            local_chains = 1 if k.startswith("chains") else n_chain
+            for r in ranks:
+                check(r["counts"]["csghmc_update"] == steps * local_chains,
+                      f"9c {k}: launches {r['counts']}, {steps} steps")
+            by_path[f"csghmc mlp_mnist {k} 2 ranks gloo (rank 0)"] = \
+                ranks[0]["counts"]
+        # data parallel at nd = 0: the first step against the single step
+        got = out["dp nd0"][0]["first"][0]["theta"]
+        want = ref_first[0]["theta"]
+        err = float(np.abs(got - want).max())
+        check(np.allclose(got, want, rtol=1e-5, atol=1e-6),
+              f"9c dp nd0: first step against single, max abs err {err}")
+        final_err = float(np.abs(out["dp nd0"][0]["states"][0]["theta"]
+                                 - base_theta(ref_nd0)).max())
+        # fsdp bitwise equal to replicated data parallel, half of D each
+        check(host_trees_equal(out["fsdp"][0]["states"],
+                               out["dp"][0]["states"]),
+              "9c fsdp against replicated data parallel at nd > 0")
+        check(all(r["local"] == [d // 2] for r in out["fsdp"])
+              and all(r["local"] == [d] for r in out["dp"]),
+              f"9c local sizes fsdp {[r['local'] for r in out['fsdp']]}")
+        # the chains over the ranks, each its single-process run
+        ref_states = [host_state(s) for s in ref_chains.trainer.states]
+        check(all(r["local"] == [d] for r in out["chains"])
+              and host_trees_equal(out["chains"][0]["states"], ref_states),
+              "9c 2 chains over 2 ranks against the single-process run")
+        # DCP at world 2: resume the 1-epoch run to 2 epochs
+        ckpt = Path(out["chains"][0]["workdir"]) / "chains_ckpt_orbax"
+        check(ckpt.is_dir(), f"9c: {ckpt} is the DCP directory")
+        resumed = launch_ranks(noisy + ["--num_chains", "2"] + TWO_EPOCHS
+                               + ["--resume", str(ckpt)], root / "resumed",
+                               MLP_CUT, started)
+        out["resumed"] = wait_ranks(resumed, "resumed")
+        check(host_trees_equal(out["resumed"][0]["states"],
+                               out["chains full"][0]["states"])
+              and out["resumed"][0]["nll"] == out["chains full"][0]["nll"],
+              "9c DCP resume at world 2 against the uninterrupted run")
+        by_path["csghmc mlp_mnist chains resumed 2 ranks gloo (rank 0)"] = \
+            out["resumed"][0]["counts"]
+        # ViT-L/32 TP 2 against its single-process steps (run meanwhile)
+        _, _, ref_vit = single_reference(VIT_9C, VIT_CUT, root / "ref_vit")
+        free_device()
+        out["tp"] = wait_ranks(tp, "vit tp", timeout=400)
+        tp_loss = out["tp"][0]["train_losses"][0]
+        ref_loss = ref_vit["train_losses"][0]
+        check(out["tp"][0]["train_losses"] == out["tp"][1]["train_losses"]
+              and abs(tp_loss - ref_loss) <= VIT_TP_RTOL * abs(ref_loss),
+              f"9c vit tp 2: loss {tp_loss} against single {ref_loss}")
+        check(out["tp"][0]["counts"]["csghmc_update"] == 2
+              and out["tp"][0]["local"] == [VIT_DIM // 2],
+              f"9c vit tp 2: {out['tp'][0]['counts']}, local "
+              f"{out['tp'][0]['local']}")
+        by_path["csghmc vit_l_32 tensor_parallel 2 ranks gloo (rank 0)"] = \
+            out["tp"][0]["counts"]
+        info = {"dp_nd0_first_err": err, "dp_nd0_epoch_err": final_err,
+                "vit_tp_loss": tp_loss, "vit_single_loss": ref_loss,
+                "secs": {k: round(v[0]["secs"], 1) for k, v in out.items()}}
+    finally:
+        for p in started:  # every rank process ends with the phase
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    info["phase_s"] = time.perf_counter() - tic
+    print(f"phase 9c: [{smi}] 2 gloo ranks sharing the card, each a CLI "
+          f"process with --multihost: mlp_mnist cSGHMC --data_parallel 2 "
+          f"nd=0 first step within rtol 1e-5 of the single step (max abs "
+          f"err {info['dp_nd0_first_err']:.3g}; after the epoch "
+          f"{info['dp_nd0_epoch_err']:.3g}); --fsdp bitwise equal to "
+          f"replicated data parallel at nd=1, D/2 per rank; --num_chains 2 "
+          f"over the ranks bitwise the single-process chains; DCP save and "
+          f"resume at world 2 bitwise; vit_l_32 bf16 --tensor_parallel 2, "
+          f"2 steps: loss {info['vit_tp_loss']:.6f} against "
+          f"{info['vit_single_loss']:.6f} single; each run's seconds "
+          f"{info['secs']}; {info['phase_s']:.1f} s", flush=True)
+    return info
+
+
+def host_state(state):
+    from bayesdll_tpu_torch.methods import base
+    return base.to_host(state)
+
+
+def base_theta(mc) -> np.ndarray:
+    return host_state(mc.trainer.states[0])["theta"]
+
+
+def phase_multi_device(smi, by_path: dict) -> dict:
+    """9: the kernels on shards, the process-group path at world 1 over
+    NCCL, and two ranks sharing the card over gloo."""
+    tic = time.perf_counter()
+    out = {"9a_launches": phase_shard_kernels(
+        smi, {"mlp_mnist": full_width_target(1000)[0].dim,
+              "vit_l_32": VIT_DIM})}
+    out["9b_mlp_ms"] = phase_world1_mlp(smi, by_path)
+    out["9b_vit_ms"] = phase_world1_vit(smi, by_path)
+    out["9c"] = phase_two_ranks(smi, by_path)
+    print(f"phase 9: [{smi}] multi-device in "
+          f"{time.perf_counter() - tic:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -4141,6 +4780,8 @@ def main() -> int:
     phase_vit_b_16(smi, cfg, nd_size, sched, xs, ys)
     free_device()
     by_path.update(phase_real_data(smi))
+    free_device()
+    phase_multi_device(smi, by_path)
     print(f"chip_smoke: [{smi}] every phase passed in "
           f"{time.perf_counter() - tic0:.1f} s", flush=True)
 

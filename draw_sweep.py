@@ -69,7 +69,12 @@ def build(kernels) -> dict:
         print(f"draw_sweep: {name}: ptxas registers per instantiation {regs}",
               flush=True)
         lib = ctypes.CDLL(str(path))
-        lib.philox_draw.argtypes = kernels._ARGTYPES["philox_draw"]
+        argtypes = list(kernels._ARGTYPES["philox_draw"])
+        # a source from before the global element offset takes no elem0
+        lib.elem0 = b"elem0" in builds[name][0].read_bytes()
+        if not lib.elem0:
+            del argtypes[2]
+        lib.philox_draw.argtypes = argtypes
         lib.philox_draw.restype = ctypes.c_int
         libs[name] = lib
     return libs
@@ -96,8 +101,9 @@ def main() -> int:
 
         def draw(lib, kind, out=out, step=step):
             step[0] += 1
-            err = lib.philox_draw(out.data_ptr(), dim, kind, sid, 7, step[0],
-                                  stream)
+            offset = (0,) if lib.elem0 else ()
+            err = lib.philox_draw(out.data_ptr(), dim, *offset, kind, sid, 7,
+                                  step[0], stream)
             check(err == 0, f"philox_draw launch failed: {err}")
 
         for kind, kname in ((0, "normal"), (1, "uniform")):

@@ -1,6 +1,6 @@
-"""The PyTorch port, chip_smoke.py, resnet_sweep.py, vit_cast_forms.py and
-draw_sweep.py stand alone: they import nothing of JAX, flax or the JAX
-package.  The CIFAR path runs without PIL."""
+"""The PyTorch port, chip_smoke.py, resnet_sweep.py, vit_cast_forms.py,
+draw_sweep.py and multi_card.py stand alone: they import nothing of JAX,
+flax or the JAX package.  The CIFAR path runs without PIL."""
 
 import ast
 import json
@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "bayesdll_tpu")
 SOURCES = sorted((ROOT / "bayesdll_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "resnet_sweep.py", ROOT / "vit_cast_forms.py",
-    ROOT / "draw_sweep.py"]
+    ROOT / "draw_sweep.py", ROOT / "multi_card.py"]
 
 
 def _imported_roots(path: Path):

@@ -160,7 +160,8 @@ def test_multichain_sgld_full_workflow():
 
 def test_demo_cli_multichain(tmp_path):
     """tests/test_multichain_runner.py:32, on the CPU: the full-width MLP,
-    two chains; the multi-device flags raise."""
+    two chains; --data_parallel without a process group to split the batch
+    over raises."""
     from bayesdll_tpu_torch.cli import demo
     args = ["--method", "sgld", "--dataset", "synthetic", "--epochs", "1",
             "--batch_size", "256", "--lr", "2e-2", "--device", "cpu",
@@ -171,7 +172,7 @@ def test_demo_cli_multichain(tmp_path):
     assert np.isfinite(results["nll"])
     ckpts = [p for p in tmp_path.rglob("chains_ckpt.pkl")]
     assert len(ckpts) == 1
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    with pytest.raises(ValueError, match="launch with --multihost"):
         demo.main(args + ["--data_parallel", "2"])
 
 
