@@ -62,8 +62,18 @@ splits each chain's batch over D ranks, its gradient averaged over them;
 --data_parallel, --fsdp or more than one process the chains go through
 MultiChainRunner even at --num_chains 1.  --tensor_parallel M runs the ViT
 Megatron-style over a (D data x M model) mesh, single chain only
-(parallel/tp.py).  Every rank trains; rank 0 logs to the terminal and
-writes the artifacts, the others log to logs.rank<R>.txt.
+(parallel/tp.py), for every method; --remat and --remat_policy checkpoint
+its tensor-parallel blocks as they do the single card's.  Every rank
+trains; rank 0 logs to the terminal and writes the artifacts, the others
+log to logs.rank<R>.txt.
+
+--resume takes a chains_ckpt_orbax directory at any layout with the same
+--num_chains and --seed: a run saved with --data_parallel 2 --fsdp on two
+processes resumes in one process without --fsdp, on four, or the other
+way round (each rank reads its own chains and slices).  The flat vectors
+are padded to lcm(1024, 4 x processes) elements, so a world whose size is
+not a power of two pads otherwise, and its directory resumes only at a
+world that pads the same (the load says so before it reads a tensor).
 
   python -m bayesdll_tpu_torch.cli.demo --method csghmc --dataset synthetic \\
       --epochs 2 --num_cycles 1 --lr 1e-3 --data_parallel 2 --fsdp \\
@@ -139,7 +149,7 @@ def parse_args(argv=None):
                    help="forward-pass dtype (bfloat16 for big backbones)")
     p.add_argument("--remat", action="store_true",
                    help="recompute ViT encoder blocks in the backward pass "
-                        "(memory for FLOPs)")
+                        "(memory for FLOPs), tensor-parallel blocks too")
     p.add_argument("--remat_policy", type=str, default="",
                    choices=["", "dots", "names"],
                    help="remat policy: '' full, 'dots' save matmul outputs, "
@@ -163,7 +173,7 @@ def parse_args(argv=None):
     p.add_argument("--tensor_parallel", type=int, default=1,
                    help="Megatron tensor parallelism of the ViT over the "
                         "'model' ranks (with --data_parallel on a ('data', "
-                        "'model') mesh; single chain only)")
+                        "'model') mesh; single chain only; with --remat)")
     p.add_argument("--multihost", action="store_true",
                    help="join a process group of --num_processes ranks at "
                         "--coordinator before anything is built")
@@ -179,7 +189,9 @@ def parse_args(argv=None):
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint path to resume training from (ckpt.pkl, "
                         "or with --num_chains chains_ckpt.pkl or the "
-                        "chains_ckpt_orbax directory)")
+                        "chains_ckpt_orbax directory, which resumes at any "
+                        "--data_parallel, --fsdp and process count with "
+                        "the same chains)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of training here")
     p.add_argument("--ckpt_backend", type=str, default="auto",

@@ -77,24 +77,29 @@ class Runner(csghmc.Runner):
     def train_one_epoch(self, ep: int, train_loader):
         out = super().train_one_epoch(ep, train_loader)
         if self._near_cycle_end(ep):
-            theta_np = base.to_host(self.state.theta)
-            self.full_samples[ep] = theta_np
-            if self.workdir:
-                path = os.path.join(self.workdir, f"full_samples_net_ep{ep}.pkl")
-                with open(path, "wb") as f:
-                    pickle.dump(theta_np, f)
-                self.logger.info("Full snapshot saved at %s", path)
-                self.all_model_metadata.append({
-                    "model_id": len(self.all_model_metadata),
-                    "epoch": ep,
-                    "cycle": self.sched.cycle_number_py(self.bi - 1),
-                    "path": path,
-                    "num_params": int(theta_np.shape[0]),
-                })
-                with open(os.path.join(self.models_dir, "model_metadata.pkl"),
-                          "wb") as f:
-                    pickle.dump(self.all_model_metadata, f)
+            self.snapshot(ep)
         return out
+
+    def snapshot(self, ep: int):
+        """θ at the end of epoch ep, kept on the host and pickled as
+        `full_samples_net_ep{ep}.pkl` with the metadata."""
+        theta_np = base.to_host(self.state.theta)
+        self.full_samples[ep] = theta_np
+        if self.workdir:
+            path = os.path.join(self.workdir, f"full_samples_net_ep{ep}.pkl")
+            with open(path, "wb") as f:
+                pickle.dump(theta_np, f)
+            self.logger.info("Full snapshot saved at %s", path)
+            self.all_model_metadata.append({
+                "model_id": len(self.all_model_metadata),
+                "epoch": ep,
+                "cycle": self.sched.cycle_number_py(self.bi - 1),
+                "path": path,
+                "num_params": int(theta_np.shape[0]),
+            })
+            with open(os.path.join(self.models_dir, "model_metadata.pkl"),
+                      "wb") as f:
+                pickle.dump(self.all_model_metadata, f)
 
     def multi_chain_epoch_end(self, mc_runner, ep: int):
         """The snapshot hook of a multi-chain run: every chain's θ and

@@ -143,13 +143,13 @@ class CyclicalRunnerBase(base.BaseRunner):
         step = self.bi - 1  # the step that just ran
         if self.cfg.full_sample and self._should_sample(step):
             bpe = self.sched.batches_per_epoch
-            self.collect_full_sample(self.state.theta, step // bpe, step % bpe)
+            self.collect_full_sample(step // bpe, step % bpe)
         if self.sched.last_in_cycle_py(step):
             self._end_of_cycle(self.sched.cycle_number_py(step))
 
-    def collect_full_sample(self, theta, ep: int, batch_idx: int):
+    def collect_full_sample(self, ep: int, batch_idx: int):
         """The full_sample archive: a host copy of θ under "{ep}_{batch}"."""
-        self.all_samples[f"{ep}_{batch_idx}"] = base.to_host(theta)
+        self.all_samples[f"{ep}_{batch_idx}"] = base.to_host(self.state.theta)
 
     def eval_ready(self, ep: int) -> bool:
         # the GMM predictive needs one completed cycle; before that the

@@ -28,14 +28,21 @@ recomputing in the backward pass what the policy does not save:
            core (JAX's dots_saveable) and recomputes the layer norms, the
            bias adds, GELU and the residual adds;
   "names"  saves exactly what the JAX package marks with checkpoint_name:
-           qkv and mlp_hidden (the products that widen a token to 3 dim and
-           mlp_dim; their bias is added again on recompute) and attn_out
-           (the attention core; in the einsum path the product of the
-           probabilities with v, and where the token count equals the head
-           width the logits product as well).  The out-projection is
-           recomputed, as in JAX.
+           qkv and mlp_hidden (the block's first and third products, which
+           widen a token to 3 dim and mlp_dim, or under tensor parallelism
+           to the rank's 3 dim / n and mlp_dim / n; their bias is added
+           again on recompute) and attn_out (the attention core; in the
+           einsum path the product of the probabilities with v, and where
+           the token count equals the head width the logits product as
+           well).  The out-projection is recomputed, as in JAX.
 The last two are selective checkpointing policies over the block's ATen
-ops.  None of them changes the numbers.
+ops.  None of them changes the numbers.  A tensor-parallel block is
+checkpointed as any other: "dots" saves the sums over the model group
+(the row-parallel products' outputs), so its recompute runs no
+collective; "" and "names" recompute the out-projection, and with it its
+sum over the group.  Recomputation stops at the last tensor the backward
+needs, before the second sum, so a block's backward runs one collective
+more than without remat.
 
 Tensor parallelism (`tp`, parallel/tp.py::make_tp_constraints): each block
 runs Megatron-style over the ranks of a 'model' group, as the JAX package's
@@ -132,18 +139,33 @@ _SAVE = ckpt.CheckpointPolicy.MUST_SAVE
 _RECOMPUTE = ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+# the tensor-parallel block's sum over the model group (parallel/tp.py)
+_REDUCE = torch.ops._c10d_functional.all_reduce.default
+
+
 def _save_dots(ctx, op, *args, **kwargs):
-    return _SAVE if op in _PRODUCTS or op in _ATTENTION else _RECOMPUTE
+    return _SAVE if op in _PRODUCTS or op in _ATTENTION or op is _REDUCE \
+        else _RECOMPUTE
 
 
-def _save_names(widths, ctx, op, *args, **kwargs):
-    if op in _ATTENTION:
-        return _SAVE  # attn_out
-    if op is _MM and args[1].shape[-1] in widths:
-        return _SAVE  # qkv, mlp_hidden
-    if op is _BMM and args[0].shape[-1] == args[0].shape[-2]:
-        return _SAVE  # attn_out of the einsum path: [T, T] probabilities @ v
-    return _RECOMPUTE
+def _names_contexts():
+    """The selective checkpointing contexts of the "names" policy for one
+    block.  The products are told apart by their order in the block (qkv,
+    out, mlp_dense_0, mlp_dense_1), which the forward and the recompute
+    share; their shapes can coincide (mlp_dim / n = dim)."""
+    products = [0, 0]  # seen in the forward, in the recompute
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in _ATTENTION:
+            return _SAVE  # attn_out
+        if op is _MM:
+            i = products[ctx.is_recompute]
+            products[ctx.is_recompute] += 1
+            return _SAVE if i in (0, 2) else _RECOMPUTE  # qkv, hidden
+        if op is _BMM and args[0].shape[-1] == args[0].shape[-2]:
+            return _SAVE  # attn_out of the einsum path: [T, T] probs @ v
+        return _RECOMPUTE
+    return ckpt.create_selective_checkpoint_contexts(policy)
 
 
 class ViT(nn.Module):
@@ -228,18 +250,16 @@ class ViT(nn.Module):
         return x + (tp.reduce_out(part) + w.mlp_1_bias.to(dt))
 
     def _run_block(self, x, w: LayerWeights):
-        if self.tp is not None:
-            return self._block_tp(x, w)
+        block = self._block if self.tp is None else self._block_tp
         if not self.remat:
-            return self._block(x, w)
-        policy = {"": None, "dots": _save_dots,
-                  "names": functools.partial(
-                      _save_names, (3 * self.dim, self.mlp_dim))}[
-                          self.remat_policy]
-        kw = {} if policy is None else {"context_fn": functools.partial(
-            ckpt.create_selective_checkpoint_contexts, policy)}
+            return block(x, w)
+        context = {"": None, "names": _names_contexts,
+                   "dots": functools.partial(
+                       ckpt.create_selective_checkpoint_contexts,
+                       _save_dots)}[self.remat_policy]
+        kw = {} if context is None else {"context_fn": context}
         # the blocks draw no random numbers, so no RNG state is stashed
-        return ckpt.checkpoint(self._block, x, w, use_reentrant=False,
+        return ckpt.checkpoint(block, x, w, use_reentrant=False,
                                preserve_rng_state=False, **kw)
 
     def forward(self, x):

@@ -130,7 +130,8 @@ class MultiChainTrainer:
                       "element quads; the state replicates", dim, self.n_data)
         self.shard = FlatShard(dim, reduce_group=self.data_group,
                                shard_group=self.data_group if split else None,
-                               n_data=self.n_data)
+                               n_data=self.n_data,
+                               mesh=mesh["data"] if split else None)
         self.view = RunnerShard(r, self.shard)
         if self.n_data > 1:
             set_batch_norm_group(r.target.module, self.data_group)

@@ -33,9 +33,18 @@ likelihoods (each rank computes its own chains', from their whole vectors
 under fsdp), Laplace's stage-2 means and variances, the chains' states and
 net_states for the predictive.  Every rank then evaluates every chain on
 the same data and reads the same NLL.  The DCP checkpoint keys each chain
-by its global index (and an fsdp shard by its data rank as well); each
-rank saves and loads its own chains or shards, rank 0 writes the sidecar
-after the save, behind a barrier.  A forced pickle gathers every chain's
+by its global index and each vector by its field, whatever the layout; an
+fsdp shard goes in as the whole vector's DTensor over the rank's slice
+(parallel/shard.py::FlatShard.global_state), a replicated vector and the
+net_states as plain tensors, which DCP keeps once.  Each rank saves and
+loads its own chains or slices, rank 0 writes the sidecar after the save,
+behind a barrier.  So a directory restores at any layout with the same
+chains (the JAX package's orbax template carries the live shardings, as
+the port's DTensors do): saved by 2 fsdp ranks, it resumes in one process
+without fsdp, on 4 ranks, or with its chains on other ranks.  The sidecar
+records the padded length, the parameter count and the layout that wrote
+it; a padded length other than the runner's raises before a tensor is
+read.  A forced pickle gathers every chain's
 whole state into the file each process writes (one path: the writes are
 atomic, of the same bytes).  Only rank 0 writes the other artifacts.
 """
@@ -296,15 +305,23 @@ class MultiChainRunner:
         drop_last, picks the examples), so its state is saved too: a
         resumed run's passes then see the uninterrupted run's examples."""
         tr = self.trainer
+        target = self.runner.target
         rng_ = getattr(self._train_loader, "_rng", None)
         return {"epoch": ep, "bi": tr.bi, "method": self.runner.method_name,
                 "n_chain": tr.n_chain, "seeds": tr.all_seeds,
+                "dim": target.dim, "n_params": target.n_params,
+                "layout": {"world": dist.get_world_size()
+                           if dist.is_initialized() else 1,
+                           "chain_axis": 1 if tr.mesh is None
+                           else tr.mesh.size(0),
+                           "n_data": tr.n_data,
+                           "fsdp": tr.shard is not None and tr.shard.sharded},
                 "chain_cycle_stats": self.chain_cycle_stats,
                 "train_loader_rng": None if rng_ is None else rng_.get_state()}
 
     def _check_meta(self, meta: dict):
-        """The checkpoint's chains are the runner's, before a tensor is
-        read."""
+        """The checkpoint's chains and flat length are the runner's, before
+        a tensor is read."""
         tr = self.trainer
         if meta["n_chain"] != tr.n_chain:
             raise ValueError(
@@ -313,6 +330,13 @@ class MultiChainRunner:
         if meta["seeds"] != tr.all_seeds:
             raise ValueError("checkpoint's chain seeds differ from the "
                              "runner's; restart with the run's --seed")
+        dim = self.runner.target.dim
+        if meta.get("dim", dim) != dim:
+            raise ValueError(
+                f"checkpoint's flat vectors hold {meta['dim']} elements, the "
+                f"runner's {dim}: the padded length depends on the world "
+                f"size that built the target (cli/demo.py pads to lcm(1024, "
+                f"4 x world)); resume at a world that pads to {meta['dim']}")
 
     def _loaded(self, meta: dict, path: str) -> int:
         tr = self.trainer
@@ -348,15 +372,13 @@ class MultiChainRunner:
         return path
 
     def _dcp_tree(self):
-        """This rank's chains for DCP: the states keyed by the chain's
-        global index (and an fsdp shard's data rank), the net_states by the
-        index.  Without a mesh, or with one that shards nothing, the keys
-        are those of the lists of every chain."""
+        """This rank's chains for DCP, keyed by the chain's global index:
+        the states (an fsdp shard's vectors as the whole vectors'
+        DTensors) and the net_states."""
         tr = self.trainer
-        sharded = tr.shard is not None and tr.shard.sharded
-        key = (lambda c: f"{c}-shard{tr.data_rank}of{tr.n_data}") \
-            if sharded else str
-        return {"states": {key(c): s for c, s in zip(tr.chains, tr.states)},
+        view = (lambda s: s) if tr.shard is None else tr.shard.global_state
+        return {"states": {str(c): view(s)
+                           for c, s in zip(tr.chains, tr.states)},
                 "net_states": {str(c): ns for c, ns in
                                zip(tr.chains, tr.net_states)}}
 
@@ -380,9 +402,10 @@ class MultiChainRunner:
         return path
 
     def _load_ckpt_orbax(self, path: str) -> int:
-        """Restore a `chains_ckpt_orbax` directory into the chains' own
-        tensors, in place (a fused chain's captured graphs then replay on
-        the loaded values); the sidecar is read and checked first."""
+        """Restore a `chains_ckpt_orbax` directory, saved at any layout
+        with the same chains, into the chains' own tensors, in place (a
+        fused chain's captured graphs then replay on the loaded values);
+        the sidecar is read and checked first."""
         tr = self.trainer
         path = os.path.abspath(path)
         with open(path + ".meta.pkl", "rb") as f:

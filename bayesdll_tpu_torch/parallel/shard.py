@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from bayesdll_tpu_torch.core.prior import FlatTarget
+from bayesdll_tpu_torch.utils import checkpoint as ckpt
 
 # the runners' per-element vectors that a step reads: the lr vectors and
 # the prior masks (methods/*.py)
@@ -55,12 +56,15 @@ class FlatShard:
     n_data: the divisor of that sum (the data-parallel size).
     wide: for tensor parallelism, the bool [D] mask of the elements sliced
         over the model ranks, and n_model their count.
+    mesh: the 1-D DeviceMesh of shard_group, through which a checkpoint
+        names each slice's global offset (`global_state`).
     """
 
     def __init__(self, total: int, *, shard_group=None, reduce_group=None,
-                 n_data: int = 1, wide=None, n_model: int = 1):
+                 n_data: int = 1, wide=None, n_model: int = 1, mesh=None):
         self.total = int(total)
         self.shard_group = shard_group
+        self.mesh = mesh
         self.reduce_group = reduce_group
         self.n_data = int(n_data)
         self.wide, self.n_model = wide, int(n_model)
@@ -136,6 +140,17 @@ class FlatShard:
     def local_state(self, state):
         """A whole chain state's shard: every [D] leaf sliced."""
         return self.map_state(self.local, state, self.total)
+
+    def global_state(self, state):
+        """A shard state as a checkpoint writes and reads it: every sliced
+        leaf the whole vector's DTensor over the live slice
+        (utils/checkpoint.py::global_slice); the state itself when nothing
+        is sliced."""
+        if not self.sharded:
+            return state
+        return self.map_state(
+            lambda t: ckpt.global_slice(t, self.total, self.mesh), state,
+            self.size)
 
     def full_state(self, state):
         """A shard state's whole chain state: every sharded leaf gathered

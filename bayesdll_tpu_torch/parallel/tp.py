@@ -8,7 +8,13 @@
   each column-parallel product; g, a sum over the group forward and the
   identity backward, after each row-parallel one.  The JAX package gets
   the same placement from XLA through its activation constraints.  Remat
-  is not applied to a tensor-parallel block.
+  checkpoints a tensor-parallel block as any other (models/vit.py).
+* The sums are functional collectives (`_all_reduce`, a new tensor, not
+  an in-place write), so selective checkpointing can save g's output and
+  a recompute then reads it without running the collective again; and f
+  and g carry `torch.func.vmap` rules that sum the stacked [B, ...] tensor
+  in one collective (the sum is linear, so that is exact), so Laplace's
+  vmapped per-example gradients run through the tensor-parallel forward.
 * The sampler: the flat state is sliced evenly over every rank of the
   mesh, as the JAX package shards it with P(('data', 'model')): each rank
   keeps D / (n_data·n_model) elements of every vector and runs the update
@@ -20,10 +26,16 @@
 * The batch [B, ...] is split over the 'data' ranks; the model ranks of a
   data rank see the same slice.  The step's loss and error are averaged
   (summed) over the data ranks.
-* Evaluation, the cycle ends and checkpoints run on the whole state, each
-  rank gathering it (`_WHOLE`), every rank through the same tensor-parallel
+* Evaluation, the cycle ends, Laplace's stage 2, cSGHMC-FS's snapshots and
+  model average, and checkpoints run on the whole state, each rank
+  gathering it (`_WHOLE`), every rank through the same tensor-parallel
   forward; what they change in the state is written back to the slices.
-  Only rank 0 writes artifacts (the caller clears the others' workdir).
+  There the target is `WholeTarget`, whose gradient sums the wide
+  elements over the model group, so a gradient taken on the whole state
+  (the Fisher) is the single process's; the runner's per-element vectors
+  kept beside the state (`_WHOLE_ATTRS`: Laplace's MAP θ and variances)
+  are gathered too.  Only rank 0 writes artifacts (the caller clears the
+  others' workdir).
 
 Single chain only: a chain per TP group is a multi-host layout, as in the
 JAX package.
@@ -40,6 +52,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from bayesdll_tpu_torch.core import flat as flat_util
+from bayesdll_tpu_torch.core.prior import FlatTarget
 from bayesdll_tpu_torch.parallel.mesh import _device_type, world_size
 from bayesdll_tpu_torch.parallel.shard import FlatShard, RunnerShard
 
@@ -47,9 +60,12 @@ from bayesdll_tpu_torch.parallel.shard import FlatShard, RunnerShard
 WIDE_LEAVES = ("layers/attention/qkv/kernel", "layers/attention/qkv/bias",
                "layers/attention/out/kernel", "layers/mlp_dense_0/kernel",
                "layers/mlp_dense_0/bias", "layers/mlp_dense_1/kernel")
-# the runner methods that run on the whole state (`_whole`)
+# the runner methods that run on the whole state (`on_whole`)
 _WHOLE = ("evaluate", "_end_of_cycle", "save_ckpt", "load_ckpt",
-          "estimate_variance", "evaluate_full_samples")
+          "estimate_variance", "evaluate_full_samples", "snapshot",
+          "collect_full_sample")
+# the runner's [D] vectors beside its state, whole inside `on_whole`
+_WHOLE_ATTRS = ("map_theta", "post_vars")
 
 
 def make_tp_mesh(n_data: int, n_model: int) -> DeviceMesh:
@@ -62,33 +78,92 @@ def make_tp_mesh(n_data: int, n_model: int) -> DeviceMesh:
                       mesh_dim_names=("data", "model"))
 
 
-class _CopyToModel(torch.autograd.Function):
-    """Megatron's f: identity forward, sum over the group backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+def _all_reduce(x, group):
+    """The sum of x over `group`, as a new tensor (a functional
+    collective: selective checkpointing can save its output)."""
+    return torch.ops._c10d_functional.wait_tensor(
+        torch.ops._c10d_functional.all_reduce(x, "sum", group.group_name))
 
 
 class _ReduceFromModel(torch.autograd.Function):
     """Megatron's g: sum over the group forward, identity backward."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        x = x.clone()
-        dist.all_reduce(x, group=group)
-        return x
+    def forward(x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        # the stacked examples summed in one collective
+        return _ReduceFromModel.apply(x, group), in_dims[0]
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: identity forward, sum over the group backward (g, so
+    that the backward of a vmapped forward is one collective too)."""
+
+    @staticmethod
+    def forward(x, group):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ReduceFromModel.apply(grad, ctx.group), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _CopyToModel.apply(x, group), in_dims[0]
+
+
+class _SumWideGrad(torch.autograd.Function):
+    """Forward: θ as it is.  Backward: the whole gradient from a model
+    rank's, which holds its columns of the wide leaves (zeros elsewhere in
+    them) and the whole gradient of the other leaves: the wide elements
+    summed over the model group (one rank's value and zeros, so exact),
+    the others as they are."""
+
+    @staticmethod
+    def forward(theta, wide, group):
+        return theta.view_as(theta)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.wide, ctx.group = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        summed = _ReduceFromModel.apply(grad, ctx.group)
+        return torch.where(ctx.wide, summed, grad), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, theta, wide, group):
+        return _SumWideGrad.apply(theta, wide, group), in_dims[0]
+
+
+@dataclasses.dataclass
+class WholeTarget(FlatTarget):
+    """A tensor-parallel rank's target on the whole θ: the FlatTarget's
+    forward, its gradient the whole model's (`_SumWideGrad`)."""
+
+    wide: torch.Tensor = None
+    group: object = None
+
+    def forward(self, theta, net_state, x, train: bool = False):
+        return super().forward(_SumWideGrad.apply(theta, self.wide,
+                                                  self.group),
+                               net_state, x, train)
 
 
 class ModelParallel:
@@ -160,7 +235,11 @@ def shard_runner_for_tp(runner, mesh: DeviceMesh):
                       wide=wide_mask(target.module, target.dim,
                                      target.device))
     view = RunnerShard(runner, shard)
-    whole = {"target": target, "shard": None,
+    whole_target = WholeTarget(
+        **{f.name: getattr(target, f.name)
+           for f in dataclasses.fields(FlatTarget)},
+        wide=shard.wide, group=target.module.tp.group)
+    whole = {"target": whole_target, "shard": None,
              **{k: getattr(runner, k) for k in view.vectors}}
     sliced = {"target": view.target, "shard": shard, **view.vectors}
     runner.state = shard.local_state(runner.state)
@@ -178,6 +257,10 @@ def shard_runner_for_tp(runner, mesh: DeviceMesh):
         runner.state = shard.full_state(local)
         for k, v in whole.items():
             setattr(runner, k, v)
+        for k in _WHOLE_ATTRS:  # a rank's slice, as the state's, set
+            v = getattr(runner, k, None)  # outside: whole from here on
+            if isinstance(v, torch.Tensor) and v.shape[0] == shard.size:
+                setattr(runner, k, shard.gather(v))
         try:
             yield
         finally:

@@ -23,6 +23,15 @@ writes every tensor itself), or on every rank of one: each rank then saves
 and loads the entries of its own tree (entries of one key on several ranks
 are one replicated value, which DCP writes once), and rank 0 alone moves
 the directories, between barriers.  A failed save or load raises.
+
+A rank that holds a slice of a longer vector (an fsdp shard) puts it in the
+tree as `global_slice(local, total, mesh)`: a DTensor over the live tensor,
+sharded along its one dimension over `mesh`, which DCP writes and reads at
+its global offset.  A key is then the whole vector whatever the layout: a
+directory saved by ranks that each held a slice loads into one process's
+whole tensor, and a whole tensor's into slices, each rank reading the
+bytes of its own slice.  `restore` hands back the local tensor of such an
+entry (a view of the live tensor's storage, loaded in place).
 """
 
 from __future__ import annotations
@@ -35,9 +44,19 @@ import warnings
 import torch
 import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
+from torch.distributed.tensor import DTensor, Shard
 
 # DCP warns on every call made without a process group
 _NO_GROUP = "torch.distributed is disabled, unavailable or uninitialized"
+
+
+def global_slice(local: torch.Tensor, total: int, mesh) -> DTensor:
+    """`local`, this rank's slice [r·n, (r+1)·n) of a [total] vector split
+    evenly over the ranks of the 1-D DeviceMesh `mesh` (r the rank's place
+    in it), as the DTensor of the whole vector that DCP reads and writes at
+    the slice's global offset.  It shares `local`'s storage."""
+    return DTensor.from_local(local, mesh, [Shard(0)], run_check=False,
+                              shape=(int(total),), stride=(1,))
 
 
 def _to_tree(obj):
@@ -55,7 +74,10 @@ def _to_tree(obj):
 
 def _from_tree(template, tree):
     """`template`'s structure with its tensors from `tree` (the template's
-    own, loaded in place) and its other values from `tree`."""
+    own, loaded in place; a DTensor's local tensor) and its other values
+    from `tree`."""
+    if isinstance(tree, DTensor):
+        return tree.to_local()
     if dataclasses.is_dataclass(template):
         return dataclasses.replace(template, **{
             f.name: _from_tree(getattr(template, f.name), tree[f.name])

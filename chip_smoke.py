@@ -85,8 +85,8 @@ Phases, one line each:
      per 500x375 image beside PIL's eval transform; (b) a full-size
      CIFAR-100 (50,000 + 10,000 images of learnable grating classes)
      through the pretraining CLI's main at its defaults (cSGHMC,
-     ResNet-101, batch 256, lr 0.1, momentum 0.9), 2 epochs per step and
-     2 fused, bit for bit equal (cuDNN deterministic), csghmc_update
+     ResNet-101, batch 256, lr 0.1, momentum 0.9), 1 epoch per step and
+     1 fused, bit for bit equal (cuDNN deterministic), csghmc_update
      launched once a step, finite loss and NLL, per-epoch ms/step, images/s,
      training error and busy share, the CIFAR loader's images/s alone; a
      mini ResNet on the fixture cut to 256 images, card against CPU; (c)
@@ -126,7 +126,19 @@ Phases, one line each:
      of D per rank), --num_chains 2 over the ranks bitwise the
      single-process chains, a DCP save and resume at world 2 bitwise, and
      ViT-L/32 at --tensor_parallel 2 for 2 steps against the
-     single-process steps; every rank process ends with the phase.
+     single-process steps; (d) the DCP directory restored at another
+     layout: the MLP's 2 chains saved by the two ranks with
+     --data_parallel 2 --fsdp after an epoch and resumed through the CLI
+     in this process without --fsdp, the restore bitwise the ranks' states
+     and the resumed epoch bitwise the pickle's resume; the ViT-L/32 chain
+     saved by 2 fsdp ranks and restored in this process, each rank's
+     slice bitwise, with seconds and GB/s; (e) the tensor-parallel
+     ViT-L/32 ranks of (c), after their run, 2 steps from one state
+     without remat (twice), with remat "" and "names": losses and θ
+     against the plain run's, the all-reduces per step, the peak memory;
+     and Laplace's stage-2 Fisher of a ViT-B/16-width model at depth 2
+     under --tensor_parallel 2 against this process's; every rank process
+     ends with the phase.
 The MLP and ResNet runners are freed before the ViT-L/32 phases.  The
 script prints its total time; the line before the last is a JSON record of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -3116,9 +3128,10 @@ def phase_fused_vit_adam(smi, vit, xs, ys, per_step_ms):
 # the JAX pre-training driver's cell (bayesdll_tpu/cli/pretrain.py): cSGHMC
 # on ResNet-101 from scratch, CIFAR-100 (50,000 + 10,000 images of 32x32x3),
 # batch 256, lr 0.1, momentum 0.9, the reference's hparams, all at the
-# driver's defaults but the length: 2 epochs in 1 cycle, so that the second
-# epoch collects samples (every 10th step) and the test evaluation runs
-PRETRAIN_ARGV = ["--epochs", "2", "--num_cycles", "1"]
+# CLI's defaults but the length: 1 epoch in 1 cycle, whose second half
+# collects samples (every 10th step) and whose end runs the test evaluation
+# (2 epochs until the multi-device phases needed the time)
+PRETRAIN_ARGV = ["--epochs", "1", "--num_cycles", "1"]
 RESNET101_CIFAR100_PARAMS = 42_705_060
 CIFAR_N = (50_000, 10_000)
 # the mini ResNet held against its CPU run: the fixture cut to 256 training
@@ -4360,7 +4373,8 @@ from bayesdll_tpu_torch.cli import demo
 from bayesdll_tpu_torch.methods import base
 from bayesdll_tpu_torch.ops import kernels
 from bayesdll_tpu_torch.parallel import chains, runner as mcr
-out_path, cut, argv = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3:]
+out_path, opts, argv = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3:]
+cut = opts["cut"]
 prepare = data.prepare
 def cut_prepare(cfg):
     cfg.synthetic_n_train, cfg.synthetic_n_test = cut
@@ -4372,9 +4386,12 @@ def keep(self, *a, **k):
     seen["mc"] = self
     return train(self, *a, **k)
 mcr.MultiChainRunner.train = keep
+if opts.get("no_checkpoints"):  # a run whose checkpoints no check reads
+    base.BaseRunner.save_ckpt = lambda self, *a, **k: None
 base_train = base.BaseRunner.train
 def keep_single(self, *a, **k):
     seen.setdefault("single", self)
+    seen.setdefault("loaders", a)
     return base_train(self, *a, **k)
 base.BaseRunner.train = keep_single
 step_local = chains.MultiChainTrainer._step_local
@@ -4393,12 +4410,20 @@ if torch.cuda.is_available():
 out = {"counts": kernels.launch_counts(), "secs": time.perf_counter() - tic,
        "nll": res["nll"], "train_losses": res["train_losses"]}
 if "mc" in seen:
-    tr = seen["mc"].trainer
+    mc = seen["mc"]
+    tr = mc.trainer
     out.update(states=[base.to_host(s) for s in tr.all_chains()[0]],
                local=[int(s.theta.shape[0]) for s in tr.states],
-               first=seen.get("first"), workdir=seen["mc"].workdir)
+               first=seen.get("first"), workdir=mc.workdir)
+    if opts.get("pickle"):  # the pickle beside the run's DCP directory
+        mc.cfg.ckpt_backend = "pickle"
+        out["pickle"] = mc.save_ckpt(mc.cfg.epochs - 1)
 else:  # the tensor-parallel runner: its shard's length
     out.update(local=[int(seen["single"].state.theta.shape[0])])
+    if opts.get("remat"):
+        import chip_smoke
+        out["remat"] = chip_smoke.rank_remat(seen["single"],
+                                             seen["loaders"][0])
 with open(out_path, "wb") as f:
     pickle.dump(out, f)
 '''
@@ -4407,27 +4432,61 @@ MLP_CUT = (1024, 256)
 VIT_CUT = (288, 128)  # 2 training batches of 128 after the val split
 
 
-def launch_ranks(argv, logdir: Path, cut, started: list):
+def launch_ranks(argv, logdir: Path, cut, started: list, **opts):
     """The CLI on 2 ranks sharing the card over gloo, joined by --multihost:
     (the processes, their output pickles, their logs); the processes are
-    appended to `started` too."""
-    logdir.mkdir(parents=True, exist_ok=True)
+    appended to `started` too.  opts: pickle=True saves the pickle beside a
+    multi-chain run's DCP directory; remat=True runs `rank_remat` after a
+    tensor-parallel run; no_checkpoints=True writes no single-chain
+    checkpoint (ViT-L/32's are GB-sized, and no check reads them)."""
     port = free_tcp_port()
+    return spawn_ranks(
+        lambda r, out: ["-c", RANK_RUN, str(out),
+                        json.dumps({"cut": list(cut), **opts}), *argv,
+                        "--log_dir", str(logdir), "--multihost",
+                        "--coordinator", f"127.0.0.1:{port}",
+                        "--num_processes", "2", "--process_id", str(r),
+                        "--dist_backend", "gloo", "--device", "cuda"],
+        logdir, started)
+
+
+def spawn_ranks(args_of, logdir: Path, started: list):
+    """2 processes `python args_of(rank, output pickle)` from the
+    repository root: (the processes, their output pickles, their logs);
+    the processes are appended to `started` too."""
+    logdir.mkdir(parents=True, exist_ok=True)
     outs = [logdir / f"rank{r}.pkl" for r in range(2)]
     logs = [logdir / f"rank{r}.log" for r in range(2)]
     procs = []
     for r in range(2):
         with open(logs[r], "w") as f:
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", RANK_RUN, str(outs[r]),
-                 json.dumps(list(cut)), *argv, "--log_dir", str(logdir),
-                 "--multihost", "--coordinator", f"127.0.0.1:{port}",
-                 "--num_processes", "2", "--process_id", str(r),
-                 "--dist_backend", "gloo", "--device", "cuda"],
+                [sys.executable, *args_of(r, outs[r])],
                 cwd=Path(__file__).resolve().parent, stdout=f,
                 stderr=subprocess.STDOUT))
     started.extend(procs)
     return procs, outs, logs
+
+
+# a rank of 9d and 9e outside the CLI: chip_smoke's function argv[2] on
+# the arguments pickled in argv[3] (hex), its result pickled to argv[1]
+RANK_FN = r'''
+import pickle, sys
+import chip_smoke
+out = getattr(chip_smoke, sys.argv[2])(*pickle.loads(bytes.fromhex(sys.argv[3])))
+with open(sys.argv[1], "wb") as f:
+    pickle.dump(out, f)
+'''
+
+
+def launch_fn(name: str, args: tuple, logdir: Path, started: list):
+    """chip_smoke's `name`(port, rank, *args) on 2 ranks sharing the card:
+    spawn_ranks' triple."""
+    port = free_tcp_port()
+    return spawn_ranks(
+        lambda r, out: ["-c", RANK_FN, str(out), name,
+                        pickle.dumps((port, r, *args)).hex()],
+        logdir, started)
 
 
 def wait_ranks(job, what: str, timeout: float = 300.0) -> list:
@@ -4484,13 +4543,18 @@ def cut_synthetic(cut):
         data.prepare = prepare
 
 
-def single_reference(argv, cut, logdir: Path, first=False):
+def single_reference(argv, cut, logdir: Path, first=False,
+                     checkpoints=True):
     """The CLI in this process, single: (its runner, its first step's
-    whole states when `first`)."""
+    whole states when `first`, its results); without `checkpoints` a
+    single-chain run writes none."""
     from bayesdll_tpu_torch.methods import base
     from bayesdll_tpu_torch.parallel import chains
     seen = {}
     step_local = chains.MultiChainTrainer._step_local
+    save_ckpt = base.BaseRunner.save_ckpt
+    if not checkpoints:
+        base.BaseRunner.save_ckpt = lambda self, *a, **k: None
 
     def keep_first(self, *a, **k):
         out = step_local(self, *a, **k)
@@ -4503,6 +4567,7 @@ def single_reference(argv, cut, logdir: Path, first=False):
             res = cli_main(argv + ["--log_dir", str(logdir)])
     finally:
         chains.MultiChainTrainer._step_local = step_local
+        base.BaseRunner.save_ckpt = save_ckpt
     return seen.get("mc"), seen.get("first"), res
 
 
@@ -4547,8 +4612,15 @@ def phase_two_ranks(smi, by_path) -> dict:
         }
         jobs = {k: launch_ranks(a, root / k.replace(" ", "_"), c, started)
                 for k, (a, c) in runs.items()}
+        # 9d's source: 2 chains with --data_parallel 2 --fsdp, an epoch
+        jobs["fsdp chains"] = launch_ranks(
+            noisy + ["--num_chains", "2", "--data_parallel", "2", "--fsdp"]
+            + ONE_EPOCH, root / "fsdp_chains", MLP_CUT, started, pickle=True)
+        # 9e runs its remat runs in the same ranks after the CLI run
         tp = launch_ranks(VIT_9C + ["--tensor_parallel", "2"], root / "tp",
-                          VIT_CUT, started)
+                          VIT_CUT, started, remat=True, no_checkpoints=True)
+        # 9e's Laplace under TP (small) meanwhile
+        la_tp = launch_fn("rank_la_tp", (), root / "la_tp", started)
         # the single-process references meanwhile (MultiChainRunner: a
         # single --fsdp run has nothing to shard and keeps the chains'
         # jitter)
@@ -4567,7 +4639,7 @@ def phase_two_ranks(smi, by_path) -> dict:
                   f"9c {k}: the two ranks' whole states and NLL")
             n_chain = len(ranks[0]["states"])
             steps = len(ranks[0]["train_losses"]) * n_steps
-            local_chains = 1 if k.startswith("chains") else n_chain
+            local_chains = 1 if k in ("chains", "chains full") else n_chain
             for r in ranks:
                 check(r["counts"]["csghmc_update"] == steps * local_chains,
                       f"9c {k}: launches {r['counts']}, {steps} steps")
@@ -4593,6 +4665,10 @@ def phase_two_ranks(smi, by_path) -> dict:
         check(all(r["local"] == [d] for r in out["chains"])
               and host_trees_equal(out["chains"][0]["states"], ref_states),
               "9c 2 chains over 2 ranks against the single-process run")
+        # 9d's ViT-L/32 state from 2 fsdp ranks to one process: the ranks
+        # save while the TP ranks run
+        vit_save = launch_fn("rank_vit_fsdp_save", (str(root / "vit_fsdp"),),
+                             root / "vit_save", started)
         # DCP at world 2: resume the 1-epoch run to 2 epochs
         ckpt = Path(out["chains"][0]["workdir"]) / "chains_ckpt_orbax"
         check(ckpt.is_dir(), f"9c: {ckpt} is the DCP directory")
@@ -4606,10 +4682,19 @@ def phase_two_ranks(smi, by_path) -> dict:
               "9c DCP resume at world 2 against the uninterrupted run")
         by_path["csghmc mlp_mnist chains resumed 2 ranks gloo (rank 0)"] = \
             out["resumed"][0]["counts"]
-        # ViT-L/32 TP 2 against its single-process steps (run meanwhile)
-        _, _, ref_vit = single_reference(VIT_9C, VIT_CUT, root / "ref_vit")
+        # 9d: the fsdp ranks' directory and pickle resumed at world 1
+        info["9d"] = phase_restore_elsewhere(smi, out["fsdp chains"], root,
+                                             by_path)
+        info["9e_la"] = phase_la_tp(smi, wait_ranks(la_tp, "la tp"),
+                                    la_tp_fisher())
         free_device()
-        out["tp"] = wait_ranks(tp, "vit tp", timeout=400)
+        info["9d_vit"] = phase_vit_restore_elsewhere(
+            smi, wait_ranks(vit_save, "vit fsdp save"), root)
+        # ViT-L/32 TP 2 against its single-process steps (run meanwhile)
+        _, _, ref_vit = single_reference(VIT_9C, VIT_CUT, root / "ref_vit",
+                                         checkpoints=False)
+        free_device()
+        out["tp"] = wait_ranks(tp, "vit tp", timeout=600)
         tp_loss = out["tp"][0]["train_losses"][0]
         ref_loss = ref_vit["train_losses"][0]
         check(out["tp"][0]["train_losses"] == out["tp"][1]["train_losses"]
@@ -4621,9 +4706,11 @@ def phase_two_ranks(smi, by_path) -> dict:
               f"{out['tp'][0]['local']}")
         by_path["csghmc vit_l_32 tensor_parallel 2 ranks gloo (rank 0)"] = \
             out["tp"][0]["counts"]
-        info = {"dp_nd0_first_err": err, "dp_nd0_epoch_err": final_err,
-                "vit_tp_loss": tp_loss, "vit_single_loss": ref_loss,
-                "secs": {k: round(v[0]["secs"], 1) for k, v in out.items()}}
+        info["9e_remat"] = phase_tp_remat(smi, out["tp"])
+        info.update({"dp_nd0_first_err": err, "dp_nd0_epoch_err": final_err,
+                     "vit_tp_loss": tp_loss, "vit_single_loss": ref_loss,
+                     "secs": {k: round(v[0]["secs"], 1)
+                              for k, v in out.items()}})
     finally:
         for p in started:  # every rank process ends with the phase
             if p.poll() is None:
@@ -4643,6 +4730,350 @@ def phase_two_ranks(smi, by_path) -> dict:
           f"{info['vit_single_loss']:.6f} single; each run's seconds "
           f"{info['secs']}; {info['phase_s']:.1f} s", flush=True)
     return info
+
+
+# ---- 9d and 9e: restore at another layout, TP with remat, Laplace under TP --
+
+def state_hashes(state) -> dict:
+    """sha256 of each tensor of a state, on the host (a rank's slices, or
+    slices [lo, hi) of whole tensors given as (state, lo, hi))."""
+    import hashlib
+    state, lo, hi = state if isinstance(state, tuple) else (state, None, None)
+    return {k: hashlib.sha256(t[lo:hi].contiguous().cpu().numpy().tobytes())
+            .hexdigest() for k, t in state_tensors(state).items()}
+
+
+def count_all_reduces(fn):
+    """(fn(), the all-reduces the process group ran in it): gloo's and
+    NCCL's collectives in a CPU profile (a recompute that reads a saved
+    sum runs none)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, sum(e.name in ("gloo:all_reduce", "nccl:all_reduce")
+                    for e in prof.events())
+
+
+# 9e's remat runs of the tensor-parallel ViT-L/32 (label, remat, policy);
+# where a remat run differs from the plain one, the plain run again, to see
+# whether the card's kernels repeat their bits
+REMAT_RUNS = (("plain", False, ""), ("remat", True, ""),
+              ("remat names", True, "names"))
+PLAIN_AGAIN = ("plain again", False, "")
+REMAT_STEPS = 2
+
+
+def rank_remat(runner, train_loader) -> dict:
+    """9e, on each rank of the tensor-parallel ViT-L/32 run after its CLI
+    run: from one copy of its state, REMAT_STEPS steps of each of
+    REMAT_RUNS (and PLAIN_AGAIN where a remat run differs from the plain
+    one) on the run's first batches; per run the losses, the all-reduces
+    per step, the peak memory (max_memory_allocated) and the rank's θ
+    after, with its largest difference from the plain run's."""
+    import copy
+    import itertools
+    model = runner.target.module
+    batches = [(runner._to_device(x), runner._to_device(y))
+               for x, y, _ in itertools.islice(iter(train_loader),
+                                               REMAT_STEPS)]
+    start, bi = copy.deepcopy(runner.state), runner.bi
+    first = 0  # the schedule's first steps, noise gate as the run's
+    out, plain = {}, None
+    runs = list(REMAT_RUNS)
+    for label, remat, policy in runs:
+        model.remat, model.remat_policy = remat, policy
+        runner.state = copy.deepcopy(start)
+        free_device()
+        torch.cuda.reset_peak_memory_stats()
+
+        def steps():
+            losses = []
+            reset_launches()
+            for i, (x, y) in enumerate(batches, first):
+                runner.bi = i
+                sc = runner.step_scalars(0)
+                runner.state, runner.net_state, (loss, _) = runner._step(
+                    runner.state, runner.net_state, x, y, i, sc)
+                losses.append(float(loss))
+            torch.cuda.synchronize()
+            return losses
+        tic = time.perf_counter()
+        losses, n_reduce = count_all_reduces(steps)
+        theta = runner.state.theta.clone()
+        plain = theta if plain is None else plain
+        out[label] = {
+            "losses": losses, "all_reduces_per_step": n_reduce / REMAT_STEPS,
+            "launches": read_launches(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "secs": time.perf_counter() - tic,
+            "theta_equal": bool(torch.equal(theta, plain)),
+            "theta_max_diff": float((theta - plain).abs().max())}
+        same = out[label]["theta_equal"] and losses == out["plain"]["losses"]
+        if not same and PLAIN_AGAIN not in runs:
+            runs.append(PLAIN_AGAIN)
+    model.remat, model.remat_policy = False, ""
+    runner.state, runner.bi = start, bi
+    return out
+
+
+def vit_fsdp_chain(workdir, mesh=None):
+    """The ViT-L/32 cSGHMC runner of phase 3 as one chain of a
+    MultiChainRunner checkpointing to the DCP directory: over `mesh` with
+    fsdp, or in one process."""
+    from bayesdll_tpu_torch.config import Config
+    from bayesdll_tpu_torch.parallel import MultiChainRunner
+    cfg = Config(method="csghmc", hparams=dict(VIT_HP), dataset="synthetic",
+                 lr=VIT_LR, seed=0, device="cuda", ckpt_backend="orbax",
+                 **dict(VIT, epochs=1, num_cycles=1))
+    cfg.synthetic_n_train, cfg.synthetic_n_test = VIT_CUT
+    runner, _ = make_runner(cfg)
+    return MultiChainRunner(runner, 1, workdir=workdir, fsdp=mesh is not None,
+                            mesh=mesh)
+
+
+def rank_vit_fsdp_save(port, rank, workdir) -> dict:
+    """9d, on each of 2 gloo ranks sharing the card: the ViT-L/32 chain
+    with fsdp over the 2 ranks, saved as the DCP directory; its slice's
+    offset, length and hashes, and the save's seconds."""
+    from bayesdll_tpu_torch.parallel import init_distributed, make_mesh
+    init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                     device="cuda")
+    mc = vit_fsdp_chain(workdir, make_mesh(1, 2))
+    shard = mc.trainer.shard
+    path, secs = synced_seconds(lambda: mc.save_ckpt(0))
+    return {"path": path, "save_s": secs, "elem0": shard.elem0,
+            "size": shard.size, "hashes": state_hashes(mc.trainer.states[0])}
+
+
+# 9e's Laplace under TP: ViT-B/16's widths at depth 2, fp32, 16 images,
+# microbatches of 8 (two vmapped calls), from seed 0
+LA_TP_VIT = dict(patch=16, dim=768, depth=2, heads=12, mlp_dim=3072,
+                 image_size=224, num_classes=10, dtype="float32")
+LA_TP_HP = {"prior_sig": "0.1", "Ninflate": "1.0", "bias": "informative",
+            "nst": "2", "fisher_microbatch": "8"}
+LA_TP_RTOL = 1e-4  # fp32, the products split over the model ranks
+
+
+def la_tp_fisher(mesh=None) -> dict:
+    """Laplace's stage-2 variances at θ_init of the ViT of LA_TP_VIT (over
+    the tensor-parallel `mesh` when given), and their seconds."""
+    from bayesdll_tpu_torch.config import Config
+    from bayesdll_tpu_torch.core.prior import make_flat_target
+    from bayesdll_tpu_torch.data.loader import ArrayLoader
+    from bayesdll_tpu_torch.methods import get_runner_cls
+    from bayesdll_tpu_torch.models.vit import ViT
+    from bayesdll_tpu_torch.parallel import (make_tp_constraints,
+                                             shard_runner_for_tp)
+    tp = None if mesh is None else make_tp_constraints(mesh)
+    target, theta, ns = make_flat_target(
+        ViT(**LA_TP_VIT, tp=tp), nd_size=16, num_classes=10,
+        rng=torch.Generator().manual_seed(0), device="cuda")
+    cfg = Config(method="la", hparams=dict(LA_TP_HP), dataset="synthetic",
+                 backbone="vit_b_16", epochs=1, batch_size=8, lr=1e-3,
+                 seed=0, device="cuda")
+    runner = get_runner_cls("la")(target, theta, ns, cfg)
+    if mesh is not None:
+        runner = shard_runner_for_tp(runner, mesh)
+    runner.map_theta = runner.state.theta
+    rng_ = np.random.RandomState(0)
+    hw = LA_TP_VIT["image_size"]
+    loader = ArrayLoader(rng_.randn(16, hw, hw, 3).astype(np.float32),
+                         rng_.randint(0, 10, 16), 8)
+    post_vars, secs = synced_seconds(lambda: runner.estimate_variance(loader))
+    return {"vars": post_vars.cpu().numpy(), "secs": secs}
+
+
+def rank_la_tp(port, rank) -> dict:
+    """9e, on each of 2 gloo ranks sharing the card: la_tp_fisher at
+    --tensor_parallel 2."""
+    from bayesdll_tpu_torch.parallel import init_distributed, make_tp_mesh
+    init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                     device="cuda")
+    # fp32 as in this process (phase 1): the patch convolution off TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return la_tp_fisher(make_tp_mesh(1, 2))
+
+
+def resumed_reference(argv, cut, logdir: Path):
+    """The CLI in this process (a world of one) resuming from --resume:
+    (its runner, the chains' whole states just after the load, the
+    results, the load's launches)."""
+    from bayesdll_tpu_torch.methods import base
+    from bayesdll_tpu_torch.parallel.runner import MultiChainRunner
+    seen = {}
+    load = MultiChainRunner.load_ckpt
+
+    def keep_loaded(self, path):
+        ep = load(self, path)
+        seen["loaded"] = [base.to_host(s) for s in self.trainer.states]
+        return ep
+    MultiChainRunner.load_ckpt = keep_loaded
+    reset_launches()
+    try:
+        with cut_synthetic(cut), watched_multichain(seen):
+            res = cli_main(argv + ["--log_dir", str(logdir)])
+    finally:
+        MultiChainRunner.load_ckpt = load
+    return seen["mc"], seen["loaded"], res, read_launches()
+
+
+def phase_restore_elsewhere(smi, fsdp_ranks, root: Path, by_path) -> dict:
+    """9d: the full-width MLP's 2 cSGHMC chains saved by 2 gloo ranks with
+    --data_parallel 2 --fsdp after an epoch (`fsdp_ranks`, their DCP
+    directory and pickle) resumed through the CLI in this process, a world
+    of one, without --fsdp, for a second epoch: each restore bitwise the
+    ranks' whole states, the directory's resume bitwise the pickle's."""
+    saved = fsdp_ranks[0]["states"]
+    check(host_trees_equal(fsdp_ranks[1]["states"], saved),
+          "9d: the fsdp ranks' whole states")
+    ckpt_dir = Path(fsdp_ranks[0]["workdir"]) / "chains_ckpt_orbax"
+    check(ckpt_dir.is_dir() and fsdp_ranks[0]["pickle"],
+          f"9d: {ckpt_dir} and the pickle written")
+    with open(str(ckpt_dir) + ".meta.pkl", "rb") as f:
+        layout = pickle.load(f)["layout"]
+    check(layout == {"world": 2, "chain_axis": 1, "n_data": 2, "fsdp": True},
+          f"9d: the sidecar's layout {layout}")
+    out = {}
+    argv = CLI_9C + HP_9C + ["--num_chains", "2"] + TWO_EPOCHS
+    for name, path in (("dcp", ckpt_dir), ("pickle", fsdp_ranks[0]["pickle"])):
+        tic = time.perf_counter()
+        mc, loaded, res, counts = resumed_reference(
+            argv + ["--resume", str(path)], MLP_CUT, root / f"resume_{name}")
+        tr = mc.trainer
+        steps = len(mc._train_loader)
+        check(tr.mesh is None and not tr.fsdp and [
+            int(s.theta.shape[0]) for s in tr.states] == [tr.runner.target.dim]
+            * 2, f"9d {name}: one process, no fsdp, whole vectors")
+        check(host_trees_equal(loaded, saved),
+              f"9d {name}: the restore at world 1 against the ranks' states")
+        check(counts["csghmc_update"] == 2 * steps,
+              f"9d {name}: launches {counts}, {steps} steps x 2 chains")
+        out[name] = {"end": [host_state(s) for s in tr.states],
+                     "nll": res["nll"], "losses": res["train_losses"],
+                     "secs": time.perf_counter() - tic, "counts": counts}
+        by_path[f"csghmc mlp_mnist 2 chains resumed at world 1 from the "
+                f"{name} of 2 fsdp ranks"] = counts
+    check(host_trees_equal(out["dcp"]["end"], out["pickle"]["end"])
+          and out["dcp"]["nll"] == out["pickle"]["nll"]
+          and out["dcp"]["losses"] == out["pickle"]["losses"],
+          "9d: the DCP resume at world 1 against the pickle's")
+    check(not host_trees_equal(out["dcp"]["end"], saved),
+          "9d: the resumed epoch moved the chains")
+    d = out
+    print(f"phase 9d: [{smi}] mlp_mnist 2 cSGHMC chains saved by 2 gloo "
+          f"ranks with --data_parallel 2 --fsdp after an epoch, resumed "
+          f"through the CLI in one process without --fsdp: the restored "
+          f"states bitwise the ranks', the DCP resume bitwise the pickle's "
+          f"(NLL {d['dcp']['nll']:.6f}, losses {d['dcp']['losses']}), "
+          f"launches {d['dcp']['counts']['csghmc_update']} each; seconds "
+          f"dcp {d['dcp']['secs']:.1f}, pickle {d['pickle']['secs']:.1f}",
+          flush=True)
+    return out
+
+
+def phase_vit_restore_elsewhere(smi, ranks, root: Path) -> dict:
+    """9d: the ViT-L/32 chain saved by 2 fsdp gloo ranks (`ranks`) restored
+    in this process (one chain, no fsdp): seconds and GB/s of the restore,
+    each rank's slice bitwise (sha256)."""
+    path = ranks[0]["path"]
+    mc = vit_fsdp_chain(str(root / "vit_world1"))
+    free_device()
+    ep, secs = synced_seconds(lambda: mc.load_ckpt(path))
+    state = mc.trainer.states[0]
+    for r in ranks:
+        got = state_hashes((state, r["elem0"], r["elem0"] + r["size"]))
+        check(got == r["hashes"], f"9d vit_l_32: rank at {r['elem0']}'s "
+              f"slice restored bitwise at world 1")
+    gb = sum(t.numel() * t.element_size()
+             for t in state_tensors(state).values()) / 1e9
+    del mc, state
+    free_device()
+    v = {"restore_s": secs, "gb": gb, "epoch": ep,
+         "save_s": [r["save_s"] for r in ranks]}
+    print(f"phase 9d: [{smi}] vit_l_32 cSGHMC chain ({v['gb']:.3f} GB) "
+          f"saved by 2 fsdp gloo ranks in {v['save_s'][0]:.2f} and "
+          f"{v['save_s'][1]:.2f} s, restored in one process in "
+          f"{v['restore_s']:.2f} s ({v['gb'] / v['restore_s']:.2f} GB/s), "
+          f"each rank's slice bitwise (sha256)", flush=True)
+    return v
+
+
+def phase_tp_remat(smi, tp_ranks) -> dict:
+    """9e: the remat runs of the tensor-parallel ViT-L/32 ranks
+    (rank_remat): each rank's remat runs against its plain run."""
+    info = {}
+    again = [r["remat"].get("plain again") for r in tp_ranks]
+    plain_repeats = all(a is None or (
+        a["theta_equal"] and a["losses"] == r["remat"]["plain"]["losses"])
+        for a, r in zip(again, tp_ranks))
+    for rank, r in enumerate(tp_ranks):
+        runs = r["remat"]
+        base_ = runs["plain"]
+        for label in ("remat", "remat names"):
+            got = runs[label]
+            same = got["theta_equal"] and got["losses"] == base_["losses"]
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(got["losses"], base_["losses"]))
+            # bitwise; or, where the plain run itself does not repeat its
+            # bits (a kernel that sums in a varying order), within the TP
+            # run's bf16 bound
+            check(same or (not plain_repeats and rel <= VIT_TP_RTOL),
+                  f"9e vit tp 2 rank {rank} {label}: losses {got['losses']} "
+                  f"against {base_['losses']}, θ max diff "
+                  f"{got['theta_max_diff']}")
+        reduce = {k: v["all_reduces_per_step"] for k, v in runs.items()}
+        depth = 24
+        want = {"plain": 4 * depth + 3, "remat": 5 * depth + 3,
+                "remat names": 5 * depth + 3,
+                **({"plain again": 4 * depth + 3}
+                   if "plain again" in runs else {})}
+        text = "; ".join(
+            f"{k}: losses {r['losses']}, {r['all_reduces_per_step']:g} "
+            f"all-reduces/step, {r['launches']['csghmc_update']} "
+            f"csghmc_update launches, peak {r['peak_gb']:.2f} GB, "
+            f"{r['secs']:.1f} "
+            f"s, θ equal {r['theta_equal']} (max diff "
+            f"{r['theta_max_diff']:.3g})" for k, r in runs.items())
+        print(f"phase 9e: [{smi}] vit_l_32 bf16 --tensor_parallel 2 rank "
+              f"{rank}, {REMAT_STEPS} steps from one state, batch 128: "
+              f"{text}", flush=True)
+        check(reduce == want, f"9e vit tp 2 rank {rank}: all-reduces per "
+              f"step {reduce}, want {want}")
+        check(all(v["launches"] == {**{k: 0 for k in v["launches"]},
+                                    "csghmc_update": REMAT_STEPS}
+                  for v in runs.values()),
+              f"9e vit tp 2 rank {rank}: csghmc_update once a step: "
+              f"{[v['launches'] for v in runs.values()]}")
+        info[rank] = runs
+    info["plain_repeats"] = plain_repeats
+    return info
+
+
+def phase_la_tp(smi, ranks, single) -> dict:
+    """9e: Laplace's stage-2 variances of the ViT-B/16-width model at depth
+    2 under --tensor_parallel 2 (two gloo ranks) against this process's."""
+    ref = single["vars"]
+    out = {}
+    for rank, r in enumerate(ranks):
+        rel = float(np.max(np.abs(r["vars"] - ref) / np.abs(ref)))
+        check(r["vars"].shape == ref.shape and rel <= LA_TP_RTOL,
+              f"9e la tp 2 rank {rank}: variances within rtol {LA_TP_RTOL} "
+              f"of the single process's: max rel err {rel}")
+        out[rank] = {"max_rel_err": rel, "secs": r["secs"]}
+    prior = float(LA_TP_HP["prior_sig"]) ** 2
+    moved = float(np.mean(ref < 0.999 * prior))
+    check(moved > 0.01, f"9e la: the Fisher moved {moved:.3%} of the "
+          f"variances off the prior's")
+    out["single_secs"], out["moved"] = single["secs"], moved
+    print(f"phase 9e: [{smi}] la, vit_b_16 widths at depth 2, fp32, stage-2 "
+          f"Fisher of 16 images (microbatch 8) under --tensor_parallel 2 "
+          f"against one process: max rel err of the variances "
+          f"{out[0]['max_rel_err']:.3g}, {out[1]['max_rel_err']:.3g} (bound "
+          f"{LA_TP_RTOL}); {moved:.2%} moved off the prior; seconds "
+          f"{out[0]['secs']:.2f} (TP rank 0), {single['secs']:.2f} (one "
+          f"process)", flush=True)
+    return out
 
 
 def host_state(state):

@@ -17,7 +17,12 @@ and its steps timed (host clock to a synchronize, each step of a rank):
     --fsdp, and with --tensor_parallel 2 --data_parallel W/2: ms/step
     (the median over the steps after each run's first of the slowest
     rank's) and each run's first loss against the one-card run's (the
-    fsdp run against one jittered chain on one card).
+    fsdp run against one jittered chain on one card);
+  * the DCP directory that the MLP's --data_parallel W --fsdp run saves
+    after its epoch, and the pickle written beside it, each resumed to a
+    second epoch on 2 cards (--data_parallel 2 --fsdp) and on 1 card (a
+    world of one rank over NCCL): at each layout the directory's resume
+    bitwise equal to the pickle's.
 Prints the card's name and power limit, a line per run, and a JSON record
 as its last line.  Exits non-zero when a run fails or a check does not
 hold, and without a result when fewer than two cards are visible.
@@ -50,7 +55,8 @@ from bayesdll_tpu_torch.cli import demo
 from bayesdll_tpu_torch.methods import base
 from bayesdll_tpu_torch.ops import kernels
 from bayesdll_tpu_torch.parallel import chains, runner as mcr
-out_path, cut, argv = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3:]
+out_path, opts, argv = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3:]
+cut = opts["cut"]
 if cut:
     prepare = data.prepare
     def cut_prepare(cfg):
@@ -83,7 +89,12 @@ torch.cuda.synchronize()
 out = {"counts": kernels.launch_counts(), "nll": res["nll"], "ms": ms,
        "losses": losses}
 if "mc" in seen:
-    out["states"] = [base.to_host(s) for s in seen["mc"].trainer.all_chains()[0]]
+    mc = seen["mc"]
+    out["states"] = [base.to_host(s) for s in mc.trainer.all_chains()[0]]
+    out["workdir"] = mc.workdir
+    if opts.get("pickle"):  # the pickle beside the run's DCP directory
+        mc.cfg.ckpt_backend = "pickle"
+        out["pickle"] = mc.save_ckpt(mc.cfg.epochs - 1)
 with open(out_path, "wb") as f:
     pickle.dump(out, f)
 '''
@@ -113,9 +124,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run(argv, root: Path, name: str, world: int, cut=None) -> list:
+def run(argv, root: Path, name: str, world: int, cut=None,
+        pickle_too=False) -> list:
     """The CLI on `world` processes over NCCL (one per card), or one
-    process without a group at world 0; each process's pickle."""
+    process without a group at world 0; each process's pickle.  With
+    pickle_too a multi-chain run also writes its checkpoint's pickle."""
     d = root / name.replace(" ", "_")
     d.mkdir(parents=True)
     n = max(world, 1)
@@ -129,7 +142,8 @@ def run(argv, root: Path, name: str, world: int, cut=None) -> list:
             with open(d / f"rank{r}.log", "w") as log:
                 procs.append(subprocess.Popen(
                     [sys.executable, "-c", RANK_RUN, str(outs[r]),
-                     json.dumps(list(cut) if cut else None), *argv,
+                     json.dumps({"cut": list(cut) if cut else None,
+                                 "pickle": pickle_too}), *argv,
                      "--log_dir", str(d), *group], cwd=REPO, stdout=log,
                      stderr=subprocess.STDOUT))
         for p in procs:
@@ -168,6 +182,35 @@ def step_ms(ranks) -> float:
     return float(np.median(per_step))
 
 
+def resume_elsewhere(saved, root: Path) -> dict:
+    """The directory and the pickle of the run `saved` (rank 0's output)
+    resumed to 2 epochs on 2 cards with --data_parallel 2 --fsdp and on 1
+    card (a world of one rank, --fsdp with nothing to shard, so that the
+    multi-chain runner reads the directory); at each layout the two
+    resumes bitwise equal.  Each run's ranks' outputs."""
+    directory = str(Path(saved["workdir"]) / "chains_ckpt_orbax")
+    two = MLP + ["--epochs", "2", "--num_cycles", "2"]  # the last wins
+    out = {}
+    for world, layout in ((2, ["--data_parallel", "2", "--fsdp"]),
+                          (1, ["--fsdp"])):
+        for kind, path in (("dcp", directory), ("pickle", saved["pickle"])):
+            out[f"{kind} {world} card"] = run(
+                two + layout + ["--resume", path], root,
+                f"resume {kind} {world}", world)
+        dcp, pkl = out[f"dcp {world} card"], out[f"pickle {world} card"]
+        check(equal(dcp[0]["states"], pkl[0]["states"])
+              and dcp[0]["nll"] == pkl[0]["nll"],
+              f"the directory's resume on {world} cards against the "
+              f"pickle's")
+        launches = [r["counts"]["csghmc_update"] for r in dcp + pkl]
+        check(len(set(launches)) == 1 and launches[0] > 0,
+              f"the resumes on {world} cards: csghmc_update launches "
+              f"{launches}, once a step on every rank")
+        check(not equal(dcp[0]["states"], saved["states"]),
+              f"the resume on {world} cards moved the chain")
+    return out
+
+
 def main() -> int:
     world = min(torch.cuda.device_count(), 4)
     if world < 2:
@@ -188,7 +231,8 @@ def main() -> int:
     try:
         dp = ["--data_parallel", str(world)]
         runs = {"dp": run(MLP + dp, root, "dp", world),
-                "fsdp": run(MLP + dp + ["--fsdp"], root, "fsdp", world),
+                "fsdp": run(MLP + dp + ["--fsdp"], root, "fsdp", world,
+                            pickle_too=True),
                 "fsdp fused": run(MLP + dp + ["--fsdp", "--fused_steps"],
                                   root, "fsdp fused", world)}
         steps = runs["dp"][0]["counts"]["csghmc_update"]
@@ -219,6 +263,18 @@ def main() -> int:
         print(f"multi_card: [{card}] csghmc mlp_mnist --num_chains {world} "
               f"over {world} cards bitwise equal to the single-process run; "
               f"ms/step {record['mlp_chains_ms']}", flush=True)
+
+        # the fsdp run's directory and pickle resumed on 2 cards and on 1
+        resumed = resume_elsewhere(runs["fsdp"][0], root)
+        record["resume_ms"] = {k: step_ms(v) for k, v in resumed.items()}
+        record["resume_launches"] = {
+            k: v[0]["counts"]["csghmc_update"] for k, v in resumed.items()}
+        print(f"multi_card: [{card}] csghmc mlp_mnist: the DCP directory "
+              f"of --data_parallel {world} --fsdp resumed on 2 cards "
+              f"(--data_parallel 2 --fsdp) and on 1 card, each bitwise "
+              f"equal to the pickle's resume at its layout; csghmc_update "
+              f"launches {record['resume_launches']}; ms/step "
+              f"{record['resume_ms']}", flush=True)
 
         # one card: the single runner (TP's reference) and, with --fsdp
         # and no group, the one-chain multi-chain runner whose jittered

@@ -15,13 +15,15 @@ tests/test_parallel.py and the worker of tests/test_multihost.py:
     the 2 ranks against JAX's mesh step, judged as the single-process
     ResNet runs are (tests/test_torch_resnet.py::_assert_same_walk);
   * the CLI with --multihost on 2 processes, --data_parallel 2 --fsdp, one
-    epoch of cSGHMC with a cycle end: the DCP checkpoint's resume to a
-    second epoch bitwise equal to the uninterrupted run, and the same GMM
-    NLL on both ranks.
+    epoch of cSGHMC with a cycle end: the DCP checkpoint (each vector one
+    whole tensor of the directory, the sidecar naming the layout) resumes
+    to a second epoch bitwise equal to the uninterrupted run, and the same
+    GMM NLL on both ranks.
 """
 
 import dataclasses
 import json
+import pickle
 import subprocess
 import sys
 
@@ -323,6 +325,8 @@ def _cli_runs(tmp):
             for n in ("full", "resumed")}
     res["tensors"] = {n: {k: v.numpy() for k, v in _dcp_tensors(d).items()}
                       for n, d in dirs.items()}
+    with open(str(dirs["full"]) + ".meta.pkl", "rb") as f:
+        res["layout"] = pickle.load(f)["layout"]
     return res
 
 
@@ -335,9 +339,13 @@ def cli(tmp_path_factory):
 def test_cli_fsdp_resume_bitwise_and_one_nll_on_both_ranks(cli):
     full, resumed = cli["tensors"]["full"], cli["tensors"]["resumed"]
     assert full.keys() == resumed.keys()
-    # each rank's shard of every vector under its own key
+    # every vector under its chain's and field's key, whole: the two
+    # ranks' slices are one tensor of the directory
     assert {k.split(".")[1] for k in full if k.startswith("states.")} == {
-        "0-shard0of2", "0-shard1of2"}
+        "0"}
+    assert full["states.0.theta"].shape == full["states.0.v"].shape
+    assert cli["layout"] == {"world": 2, "chain_axis": 1, "n_data": 2,
+                             "fsdp": True}
     for k in full:
         np.testing.assert_array_equal(full[k], resumed[k], err_msg=k)
     for name in ("full", "int", "resumed"):

@@ -293,15 +293,16 @@ def resnet_dp(mesh, res):
 
 # ---- test_torch_tp.py ----------------------------------------------------------
 
-def vit_runner(arrays, tp=None):
+def vit_runner(arrays, tp=None, **vit_kw):
     """The port's csghmc runner of the tiny ViT from the JAX package's flat
-    arrays, with tensor parallelism `tp` when given."""
+    arrays, with tensor parallelism `tp` when given and the ViT's other
+    options (remat, remat_policy) in vit_kw."""
     from bayesdll_tpu_torch import interop
     from bayesdll_tpu_torch.config import Config
     from bayesdll_tpu_torch.methods import get_runner_cls
     from bayesdll_tpu_torch.models.vit import ViT
     model = ViT(patch=16, dim=32, depth=2, heads=4, mlp_dim=64,
-                image_size=32, num_classes=5, tp=tp)
+                image_size=32, num_classes=5, tp=tp, **vit_kw)
     target, theta, ns = interop.target_from_arrays(
         arrays["theta"], arrays["theta0"], arrays["is_head"],
         arrays["is_bias"], model=model, nd_size=64, num_classes=5,
@@ -325,23 +326,45 @@ def vit_steps(runner, x, y, sample: bool, n: int = 3):
     return float(loss), runner.state
 
 
+def all_reduces(fn):
+    """(fn(), the all-reduces that ran in it): the collectives the process
+    group ran, read from a CPU profile (a recompute that reads a saved sum
+    runs none)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, sum(e.name in ("gloo:all_reduce", "nccl:all_reduce")
+                    for e in prof.events())
+
+
+REMAT_POLICIES = ("", "dots", "names")
+
+
 def tp_world(rank, world, arrays, x, y, n_data):
     """The tiny ViT's 3 cSGHMC steps at (n_data data x world / n_data model),
-    noise off and on; whole θ, losses, and the shapes that show each rank's
-    share of the wide hidden and of the flat state."""
+    noise off and on, and with each remat policy noise off; whole θ,
+    losses, the all-reduces of the steps, and the shapes that show each
+    rank's share of the wide hidden and of the flat state.  At (1, 2) also
+    the CLI with --remat --tensor_parallel 2: the checkpointed blocks."""
     from bayesdll_tpu_torch.parallel import (make_tp_constraints,
                                              make_tp_mesh,
                                              shard_runner_for_tp)
     mesh = make_tp_mesh(n_data, world // n_data)
     out = {}
-    for sample in (False, True):
+    runs = [(s, None) for s in (False, True)] + \
+        [(False, p) for p in REMAT_POLICIES]
+    for sample, policy in runs:
         tp = make_tp_constraints(mesh)
-        runner = shard_runner_for_tp(vit_runner(arrays, tp), mesh)
-        loss, state = vit_steps(runner, x, y, sample)
-        out[sample] = {"loss": loss,
-                       "theta": host(runner.shard.gather(state.theta)),
-                       "v": host(runner.shard.gather(state.v)),
-                       "local": int(state.theta.shape[0])}
+        kw = {} if policy is None else dict(remat=True, remat_policy=policy)
+        runner = shard_runner_for_tp(vit_runner(arrays, tp, **kw), mesh)
+        (loss, state), n_reduce = all_reduces(
+            lambda: vit_steps(runner, x, y, sample))
+        out[sample if policy is None else f"remat {policy}"] = {
+            "loss": loss, "theta": host(runner.shard.gather(state.theta)),
+            "v": host(runner.shard.gather(state.v)),
+            "local": int(state.theta.shape[0]), "all_reduces": n_reduce}
+    if n_data == 1:
+        out["cli"] = tp_remat_cli(rank)
     # the wide hidden of an eval forward: qkv's width on this rank
     model = runner.target.module
     seen = {}
@@ -355,6 +378,246 @@ def tp_world(rank, world, arrays, x, y, n_data):
                       torch.ones(len(y)))])
     out["qkv_width"] = seen["qkv"][-1]
     out["model_size"] = tp.size
+    return out
+
+
+def tp_remat_cli(rank):
+    """The CLI with --remat --remat_policy names --tensor_parallel 2 on the
+    tiny ViT for one epoch: (whether the model is tensor-parallel with that
+    remat, the checkpointed blocks of the run, its train losses)."""
+    import tempfile
+    import bayesdll_tpu_torch.data as data
+    from bayesdll_tpu_torch.cli import demo
+    from bayesdll_tpu_torch.models import vit
+    calls = []
+    checkpoint = vit.ckpt.checkpoint
+
+    def counted(fn, *a, **k):
+        calls.append(fn.__name__)
+        return checkpoint(fn, *a, **k)
+    built = {}
+    build_all = demo.build_all
+
+    def keep(*a, **k):
+        runner, loaders = build_all(*a, **k)
+        built["model"] = runner.target.module
+        return runner, loaders
+    prepare = data.prepare
+
+    def cut(cfg):  # 64 training and 32 test examples
+        cfg.synthetic_n_train, cfg.synthetic_n_test = 64, 32
+        return prepare(cfg)
+    vit.ckpt.checkpoint, demo.build_all, data.prepare = counted, keep, cut
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            res = demo.main([
+                "--method", "csghmc", "--backbone", "vit_tiny",
+                "--num_classes", "5", "--dataset", "synthetic",
+                "--batch_size", "16", "--epochs", "1", "--num_cycles", "1",
+                "--lr", "1e-3", "--device", "cpu", "--remat",
+                "--remat_policy", "names", "--tensor_parallel", "2",
+                "--log_dir", d, "--hparams",
+                "prior_sig=1.0,nd=0.0,thin=2,nst=1"])
+    finally:
+        vit.ckpt.checkpoint, demo.build_all = checkpoint, build_all
+        data.prepare = prepare
+    m = built["model"]
+    return {"tp_remat": (m.tp is not None and m.remat, m.remat_policy),
+            "checkpointed": sorted(set(calls)), "n_checkpointed": len(calls),
+            "train_losses": res["train_losses"]}
+
+
+# ---- test_torch_reshard.py -------------------------------------------------------
+
+def reshard_chains(hparams, workdir, *, epochs=1, mesh=None, fsdp=False,
+                   fused=False, pad_to=1024, arrays=None, start=None):
+    """2 cSGHMC chains on the width-16 MLP (192 synthetic training examples,
+    batch 16, cycles of one epoch) on the CPU, checkpointing to the
+    directory backend: (the MultiChainRunner, its loaders).  With `arrays`
+    (the JAX package's flat theta, theta0, is_head, is_bias) the target is
+    the JAX package's, and with `start` (the JAX trainer's stacked states)
+    the chains start from its states; else the port's own, from seed 0,
+    padded to `pad_to`."""
+    from bayesdll_tpu_torch import interop
+    from bayesdll_tpu_torch.config import Config
+    from bayesdll_tpu_torch.core.prior import make_flat_target
+    from bayesdll_tpu_torch.data import prepare
+    from bayesdll_tpu_torch.methods import get_runner_cls
+    from bayesdll_tpu_torch.models import create_backbone
+    from bayesdll_tpu_torch.parallel import MultiChainRunner
+    cfg = Config(method="csghmc", hparams=dict(hparams), dataset="synthetic",
+                 backbone="mlp_mnist", epochs=epochs, batch_size=16, lr=1e-3,
+                 num_cycles=epochs, seed=0, val_heldout=0.15,
+                 ckpt_backend="orbax", fused_steps=fused, device="cpu")
+    cfg.synthetic_n_train, cfg.synthetic_n_test = 192, 256
+    *loaders, nd = prepare(cfg)
+    model, _, _ = create_backbone("mlp_mnist", width=16, depth=2)
+    if arrays is None:
+        target, theta, ns = make_flat_target(
+            model, nd_size=nd, num_classes=10, pad_to=pad_to,
+            rng=torch.Generator().manual_seed(0), device="cpu")
+    else:
+        target, theta, ns = interop.target_from_arrays(
+            arrays["theta"], arrays["theta0"], arrays["is_head"],
+            arrays["is_bias"], model=model, nd_size=nd, num_classes=10,
+            device="cpu")
+    runner = get_runner_cls("csghmc")(target, theta, ns, cfg)
+    mc = MultiChainRunner(runner, 2, workdir=workdir, fsdp=fsdp, mesh=mesh)
+    if start is not None:
+        tr = mc.trainer
+        tr.states, tr.net_states = interop.rank_chain_states(
+            tr, start, {}, device="cpu")
+    return mc, loaders
+
+
+def chains_host(mc):
+    """Every chain's whole state, as numpy."""
+    return [host(s) for s in mc.trainer.all_chains()[0]]
+
+
+def interrupted(hparams, workdir, **kw):
+    """The first epoch of a 2-epoch run (reshard_chains at 1 epoch, its
+    cycle ended), saved as the DCP directory (by `train`) and as the
+    pickle: (the chains' whole states, the directory, the pickle)."""
+    mc, loaders = reshard_chains(hparams, workdir, **kw)
+    mc.train(loaders[0], None, None)
+    directory = os.path.join(workdir, "chains_ckpt_orbax")
+    mc.cfg.ckpt_backend = "pickle"
+    pkl = mc.save_ckpt(0)
+    return chains_host(mc), directory, pkl
+
+
+def resumed(hparams, path, workdir, **kw):
+    """A fresh 2-epoch runner (reshard_chains) loaded from `path` and
+    trained on: (the chains' whole states just after the load, after the
+    second epoch, its train losses)."""
+    mc, loaders = reshard_chains(hparams, workdir, epochs=2, **kw)
+    start = mc.load_ckpt(path) + 1
+    loaded = chains_host(mc)
+    res = mc.train(loaders[0], None, None, start_epoch=start)
+    return {"loaded": loaded, "end": chains_host(mc),
+            "losses": res["train_losses"], "layout":
+            (len(mc.trainer.chains), int(mc.trainer.states[0].theta.shape[0]))}
+
+
+def reshard_world(rank, world, inp, root):
+    """The 2-rank side of test_torch_reshard.py: 2 chains with
+    --data_parallel 2 --fsdp (noise on; and at nd = 0 from the JAX
+    trainer's states) and 2 chains over the 2 ranks, each saved after an
+    epoch; and the world-1 run's checkpoints resumed under fsdp."""
+    from bayesdll_tpu_torch.parallel import make_mesh
+    fsdp = dict(mesh=make_mesh(1, 2), fsdp=True)
+    out = {"fsdp": interrupted(inp["hp"], f"{root}/fsdp", **fsdp),
+           "chains": interrupted(inp["hp"], f"{root}/chains",
+                                 mesh=make_mesh(2, 1)),
+           "jax": interrupted(inp["hp0"], f"{root}/jax", arrays=inp["arrays"],
+                              start=inp["start"], **fsdp)}
+    _, directory, pkl = inp["world1"]
+    for name, path in (("from world1 dcp", directory),
+                       ("from world1 pkl", pkl)):
+        out[name] = resumed(inp["hp"], path, f"{root}/{name}", **fsdp)
+    return out
+
+
+# ---- test_torch_tp_methods.py --------------------------------------------------
+
+def tiny_vit_loaders(seed: int = 0):
+    """The tiny ViT's sets from a seed: 32 training, 16 validation and 16
+    test images of 32x32x3 in 5 classes, batches of 8, unshuffled (a
+    resumed run then sees the uninterrupted run's batches)."""
+    from bayesdll_tpu_torch.data.loader import ArrayLoader
+    rng = np.random.RandomState(seed)
+
+    def part(n):
+        return ArrayLoader(rng.randn(n, 32, 32, 3).astype(np.float32),
+                           rng.randint(0, 5, n).astype(np.int32), 8)
+    return part(32), part(16), part(16)
+
+
+def tiny_vit_method(method, hparams, *, mesh=None, epochs=1, num_cycles=1,
+                    fused=False, full_sample=False, workdir=None):
+    """A port runner of `method` on the tiny ViT (dim 32, depth 2, 4 heads,
+    mlp 64, patch 16) from seed 0 on the CPU, with the CLI's re-init
+    function; sharded over the tensor-parallel `mesh` when one is given."""
+    from bayesdll_tpu_torch.cli.demo import make_reinit_fn
+    from bayesdll_tpu_torch.config import Config
+    from bayesdll_tpu_torch.core.prior import make_flat_target
+    from bayesdll_tpu_torch.methods import get_runner_cls
+    from bayesdll_tpu_torch.models.vit import ViT
+    from bayesdll_tpu_torch.parallel import (make_tp_constraints,
+                                             shard_runner_for_tp)
+    tp = None if mesh is None else make_tp_constraints(mesh)
+    model = ViT(patch=16, dim=32, depth=2, heads=4, mlp_dim=64,
+                image_size=32, num_classes=5, tp=tp)
+    target, theta, ns = make_flat_target(
+        model, nd_size=32, num_classes=5,
+        rng=torch.Generator().manual_seed(0), device="cpu")
+    cfg = Config(method=method, hparams=dict(hparams), dataset="synthetic",
+                 backbone="vit_tiny", epochs=epochs, batch_size=8, lr=2e-2,
+                 num_cycles=num_cycles, seed=0, fused_steps=fused,
+                 full_sample=full_sample, device="cpu")
+    runner = get_runner_cls(method)(target, theta, ns, cfg, workdir=workdir)
+    if hasattr(runner, "set_reinit_fn"):
+        runner.set_reinit_fn(make_reinit_fn(model, target, 0))
+    return runner if mesh is None else shard_runner_for_tp(runner, mesh)
+
+
+def whole_state(runner):
+    """The runner's whole state (gathered on a tensor-parallel rank)."""
+    return runner.state if runner.shard is None else \
+        runner.shard.full_state(runner.state)
+
+
+def method_run(method, hparams, mesh=None, **kw):
+    """`method` trained on the tiny ViT: its train losses, NLL, whole
+    iterate, and Laplace's variances."""
+    runner = tiny_vit_method(method, hparams, mesh=mesh, **kw)
+    res = runner.train(*tiny_vit_loaders())
+    out = {"losses": list(res["train_losses"]), "nll": res.get("nll"),
+           "iterate": host(runner.iterate(whole_state(runner)))}
+    if method == "la":
+        out["vars"] = host(runner.post_vars)
+    if getattr(runner, "all_samples", None):  # --full_sample's archive
+        out["samples"] = dict(runner.all_samples)
+    if runner.shard is not None:
+        out["local"] = int(runner.iterate(runner.state).shape[0])
+    return out
+
+
+def tp_resume_run(hparams, mesh, workdir, rank):
+    """cSGHMC on the tiny ViT at 2 epochs of one cycle each under tensor
+    parallelism: uninterrupted, and stopped after the first epoch, saved
+    (rank 0 writes the checkpoint), loaded into a fresh runner and
+    resumed; each run's whole state and its second epoch's loss."""
+    import torch.distributed as dist
+    kw = dict(mesh=mesh, epochs=2, num_cycles=2)
+    full = tiny_vit_method("csghmc", hparams, **kw)
+    res = full.train(*tiny_vit_loaders())
+    train = tiny_vit_loaders()[0]
+    part = tiny_vit_method("csghmc", hparams,
+                           workdir=workdir if rank == 0 else None, **kw)
+    part._ensure_sched(len(train))
+    part._train_loader = train
+    part.epoch_begin(0)
+    part.train_one_epoch(0, train)
+    part.save_ckpt(0)
+    dist.barrier()
+    resumed = tiny_vit_method("csghmc", hparams, **kw)
+    start = resumed.load_ckpt(os.path.join(workdir, "ckpt.pkl")) + 1
+    res2 = resumed.train(*tiny_vit_loaders(), start_epoch=start)
+    return {"full": host(whole_state(full)), "resumed":
+            host(whole_state(resumed)), "start": start,
+            "loss": (res["train_losses"][1], res2["train_losses"][1])}
+
+
+def tp_methods_world(rank, world, cases, workdir):
+    """Each (name, method, hparams, options) of `cases` trained on the tiny
+    ViT at (1 data x 2 model ranks), and the resume of tp_resume_run."""
+    from bayesdll_tpu_torch.parallel import make_tp_mesh
+    mesh = make_tp_mesh(1, world)
+    out = {name: method_run(method, hp, mesh, **kw)
+           for name, method, hp, kw in cases}
+    out["resume"] = tp_resume_run(dict(cases[0][2]), mesh, workdir, rank)
     return out
 
 
