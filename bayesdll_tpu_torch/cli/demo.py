@@ -82,7 +82,11 @@ world that pads the same (the load says so before it reads a tensor).
       --hparams prior_sig=1.0,Ninflate=1.0,nd=1.0,thin=2,bias=informative,nst=2
 
 --profile_dir writes a torch.profiler trace of `train` (the card's kernels
-included) that TensorBoard and Perfetto load; --use_wandb logs the run's
+included) that TensorBoard and Perfetto load, and beside it
+(`<same stem>.program.json`) the program's spans (epoch, step, forward,
+update, batch gather and copy, predictive pass, draw, host read, cycle end)
+and counters (bytes to the card, bytes pinned, host reads) on the trace's
+clock; --use_wandb logs the run's
 config and its final results to wandb where the package is installed, and
 does nothing where it is not.
 
@@ -193,7 +197,10 @@ def parse_args(argv=None):
                         "--data_parallel, --fsdp and process count with "
                         "the same chains)")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="write a torch.profiler trace of training here")
+                   help="write a torch.profiler trace of training here, "
+                        "and beside it the program's spans and counters "
+                        "(<stem>.program.json, category 'program') on the "
+                        "same clock")
     p.add_argument("--ckpt_backend", type=str, default="auto",
                    choices=["auto", "pickle", "orbax"],
                    help="multi-chain checkpoint backend: orbax = the "

@@ -16,6 +16,7 @@ from torch import nn
 from torch.func import functional_call
 
 from bayesdll_tpu_torch.core import flat as flat_util
+from bayesdll_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -73,18 +74,20 @@ class FlatTarget:
         if not self.fwd_cast:
             return params
         dt = getattr(torch, self.fwd_cast)
-        return {name: leaf.to(dt) for name, leaf in params.items()}
+        with profiling.span("forward.cast"):
+            return {name: leaf.to(dt) for name, leaf in params.items()}
 
     def forward(self, theta: torch.Tensor, net_state, x, train: bool = False):
         """Apply the backbone with parameters taken from `theta` (`leaves`).
         Returns (logits, net_state'), as the JAX package's apply_fn does: in
         train mode a model with batch stats returns its updated
         `batch_stats`; otherwise net_state comes back as it was given."""
-        params = self.leaves(theta)
-        if not self.has_batch_stats:
-            return functional_call(self.module, params, (x,)), net_state
-        logits, stats = functional_call(
-            self.module, params, (x, net_state["batch_stats"], train))
+        with profiling.span("forward"):
+            params = self.leaves(theta)
+            if not self.has_batch_stats:
+                return functional_call(self.module, params, (x,)), net_state
+            logits, stats = functional_call(
+                self.module, params, (x, net_state["batch_stats"], train))
         if train:
             return logits, {**net_state, "batch_stats": stats}
         return logits, net_state

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from bayesdll_tpu_torch.utils import profiling
+
 
 class ArrayLoader:
     def __init__(self, x, y, batch_size: int, shuffle: bool = False,
@@ -62,16 +64,18 @@ class ArrayLoader:
             self._rng.shuffle(idx)
         bs = self.batch_size
         for b in range(len(self)):
-            sel = idx[b * bs:(b + 1) * bs]
-            xb, yb = self.x[sel], self.y[sel]
-            if self.augment_fn is not None:
-                xb = self.augment_fn(xb, self._rng)
-            if len(sel) < bs:  # pad the final eval batch to the batch size
-                pad = bs - len(sel)
-                xb = np.concatenate([xb, np.zeros((pad,) + xb.shape[1:], xb.dtype)])
-                yb = np.concatenate([yb, np.zeros((pad,), yb.dtype)])
-                valid = np.concatenate(
-                    [np.ones(len(sel), np.float32), np.zeros(pad, np.float32)])
-            else:
-                valid = np.ones(bs, np.float32)
+            with profiling.span("loader.gather"):
+                sel = idx[b * bs:(b + 1) * bs]
+                xb, yb = self.x[sel], self.y[sel]
+                if self.augment_fn is not None:
+                    xb = self.augment_fn(xb, self._rng)
+                if len(sel) < bs:  # pad the final eval batch to the batch size
+                    pad = bs - len(sel)
+                    xb = np.concatenate(
+                        [xb, np.zeros((pad,) + xb.shape[1:], xb.dtype)])
+                    yb = np.concatenate([yb, np.zeros((pad,), yb.dtype)])
+                    valid = np.concatenate([np.ones(len(sel), np.float32),
+                                            np.zeros(pad, np.float32)])
+                else:
+                    valid = np.ones(bs, np.float32)
             yield xb, yb, valid

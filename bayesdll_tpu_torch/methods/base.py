@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import logging
 import math
 import os
@@ -58,9 +59,11 @@ import torch.nn.functional as F
 from bayesdll_tpu_torch.core import rng
 from bayesdll_tpu_torch.methods import graphed
 from bayesdll_tpu_torch.ops import kernels
-from bayesdll_tpu_torch.utils import calibration
+from bayesdll_tpu_torch.utils import calibration, profiling
 
 _LOG = logging.getLogger("bayesdll_tpu_torch")
+# the ids of the process's predictive passes, for their spans
+PASS_IDS = itertools.count()
 
 
 def combine_mc_logits(logits_all: torch.Tensor) -> torch.Tensor:
@@ -86,24 +89,29 @@ def gaussian_sample_logits(target, net_state, mean, var, x, generator, nst: int)
     """
     if nst == 0:
         return target.forward(mean, net_state, x, train=False)[0][None]
-    std = torch.sqrt(var)
+    with profiling.span("predict.draw"):
+        std = torch.sqrt(var)
     out = []
     for _ in range(nst):
-        eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                          device=mean.device)
-        out.append(target.forward(mean + std * eps, net_state, x, train=False)[0])
+        with profiling.span("predict.draw"):
+            eps = torch.randn(mean.shape, generator=generator,
+                              dtype=mean.dtype, device=mean.device)
+            theta = mean + std * eps
+        out.append(target.forward(theta, net_state, x, train=False)[0])
     return torch.stack(out)
 
 
-def to_host(obj):
+def to_host(obj, site: str = "other"):
     """A copy of `obj` with every tensor as a numpy array (dataclasses become
-    dicts), for pickling."""
+    dicts), for pickling; each tensor read is a host sync at `site`."""
     if isinstance(obj, torch.Tensor):
+        profiling.host_sync(site)
         return obj.detach().to("cpu", copy=True).numpy()
     if dataclasses.is_dataclass(obj):
-        return {f.name: to_host(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+        return {f.name: to_host(getattr(obj, f.name), site)
+                for f in dataclasses.fields(obj)}
     if isinstance(obj, dict):
-        return {k: to_host(v) for k, v in obj.items()}
+        return {k: to_host(v, site) for k, v in obj.items()}
     return obj
 
 
@@ -215,20 +223,30 @@ class BaseRunner:
 
     # ---- training -----------------------------------------------------------
 
-    def _to_device(self, a) -> torch.Tensor:
+    def _to_device(self, a, site: str = "other") -> torch.Tensor:
         """Host batch -> device.  To a card the copy goes from pinned memory
-        and does not block, so the host never waits for the card's queue."""
-        t = torch.as_tensor(a)
-        if self.device.type == "cuda" and t.device.type == "cpu":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        and does not block, so the host never waits for the card's queue.
+        The recorder counts the bytes handed over (`to_device_bytes`) and
+        those pinned anew (`pinned_bytes`) at `site`: batch, component or
+        other."""
+        with profiling.span("to_device"):
+            t = torch.as_tensor(a)
+            to_card = self.device.type == "cuda" and t.device.type == "cpu"
+            if profiling.recording():
+                profiling.count("to_device_bytes", t.nbytes, site)
+                if to_card and not t.is_pinned():
+                    profiling.count("pinned_bytes", t.nbytes, site)
+            if to_card:
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t.to(self.device)
 
     def _one_step(self, ep: int, x, y):
-        scalars = self.step_scalars(ep)
-        self.state, self.net_state, metrics = self._step(
-            self.state, self.net_state, self._to_device(x),
-            self._to_device(y), self.bi, scalars)
-        self.bi += 1
+        with profiling.span("step", self.bi):
+            scalars = self.step_scalars(ep)
+            self.state, self.net_state, metrics = self._step(
+                self.state, self.net_state, self._to_device(x, "batch"),
+                self._to_device(y, "batch"), self.bi, scalars)
+            self.bi += 1
         return metrics
 
     def step_loop(self, ep: int, xs, ys, bi0: int):
@@ -265,10 +283,12 @@ class BaseRunner:
         other graph's scalars have `collect` None)."""
         if "dev" not in scalars:
             if scalars["collect"]:
-                state.moments.update(state.theta)
+                with profiling.span("moments"):
+                    state.moments.update(state.theta)
         elif scalars["collect"] is not None:
-            state.moments.update_masked(state.theta, scalars["collect"],
-                                        scalars["count"])
+            with profiling.span("moments"):
+                state.moments.update_masked(state.theta, scalars["collect"],
+                                            scalars["count"])
 
     def _fused_key(self, ep: int):
         """What the captured step depends on beyond the state's addresses:
@@ -334,7 +354,8 @@ class BaseRunner:
         graph = self._step_graphs.get(self.seed)
         if graph is None:
             graph = self._step_graphs[self.seed] = graphed.StepGraph()
-        return graph.run(self, ep, xs, ys, bi0)
+        with profiling.span("fused.segment"):
+            return graph.run(self, ep, xs, ys, bi0)
 
     def train(self, train_loader, val_loader, test_loader, start_epoch=0):
         """Epoch loop with eval cadence and best-checkpoint artifacts."""
@@ -377,20 +398,28 @@ class BaseRunner:
         return self.results
 
     def train_one_epoch(self, ep: int, train_loader):
-        if self.use_fused(ep):
-            return self._train_one_epoch_fused(ep, train_loader)
-        losses, errs, nb = [], [], 0
-        bs = train_loader.batch_size
-        for x, y, _valid in train_loader:
-            loss, err = self._one_step(ep, x, y)
-            losses.append(loss)
-            errs.append(err)
-            nb += bs
-            self.after_batch(ep)
-        # the one host read of the epoch
-        loss = float(torch.stack(losses).sum()) * bs / nb
-        err = float(torch.stack(errs).sum()) / nb
-        return loss, err
+        with profiling.span("epoch", ep):
+            if self.use_fused(ep):
+                return self._train_one_epoch_fused(ep, train_loader)
+            losses, errs, nb = [], [], 0
+            bs = train_loader.batch_size
+            for x, y, _valid in train_loader:
+                loss, err = self._one_step(ep, x, y)
+                losses.append(loss)
+                errs.append(err)
+                nb += bs
+                with profiling.span("after_batch"):
+                    self.after_batch(ep)
+            return self._epoch_read(torch.stack(losses), torch.stack(errs),
+                                    bs, nb)
+
+    @staticmethod
+    def _epoch_read(losses, errs, bs: int, nb: int):
+        """The one host read of the epoch: (mean loss, error rate) of the
+        per-step device values."""
+        with profiling.span("epoch.read"):
+            profiling.host_sync("epoch", 2)
+            return float(losses.sum()) * bs / nb, float(errs.sum()) / nb
 
     def _train_one_epoch_fused(self, ep: int, train_loader):
         """The epoch in fused segments (JAX `_train_one_epoch_fused`): cut
@@ -408,11 +437,10 @@ class BaseRunner:
             losses.append(loss_k)
             errs.append(err_k)
             if at_end:
-                self.after_segment(ep)
-        nb = n * bs
-        loss = float(torch.cat(losses).sum()) * bs / nb
-        err = float(torch.cat(errs).sum()) / nb
-        return loss, err
+                with profiling.span("after_batch"):
+                    self.after_segment(ep)
+        return self._epoch_read(torch.cat(losses), torch.cat(errs), bs,
+                                n * bs)
 
     # ---- evaluation ---------------------------------------------------------
 
@@ -431,25 +459,37 @@ class BaseRunner:
         """The eval loop over `loader`: pred_fn(x, i) gives batch i's
         logits_all [S, B, K] for x on the device; its Monte-Carlo average
         gives the metrics and the artifacts."""
-        loss_sum = torch.zeros((), device=self.device)
-        err_sum = torch.zeros((), device=self.device)
-        n = 0.0
-        targets, logits_list, logits_all_list = [], [], []
-        for i, (x, y, valid) in enumerate(loader):
-            yd, vd = self._to_device(y).long(), self._to_device(valid)
-            la = pred_fn(self._to_device(x), i)
-            logits = combine_mc_logits(la)
-            picked = torch.log_softmax(logits, -1).gather(1, yd[:, None])[:, 0]
-            loss_sum += torch.sum(-picked * vd)
-            err_sum += torch.sum((torch.argmax(logits, -1) != yd).float() * vd)
-            nv = int(valid.sum())
-            n += nv
-            targets.append(y[:nv])
-            logits_list.append(logits[:nv].cpu().numpy())
-            logits_all_list.append(la.transpose(0, 1)[:nv].cpu().numpy())
-        return (float(loss_sum) / n, float(err_sum) / n,
-                np.concatenate(targets), np.concatenate(logits_list),
-                np.concatenate(logits_all_list))
+        p = next(PASS_IDS)
+        with profiling.span("predict.pass", p):
+            loss_sum = torch.zeros((), device=self.device)
+            err_sum = torch.zeros((), device=self.device)
+            n = 0.0
+            targets, logits_list, logits_all_list = [], [], []
+            for i, (x, y, valid) in enumerate(loader):
+                with profiling.span("predict.batch", (p, i)):
+                    yd = self._to_device(y, "batch").long()
+                    vd = self._to_device(valid, "batch")
+                    la = pred_fn(self._to_device(x, "batch"), i)
+                    logits = combine_mc_logits(la)
+                    picked = torch.log_softmax(logits, -1).gather(
+                        1, yd[:, None])[:, 0]
+                    loss_sum += torch.sum(-picked * vd)
+                    err_sum += torch.sum(
+                        (torch.argmax(logits, -1) != yd).float() * vd)
+                    nv = int(valid.sum())
+                    n += nv
+                    targets.append(y[:nv])
+                    with profiling.span("predict.readback"):
+                        profiling.host_sync("predict", 2)
+                        logits_list.append(logits[:nv].cpu().numpy())
+                        logits_all_list.append(
+                            la.transpose(0, 1)[:nv].cpu().numpy())
+            with profiling.span("predict.readback"):
+                profiling.host_sync("predict", 2)
+                loss, err = float(loss_sum) / n, float(err_sum) / n
+        return (loss, err, np.concatenate(targets),
+                np.concatenate(logits_list), np.concatenate(logits_all_list))
+
 
     def _eval_and_maybe_save(self, ep, val_loader, test_loader, best_loss):
         logger = self.logger
@@ -541,8 +581,8 @@ class BaseRunner:
             "bi": self.bi,
             "method": self.method_name,
             "prior_sig": self.prior_sig,
-            "state": to_host(self.state),
-            "net_state": to_host(self.net_state),
+            "state": to_host(self.state, "ckpt"),
+            "net_state": to_host(self.net_state, "ckpt"),
             **self.extra_ckpt(),
         }
         with open(path, "wb") as f:

@@ -38,6 +38,7 @@ from bayesdll_tpu_torch.core import rng
 from bayesdll_tpu_torch.core.schedule import CyclicalSchedule
 from bayesdll_tpu_torch.data.stream import window_batches
 from bayesdll_tpu_torch.methods import base
+from bayesdll_tpu_torch.utils import profiling
 
 
 def gmm_weights_of(cycle_stats: Dict[int, dict]) -> Dict[int, float]:
@@ -127,11 +128,12 @@ class CyclicalRunnerBase(base.BaseRunner):
         float, and both values enter as kernel arguments, so no
         host-to-device copy waits; on the fused path it is the pair itself,
         as 0-d tensors on the device."""
-        if isinstance(lr_t, tuple):
-            body, head = lr_t
-            return torch.where(self.target.is_head, head, body)
-        body, head = self.lr_pair(lr_t)
-        return torch.where(self.target.is_head, float(head), float(body))
+        with profiling.span("lr_vec"):
+            if isinstance(lr_t, tuple):
+                body, head = lr_t
+                return torch.where(self.target.is_head, head, body)
+            body, head = self.lr_pair(lr_t)
+            return torch.where(self.target.is_head, float(head), float(body))
 
     def segment_ends(self, ep: int, n_steps: int):
         """The fused path's cuts: after each step of the epoch that ends a
@@ -169,28 +171,35 @@ class CyclicalRunnerBase(base.BaseRunner):
         return getattr(m, "cnt", getattr(m, "n", 0))
 
     def _end_of_cycle(self, cycle: int):
+        with profiling.span("cycle_end", cycle):
+            self._cycle_end_work(cycle)
+
+    def _cycle_end_work(self, cycle: int):
         state = self.state
-        mean, var = state.moments.mean_var()
-        n = self._moments_count(state)
-        self.cycle_stats[cycle] = {
-            "mean": base.to_host(mean),
-            "var": base.to_host(var),
-            "n": n,
-            "theta": base.to_host(state.theta),
-        }
+        with profiling.span("cycle_end.snapshot"):
+            mean, var = state.moments.mean_var()
+            n = self._moments_count(state)
+            self.cycle_stats[cycle] = {
+                "mean": base.to_host(mean, "cycle_end"),
+                "var": base.to_host(var, "cycle_end"),
+                "n": n,
+                "theta": base.to_host(state.theta, "cycle_end"),
+            }
         if cycle > self.current_cycle:
             self.current_cycle = cycle
             self.logger.info("Completed cycle %d (samples collected: %d)",
                              cycle, n)
-            lik = self.full_batch_likelihoods(self._train_loader)
+            with profiling.span("cycle_end.likelihoods"):
+                lik = self.full_batch_likelihoods(self._train_loader)
             self.cycle_stats[cycle]["likelihoods"] = lik
             self.logger.info("Cycle %d full batch likelihood: %.6e",
                              cycle, float(np.mean(lik)))
-            self.save_ckpt(cycle, fname=f"{cycle}_ckpt.pkl")
-            if self.cfg.full_sample and self.workdir:
-                with open(os.path.join(self.workdir, "all_samples.pkl"),
-                          "wb") as f:
-                    pickle.dump(self.all_samples, f)
+            with profiling.span("cycle_end.ckpt"):
+                self.save_ckpt(cycle, fname=f"{cycle}_ckpt.pkl")
+                if self.cfg.full_sample and self.workdir:
+                    with open(os.path.join(self.workdir, "all_samples.pkl"),
+                              "wb") as f:
+                        pickle.dump(self.all_samples, f)
         self.state = self._reset_cycle_state(self.state)
         self.on_cycle_start(cycle + 1)
 
@@ -291,9 +300,9 @@ class CyclicalRunnerBase(base.BaseRunner):
         tot = np.zeros((len(chains), nst))
         cnt = 0.0
         for xs, ys, vs in window_batches(train_loader):
-            xs_d = self._to_device(xs)
-            ys_d = self._to_device(ys).long()
-            vs_d = self._to_device(vs)
+            xs_d = self._to_device(xs, "batch")
+            ys_d = self._to_device(ys, "batch").long()
+            vs_d = self._to_device(vs, "batch")
             for k, (center, std, ns, seed) in enumerate(setups):
                 for s in range(nst):
                     theta_s = center
@@ -309,6 +318,7 @@ class CyclicalRunnerBase(base.BaseRunner):
                         picked = torch.log_softmax(logits, -1).gather(
                             1, ys_d[b][:, None])[:, 0]
                         acc += torch.sum(-picked * vs_d[b])
+                    profiling.host_sync("likelihoods")
                     tot[k, s] += float(acc)
             cnt += float(vs.sum())
         return list(np.exp(-tot / cnt))
@@ -344,31 +354,48 @@ class CyclicalRunnerBase(base.BaseRunner):
         per component the Monte-Carlo averaged log-probs (raw logits when
         nst = 0), summed with the weights on the host.  The component's
         batch i draws from the generator keyed (seed, EVAL, comp_id, i)."""
-        moments = [(self._to_device(mean), self._to_device(var))
-                   for _, mean, var, *_ in comps]
-        loss_sum, err_sum, n = 0.0, 0.0, 0.0
-        targets, logits_list, logits_all_list = [], [], []
-        for i, (x, y, valid) in enumerate(loader):
-            xd = self._to_device(x)
-            mix = None
-            comp_stack = []
-            for (w, _, _, ns, seed, cid), (mean, var) in zip(comps, moments):
-                gen = rng.generator(self.device, seed, rng.EVAL, cid, i)
-                la = base.gaussian_sample_logits(
-                    self.target, ns, mean, var, xd, gen, self.nst)  # [S, B, K]
-                comp_out = la[0] if self.nst == 0 else base.combine_mc_logits(la)
-                comp_out = comp_out.cpu().numpy()
-                comp_stack.append(la.cpu().numpy().transpose(1, 0, 2))
-                mix = w * comp_out if mix is None else mix + w * comp_out
-            logp = mix - logsumexp(mix, axis=-1, keepdims=True)
-            picked = logp[np.arange(len(y)), y]
-            loss_sum += float(np.sum(-picked * valid))
-            err_sum += float(np.sum((np.argmax(mix, -1) != y) * valid))
-            nv = int(valid.sum())
-            n += nv
-            targets.append(y[:nv])
-            logits_list.append(mix[:nv])
-            logits_all_list.append(np.concatenate(comp_stack, axis=1)[:nv])
+        p = next(base.PASS_IDS)
+        with profiling.span("predict.pass", p):
+            with profiling.span("predict.upload"):
+                moments = [(self._to_device(mean, "component"),
+                            self._to_device(var, "component"))
+                           for _, mean, var, *_ in comps]
+            loss_sum, err_sum, n = 0.0, 0.0, 0.0
+            targets, logits_list, logits_all_list = [], [], []
+            for i, (x, y, valid) in enumerate(loader):
+                with profiling.span("predict.batch", (p, i)):
+                    xd = self._to_device(x, "batch")
+                    mix = None
+                    comp_stack = []
+                    for (w, _, _, ns, seed, cid), (mean, var) in zip(
+                            comps, moments):
+                        gen = rng.generator(self.device, seed, rng.EVAL, cid,
+                                            i)
+                        la = base.gaussian_sample_logits(
+                            self.target, ns, mean, var, xd, gen,
+                            self.nst)  # [S, B, K]
+                        comp_out = la[0] if self.nst == 0 \
+                            else base.combine_mc_logits(la)
+                        with profiling.span("predict.readback"):
+                            profiling.host_sync("predict", 2)
+                            comp_out = comp_out.cpu().numpy()
+                            comp_stack.append(
+                                la.cpu().numpy().transpose(1, 0, 2))
+                        with profiling.span("predict.mix"):
+                            mix = w * comp_out if mix is None \
+                                else mix + w * comp_out
+                    with profiling.span("predict.mix"):
+                        logp = mix - logsumexp(mix, axis=-1, keepdims=True)
+                        picked = logp[np.arange(len(y)), y]
+                        loss_sum += float(np.sum(-picked * valid))
+                        err_sum += float(np.sum((np.argmax(mix, -1) != y)
+                                                * valid))
+                        nv = int(valid.sum())
+                        n += nv
+                        targets.append(y[:nv])
+                        logits_list.append(mix[:nv])
+                        logits_all_list.append(
+                            np.concatenate(comp_stack, axis=1)[:nv])
         return (loss_sum / n, err_sum / n, np.concatenate(targets),
                 np.concatenate(logits_list), np.concatenate(logits_all_list))
 
@@ -376,26 +403,37 @@ class CyclicalRunnerBase(base.BaseRunner):
     def _point_evaluate(self, loader):
         """Point-estimate evaluation at the current iterate."""
         theta = self.state.theta
-        loss_sum = torch.zeros((), device=self.device)
-        err_sum = torch.zeros((), device=self.device)
-        n = 0.0
-        targets, logits_list, logits_all_list = [], [], []
-        for x, y, valid in loader:
-            yd, vd = self._to_device(y).long(), self._to_device(valid)
-            logits, _ = self.target.forward(theta, self.net_state,
-                                            self._to_device(x), train=False)
-            picked = torch.log_softmax(logits, -1).gather(1, yd[:, None])[:, 0]
-            loss_sum += torch.sum(-picked * vd)
-            err_sum += torch.sum((torch.argmax(logits, -1) != yd).float() * vd)
-            nv = int(valid.sum())
-            n += nv
-            lp = logits[:nv].cpu().numpy()
-            targets.append(y[:nv])
-            logits_list.append(lp)
-            logits_all_list.append(lp[:, None, :])
-        return (float(loss_sum) / n, float(err_sum) / n,
-                np.concatenate(targets), np.concatenate(logits_list),
-                np.concatenate(logits_all_list))
+        p = next(base.PASS_IDS)
+        with profiling.span("predict.pass", p):
+            loss_sum = torch.zeros((), device=self.device)
+            err_sum = torch.zeros((), device=self.device)
+            n = 0.0
+            targets, logits_list, logits_all_list = [], [], []
+            for i, (x, y, valid) in enumerate(loader):
+                with profiling.span("predict.batch", (p, i)):
+                    yd = self._to_device(y, "batch").long()
+                    vd = self._to_device(valid, "batch")
+                    logits, _ = self.target.forward(
+                        theta, self.net_state, self._to_device(x, "batch"),
+                        train=False)
+                    picked = torch.log_softmax(logits, -1).gather(
+                        1, yd[:, None])[:, 0]
+                    loss_sum += torch.sum(-picked * vd)
+                    err_sum += torch.sum(
+                        (torch.argmax(logits, -1) != yd).float() * vd)
+                    nv = int(valid.sum())
+                    n += nv
+                    with profiling.span("predict.readback"):
+                        profiling.host_sync("predict")
+                        lp = logits[:nv].cpu().numpy()
+                    targets.append(y[:nv])
+                    logits_list.append(lp)
+                    logits_all_list.append(lp[:, None, :])
+            with profiling.span("predict.readback"):
+                profiling.host_sync("predict", 2)
+                loss, err = float(loss_sum) / n, float(err_sum) / n
+        return (loss, err, np.concatenate(targets),
+                np.concatenate(logits_list), np.concatenate(logits_all_list))
 
     def extra_ckpt(self):
         return {

@@ -36,6 +36,7 @@ gives NaN or inf, and the port stays finite.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -44,8 +45,18 @@ import torch
 from bayesdll_tpu_torch.core import rng
 from bayesdll_tpu_torch.core.moments import div_as_host_scalar
 from bayesdll_tpu_torch.ops import kernels
+from bayesdll_tpu_torch.utils import profiling
 
 LR_FLOOR = 1e-30
+
+
+def _in_update_span(fn):
+    """fn, each call recorded as an `update` span (utils/profiling.py)."""
+    @functools.wraps(fn)
+    def recorded(*args, **kw):
+        with profiling.span("update"):
+            return fn(*args, **kw)
+    return recorded
 
 
 def _normal(like, noise, generator):
@@ -379,6 +390,7 @@ _HOST_STREAM = {kernels.STREAM_VI: rng.VI, kernels.STREAM_ADAM: rng.ADAM,
                 kernels.STREAM_MC_DROPOUT: rng.MC_DROPOUT}
 
 
+@_in_update_span
 def draw_(like, *, kind: str, stream: int, seed: int = 0, step: int = 0,
           dev=None, elem0: int = 0, total=None):
     """A new fp32 vector shaped as `like` (1-D) of N(0, 1) (kind "normal")
@@ -420,6 +432,7 @@ def _host_scalars(dev, seed, step, gate=False):
     return seed & kernels._U64, step, bool(gate)
 
 
+@_in_update_span
 def csghmc_update_(g, theta, v, *, prior_sig: float, n_eff: float, nd: float,
                    alpha: float, lr, should_sample: bool = False,
                    seed: int = 0, step: int = 0, dev=None, elem0: int = 0,
@@ -449,6 +462,7 @@ def csghmc_update_(g, theta, v, *, prior_sig: float, n_eff: float, nd: float,
     return theta, v
 
 
+@_in_update_span
 def sgld_update_(g, theta, theta0, prior_mask, lr, *, prior_sig: float,
                  n_eff: float, nd: float, seed: int = 0, step: int = 0,
                  dev=None, elem0: int = 0, total=None):
@@ -472,6 +486,7 @@ def sgld_update_(g, theta, theta0, prior_mask, lr, *, prior_sig: float,
                                **noise))
 
 
+@_in_update_span
 def sghmc_update_(g, theta, theta0, v, prior_mask, lr, *, prior_sig: float,
                   n_eff: float, nd: float, alpha: float, seed: int = 0,
                   step: int = 0, dev=None, elem0: int = 0, total=None):

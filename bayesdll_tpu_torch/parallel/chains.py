@@ -70,6 +70,7 @@ from bayesdll_tpu_torch.core import rng
 from bayesdll_tpu_torch.methods import base, graphed
 from bayesdll_tpu_torch.models.layers import set_batch_norm_group
 from bayesdll_tpu_torch.parallel.shard import FlatShard, RunnerShard
+from bayesdll_tpu_torch.utils import profiling
 
 _LOG = logging.getLogger("bayesdll_tpu_torch")
 
@@ -328,6 +329,7 @@ class MultiChainTrainer:
                         after_batch(ep)
             # the one host read of the epoch
             bs = train_loader.batch_size
+            profiling.host_sync("epoch", 2)
             yield (ep, float(torch.cat(losses).mean()),
                    float(torch.cat(errs).float().mean()) / bs)
 

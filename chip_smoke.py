@@ -109,7 +109,9 @@ Phases, one line each:
      graphs replayed) and after a pickle load (captured again); (c)
      `cli.demo --profile_dir` on the MLP cSGHMC path for an epoch, per
      step and fused: the trace names csghmc_update_kernel once a step,
-     and StepTimer against CUDA events on the same steps.
+     launches = steps, and the program file beside it holds the epoch and
+     its steps (ids 0..n-1) on the trace's clock, each csghmc_update
+     launch inside an `update` span (fused: inside a `fused.segment`).
   9. multi-device (parallel/): (a) each of the four kernels on 2 and 4
      shards of the MLP's and of ViT-L/32's D at their global offsets
      (`elem0`), by value and through the pointer entry, bitwise equal to
@@ -148,6 +150,7 @@ card it stops at once.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -3959,28 +3962,14 @@ def phase_chain_resume(smi, fused: bool, by_path: dict):
 
 
 @contextlib.contextmanager
-def timed_cli_steps(timer, pairs, seen):
-    """The CLI's runner with every step (`_one_step`) or fused segment
-    (`run_steps`) inside `timer.measure` (fenced on θ) and between two CUDA
-    events; pairs gets (start, end, steps)."""
+def cli_loaders(seen: dict):
+    """The CLI's loaders, into seen["loaders"] as `build_all` makes them."""
     from bayesdll_tpu_torch.cli import demo
     build_all = demo.build_all
 
     def watched(*a, **kw):
         runner, loaders = build_all(*a, **kw)
-        seen["runner"], seen["loaders"] = runner, loaders
-        for name in ("_one_step", "run_steps"):
-            def timed(*args, _inner=getattr(runner, name), _name=name):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                with timer.measure(runner.state.theta):
-                    start.record()
-                    out = _inner(*args)
-                    end.record()
-                pairs.append((start, end, len(args[1])
-                              if _name == "run_steps" else 1))
-                return out
-            setattr(runner, name, timed)
+        seen["loaders"] = loaders
         return runner, loaders
 
     demo.build_all = watched
@@ -3990,32 +3979,70 @@ def timed_cli_steps(timer, pairs, seen):
         demo.build_all = build_all
 
 
+def launched_inside(events: list, kernel: str, program: list, name: str):
+    """(launches of the trace's kernels whose name holds `kernel` that fall
+    inside a program span named `name`, such kernels with a launch event,
+    such kernels): a launch is the runtime call of the kernel's
+    correlation, on the trace's timeline as the program's events are."""
+    launch = {e["args"]["correlation"]: float(e["ts"]) for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in program if e["ph"] == "X" and e["name"] == name)
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and kernel in e.get("name", "")]
+    at = [launch[e["args"]["correlation"]] for e in kernels
+          if e.get("args", {}).get("correlation") in launch]
+    inside = sum(any(a <= t <= b for a, b in spans) for t in at)
+    return inside, len(at), len(kernels)
+
+
 def phase_cli_trace(smi, fused: bool):
     """8c: `cli.demo --profile_dir` on the MLP cSGHMC path for one epoch:
     the trace (TensorBoard's JSON) names csghmc_update, once a step per
-    step (fused: what the trace shows of the replayed graphs is recorded);
-    StepTimer's steps against CUDA events around the same steps."""
-    from bayesdll_tpu_torch.utils import profiling
+    step (fused: what the trace shows of the replayed graphs is recorded),
+    and launches = steps; the program file beside it, on the trace's
+    `baseTimeNanoseconds`, holds the epoch and its steps (ids 0..n-1; fused,
+    its segments), and each csghmc_update launch falls inside an `update`
+    span (fused: inside a `fused.segment`, whose graphs replay the
+    updates)."""
     tag = "fused" if fused else "per step"
     SCRATCH.mkdir(parents=True, exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="cli_trace_", dir=SCRATCH))
-    timer, pairs, seen = profiling.StepTimer(), [], {}
+    seen = {}
     try:
-        with timed_cli_steps(timer, pairs, seen):
+        with cli_loaders(seen):
             reset_launches()
+            tic = time.perf_counter()
             cli_main(CKPT_CLI + ONE_EPOCH + (["--fused_steps"] if fused
                                             else [])
                      + ["--log_dir", str(root / "logs"),
                         "--profile_dir", str(root / "trace")])
             torch.cuda.synchronize()
+            secs = time.perf_counter() - tic
             counts = read_launches()
         traces = list((root / "trace").glob("*.pt.trace.json"))
         check(len(traces) == 1, f"8c {tag}: one trace file: {traces}")
+        side = traces[0].with_name(traces[0].name[:-len(".pt.trace.json")]
+                                   + ".program.json")
+        check(sorted((root / "trace").iterdir()) == sorted([traces[0], side]),
+              f"8c {tag}: the trace and its program file: "
+              f"{list((root / 'trace').iterdir())}")
         trace_mb = traces[0].stat().st_size / 1e6
+        tic = time.perf_counter()
         with open(traces[0]) as f:
-            events = json.load(f)["traceEvents"]
+            doc = json.load(f)
+        with open(side) as f:
+            program = json.load(f)
+        read_s = time.perf_counter() - tic
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    events, prog = doc["traceEvents"], program["traceEvents"]
+    check(program["baseTimeNanoseconds"] == doc.get("baseTimeNanoseconds")
+          and program["baseTimeNanoseconds"] > 0,
+          f"8c {tag}: the program file's base "
+          f"{program['baseTimeNanoseconds']} is the trace's "
+          f"{doc.get('baseTimeNanoseconds')}")
     steps = len(seen["loaders"][0])
     kernel = [e for e in events if e.get("cat") == "kernel"]
     named = sum("csghmc_update_kernel" in e.get("name", "") for e in kernel)
@@ -4025,27 +4052,35 @@ def phase_cli_trace(smi, fused: bool):
     if not fused:
         check(named == steps, f"8c {tag}: the trace names csghmc_update "
               f"{named} times, {steps} steps")
-    stepped = sum(k for _, _, k in pairs)
-    check(stepped == steps, f"8c {tag}: timed {stepped} of {steps} steps")
-    event_ms = sum(s.elapsed_time(e) for s, e, _ in pairs) / steps
-    stats = timer.stats()
-    timer_ms = sum(timer.samples) / steps * 1e3
+    spans = [e for e in prog if e["ph"] == "X"]
+    by_name = collections.Counter(e["name"] for e in spans)
+    (epoch,) = [e for e in spans if e["name"] == "epoch"]
+    check(epoch["args"]["id"] == 0, f"8c {tag}: epoch id {epoch['args']}")
+    step_ids = [e["args"]["id"] for e in spans if e["name"] == "step"]
+    if fused:
+        check(by_name["fused.segment"] >= 1,
+              f"8c {tag}: fused segments in the program: {dict(by_name)}")
+    else:
+        check(step_ids == list(range(steps)),
+              f"8c {tag}: step ids {step_ids[:5]}... of {steps} steps")
+    unit = "fused.segment" if fused else "update"
+    inside, launched, found = launched_inside(
+        events, "csghmc_update_kernel", prog, unit)
+    check(launched == found and inside == launched,
+          f"8c {tag}: {inside} of {launched} csghmc_update launches "
+          f"inside a span `{unit}` ({found} kernels in the trace)")
     replays = ""
     if fused:
         replays = (" (the eager steps and every replay)" if named == steps
                    else " (not every replay is in the trace)")
-    check(timer_ms >= event_ms * 0.999,
-          f"8c {tag}: StepTimer {timer_ms} ms/step, fenced, below the CUDA "
-          f"events' {event_ms} ms/step")
     print(f"phase 8c: [{smi}] cli.demo --profile_dir, csghmc mlp_mnist "
-          f"{tag}, {steps} steps: trace {trace_mb:.1f} MB, "
-          f"{len(kernel)} kernel events, csghmc_update_kernel {named} times "
-          f"in {steps} steps{replays}, cudaGraphLaunch {graph_launches}; "
-          f"launches {counts['csghmc_update']}; "
-          f"StepTimer {timer_ms:.4f} ms/step ({len(timer.samples)} samples: "
-          f"p50 {stats['p50_s'] * 1e3:.4f} ms, p95 {stats['p95_s'] * 1e3:.4f} "
-          f"ms) against CUDA events {event_ms:.4f} ms/step, under the "
-          "profiler", flush=True)
+          f"{tag}, {steps} steps in {secs:.1f} s: trace {trace_mb:.1f} MB "
+          f"(both files read back in {read_s:.2f} s), {len(kernel)} kernel "
+          f"events, csghmc_update_kernel {named} times in {steps} steps"
+          f"{replays}, cudaGraphLaunch {graph_launches}; launches "
+          f"{counts['csghmc_update']}; program: {len(spans)} spans "
+          f"{dict(by_name)}, {inside} of {launched} csghmc_update launches "
+          f"inside `{unit}`", flush=True)
 
 
 def phase_checkpoints_and_traces(smi, vit, xs, ys, by_path: dict):

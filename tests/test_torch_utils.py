@@ -1,45 +1,22 @@
 """The port's profiling, wandb and terminal utilities against the JAX
-package's on the CPU: StepTimer's stats on the same clock readings, the
-forward-FLOP table, cprint's bytes, the wandb shim's calls with a stub
-`wandb` module, the CLI's wandb calls when training raises, and the CLI's
---profile_dir trace."""
+package's on the CPU: the forward-FLOP table, cprint's bytes, the wandb
+shim's calls with a stub `wandb` module, the CLI's wandb calls when
+training raises, and the CLI's --profile_dir trace with the program's
+spans and counters in it."""
 
 import importlib
 import json
 import sys
-import time
 import types
 
 import numpy as np
 import pytest
-import torch
 
 from bayesdll_tpu.utils import profiling as jprofiling
 from bayesdll_tpu.utils import term as jterm
 from bayesdll_tpu.utils import wandb_compat as jwandb
 from bayesdll_tpu_torch.utils import profiling, term, wandb_compat
 from tests.test_torch_multichain_runner import one_thread  # noqa: F401
-
-
-def test_step_timer_stats_match_jax(monkeypatch):
-    """Both timers on the same perf_counter readings: the same stats."""
-    starts = np.cumsum(np.random.RandomState(0).uniform(0.5, 2.0, 7))
-    lengths = np.random.RandomState(1).uniform(1e-3, 5e-2, 7)
-    readings = [float(x) for s, d in zip(starts, lengths) for x in (s, s + d)]
-    out = []
-    # the port's fence is a tensor (a CPU one: no synchronize), JAX's none
-    for timer, fence in ((profiling.StepTimer(), torch.zeros(2)),
-                         (jprofiling.StepTimer(), None)):
-        assert timer.stats() == {}
-        clock = iter(readings)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        for _ in range(len(starts)):
-            with timer.measure(fence):
-                pass
-        out.append(timer.stats())
-    assert out[0] == out[1]
-    assert out[0]["steps"] == 7
-    assert out[0]["mean_s"] == pytest.approx(float(lengths.mean()))
 
 
 def test_constants_match_jax():
@@ -189,6 +166,52 @@ def test_cli_profile_dir_writes_a_trace(monkeypatch, tmp_path):
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+
+
+def test_cli_profile_dir_trace_holds_the_program_spans(monkeypatch, tmp_path):
+    """Beside the trace file, `<same stem>.program.json` holds the
+    recorder's spans and counters, as events of category "program" on the
+    trace's timeline (its `baseTimeNanoseconds`): an epoch span over its
+    steps, each step's id its global step, every forward's aten::matmul
+    inside a `forward` span, and the counters; the trace file itself is
+    the profiler's as written, and the recorder is off and empty after."""
+    from bayesdll_tpu_torch.cli import demo
+    _small_prepare(monkeypatch)
+    demo.main(CLI + ["--log_dir", str(tmp_path / "logs"),
+                     "--profile_dir", str(tmp_path / "trace")])
+    (path,) = (tmp_path / "trace").glob("*.pt.trace.json")
+    side = path.with_name(path.name[:-len(".pt.trace.json")]
+                          + ".program.json")
+    assert sorted(p.name for p in (tmp_path / "trace").iterdir()) == sorted(
+        [path.name, side.name])
+    with open(path) as f:
+        doc = json.load(f)
+    with open(side) as f:
+        program = json.load(f)
+    assert program["baseTimeNanoseconds"] == doc["baseTimeNanoseconds"] > 0
+    events = doc["traceEvents"]
+    assert not any(e.get("cat") == "program" for e in events)
+    prog = program["traceEvents"]
+    assert all(e.get("cat") == "program" for e in prog)
+    spans = [e for e in prog if e["ph"] == "X"]
+    epochs = [e for e in spans if e["name"] == "epoch"]
+    steps = [e for e in spans if e["name"] == "step"]
+    assert [e["args"]["id"] for e in epochs] == [0]
+    assert steps and [e["args"]["id"] for e in steps] == list(
+        range(len(steps)))
+    ep = epochs[0]
+    for s in steps:
+        assert ep["ts"] <= s["ts"] and s["ts"] + s["dur"] <= ep["ts"] + ep["dur"]
+    forwards = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+                if e["name"] == "forward"]
+    matmul = [e for e in events if e.get("cat") == "cpu_op"
+              and e.get("name") == "aten::matmul"]
+    assert matmul and all(any(a <= e["ts"] and e["ts"] + e["dur"] <= b
+                              for a, b in forwards) for e in matmul)
+    counters = {e["name"]: e["args"] for e in prog if e["ph"] == "C"}
+    assert counters["host_syncs"]["epoch"] == 2
+    assert counters["to_device_bytes"]["batch"] > 0
+    assert not profiling.recording() and profiling.snapshot()["spans"] == []
 
 
 def test_cli_flags_defaults_match_jax():
