@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from bayesdll_tpu_torch.core import rng
+from bayesdll_tpu_torch.data.loader import ArrayLoader
 from bayesdll_tpu_torch.methods import graphed
 from bayesdll_tpu_torch.ops import kernels
 from bayesdll_tpu_torch.utils import calibration, profiling
@@ -403,7 +404,11 @@ class BaseRunner:
                 return self._train_one_epoch_fused(ep, train_loader)
             losses, errs, nb = [], [], 0
             bs = train_loader.batch_size
-            for x, y, _valid in train_loader:
+            # an in-memory set is gathered on the device (ArrayLoader.
+            # batches_on): the batches reach _to_device there already
+            batches = train_loader.batches_on(self.device) \
+                if isinstance(train_loader, ArrayLoader) else train_loader
+            for x, y, _valid in batches:
                 loss, err = self._one_step(ep, x, y)
                 losses.append(loss)
                 errs.append(err)
