@@ -6,7 +6,9 @@ Every backbone names its readout submodule ``head`` so that
 `core/flat.path_masks` finds the head parameters.  The ViT factories also
 take the JAX factories' `remat`, `remat_policy`, `fused_attention` and
 `gelu_approx`, and `tp` (parallel/tp.py: Megatron tensor parallelism);
-the other backbones ignore them.  Building
+the SwinV2 factories (models/swinv2.py, a backbone the JAX package does
+not have) take the first four (remat with policy "" only) and refuse
+`tp`; the other backbones ignore them.  Building
 a backbone allocates no weights (models/layers.py), so the data pipeline
 builds one just to read its input shape.
 """
@@ -18,6 +20,8 @@ from typing import Tuple
 from bayesdll_tpu_torch.models.cnn import SmallCNN
 from bayesdll_tpu_torch.models.mlp import MLP
 from bayesdll_tpu_torch.models.resnet import STAGE_SIZES, ResNet
+from bayesdll_tpu_torch.models.swinv2 import ARCHS as SWINV2_ARCHS
+from bayesdll_tpu_torch.models.swinv2 import SwinV2
 from bayesdll_tpu_torch.models.vit import ARCHS as VIT_ARCHS
 from bayesdll_tpu_torch.models.vit import ViT
 
@@ -90,6 +94,34 @@ def _vit_b_16(num_classes: int = 1000, **kw):
 @register("vit_tiny")
 def _vit_tiny(num_classes: int = 10, **kw):
     return _vit("vit_tiny", num_classes, kw)
+
+
+def _swinv2(name, num_classes, kw):
+    if kw.get("tp") is not None:
+        raise ValueError(
+            f"--tensor_parallel is not supported for {name}: its shifted "
+            f"windows and per-stage widths have no Megatron split (the ViT "
+            f"has one); run it without --tensor_parallel")
+    arch = SWINV2_ARCHS[name]
+    model = SwinV2(**arch, num_classes=num_classes,
+                   dtype=kw.get("dtype", "float32"),
+                   remat=bool(kw.get("remat", False)),
+                   remat_policy=kw.get("remat_policy", ""),
+                   fused_attention=bool(kw.get("fused_attention", True)),
+                   gelu_approx=bool(kw.get("gelu_approx", False)))
+    side = arch["image_size"]
+    return model, (side, side, 3), {"has_batch_stats": False,
+                                    "has_dropout": False}
+
+
+@register("swinv2_l_w24_384")
+def _swinv2_l_w24_384(num_classes: int = 1000, **kw):
+    return _swinv2("swinv2_l_w24_384", num_classes, kw)
+
+
+@register("swinv2_tiny")
+def _swinv2_tiny(num_classes: int = 10, **kw):
+    return _swinv2("swinv2_tiny", num_classes, kw)
 
 
 def create_backbone(name: str, num_classes: int = 10, **kw) -> Tuple:

@@ -55,8 +55,10 @@ def shape_only(*shape) -> nn.Parameter:
 
 
 def dense(x, kernel, bias, dt: torch.dtype):
-    """flax nn.Dense: `x @ kernel + bias` in dt."""
-    return x.to(dt) @ kernel.to(dt) + bias.to(dt)
+    """flax nn.Dense: `x @ kernel + bias` in dt (no bias where it is
+    None)."""
+    y = x.to(dt) @ kernel.to(dt)
+    return y if bias is None else y + bias.to(dt)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-6):
@@ -72,19 +74,23 @@ def layer_norm(x, scale, bias, eps: float = 1e-6):
 
 
 class Dense(nn.Module):
-    """flax nn.Dense: `x @ kernel + bias` in `dtype`.  With `depth`, the
-    leaves carry a leading layer axis ([depth, in, out] and [depth, out]),
-    the layout of a flax module under `nn.scan`; the owner applies one
-    layer's slice with `dense`."""
+    """flax nn.Dense: `x @ kernel + bias` in `dtype` (`use_bias=False`: no
+    bias leaf).  With `depth`, the leaves carry a leading layer axis
+    ([depth, in, out] and [depth, out]), the layout of a flax module under
+    `nn.scan`; the owner applies one layer's slice with `dense`."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32, depth=None):
+                 dtype: torch.dtype = torch.float32, depth=None,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.depth = depth
         lead = () if depth is None else (depth,)
         self.kernel = shape_only(*lead, in_features, out_features)
-        self.bias = shape_only(*lead, out_features)
+        if use_bias:
+            self.bias = shape_only(*lead, out_features)
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x):
         return dense(x, self.kernel, self.bias, self.dtype)

@@ -53,13 +53,17 @@ import torch
 BF16_PEAK = 989e12
 FP32_PEAK = 67e12
 
-# Analytic forward FLOPs per example at 224^2 (the JAX package's constants):
-# convs/matmuls only, 2 FLOPs per MAC; training step = 3x forward.
+# Analytic forward FLOPs per example at 224^2 (the JAX package's constants)
+# unless the entry says otherwise: convs/matmuls only, 2 FLOPs per MAC;
+# training step = 3x forward.
 FWD_FLOPS_PER_EXAMPLE = {
     "resnet101": 15.7e9,       # 7.85 GMACs (torchvision profile)
     "resnet50": 8.2e9,         # 4.09 GMACs
     "vit_l_32": 30.5e9,        # 2 * 305M params * 50 tokens
     "vit_b_16": 33.8e9,        # 2 * 86M params * 197 tokens
+    # at 384^2: 115.38 GMACs (benchmark/swinv2_counts.py: the patch
+    # convolution, the token-wise products, the attention cores, merges)
+    "swinv2_l_w24_384": 230.8e9,
 }
 
 

@@ -20,7 +20,11 @@ from tests.test_torch_multichain_runner import one_thread  # noqa: F401
 
 
 def test_constants_match_jax():
-    assert profiling.FWD_FLOPS_PER_EXAMPLE == jprofiling.FWD_FLOPS_PER_EXAMPLE
+    # every backbone of the JAX package at its value; beside them only
+    # SwinV2-L, which the JAX package does not have (2 x 115.38 GMACs)
+    ours = dict(profiling.FWD_FLOPS_PER_EXAMPLE)
+    assert ours.pop("swinv2_l_w24_384") == 230.8e9
+    assert ours == jprofiling.FWD_FLOPS_PER_EXAMPLE
     assert profiling.BF16_PEAK == 989e12 and profiling.FP32_PEAK == 67e12
 
 
