@@ -36,17 +36,18 @@ merging (V2) concatenates the 2x2 neighbours (x[0::2, 0::2], x[1::2,
 0::2], x[0::2, 1::2], x[1::2, 1::2]), reduces 4 C -> 2 C and normalises
 after.  The head: the final LayerNorm, the mean over tokens, a Dense.
 
-The attention core is `F.scaled_dot_product_attention` with `scale=1` on
-tau q^ and k^, and the bias (plus mask) as its additive, differentiable
-`attn_mask`, in the query's dtype: under bf16 the bias reaches the core
-rounded to bf16.  A shifted block folds its windows into the heads ([B,
-windows x heads, N, d], bias [1, windows x heads, N, N]) so that its
-per-window mask is broadcast over the batch; a block without a mask folds
-them into the batch ([B x windows, heads, N, d], bias [1, heads, N, N]).
-Both are views of one [3, B, windows, heads, N, d] copy of qkv.  On a card
-the core must run on a fused backend (`fused_backends`: memory-efficient
-or cuDNN attention); the math fallback is refused, and so is
-`fused_attention=False`.
+The attention core is ops/window_attention.py::window_attention on tau
+q^ and k^ ([B, windows, heads, N, d], strided views of qkv's output), the
+CPB bias [heads, N, N] in fp32 and, in a shifted block, each window's
+region labels [windows, N] (int32), from which the core adds the -100
+mask itself.  On a card that is hand-written CUDA kernels
+(csrc/window_attention.cu): the bias is read in the compute dtype, as
+SDPA read it before, and the mask is added in the tile, in fp32; the
+backward sums the bias's gradient over the batch and the windows in fp32
+inside the kernel.  On the CPU it is the
+same formula in plain fp32 torch ops.  The kernels write o laid out [B,
+windows, N, heads, d], which the output projection reads as it is.
+`fused_attention=False` is refused.
 
 The relative-position index, the coordinate table and the shift masks are
 constants of the shapes, built once per device and kept out of the flat
@@ -54,16 +55,15 @@ vector.  Remat (`remat=True`, policy "") checkpoints each block.
 
 Spans (utils/profiling.py): `swin.stage` (id the stage) around each
 stage, and inside it `swin.window` (roll, partition, reverse), `swin.bias`
-(the CPB MLP, its gather, 16 sigmoid, the mask add), `swin.attn` (the
-core) and `swin.merge`.  Counters, a forward: `attn_windows` (windows of
-the batch x heads, by site `shifted`, `plain` or `global`: one window
-covers the grid) and `attn_mask_bytes` (the bytes of the bias tensors
-handed to the core).
+(the CPB MLP, its gather, 16 sigmoid), `swin.attn` (the core) and
+`swin.merge`.  Counters, a forward: `attn_windows` (windows of the batch
+x heads, by site `shifted`, `plain` or `global`: one window covers the
+grid) and `attn_mask_bytes` (the bytes of the fp32 bias and of the region
+labels handed to the core).
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import NamedTuple
 
@@ -75,19 +75,14 @@ from torch.utils import checkpoint as ckpt
 from bayesdll_tpu_torch.models.layers import (Conv, Dense, LayerNorm, dense,
                                               init_params, layer_norm,
                                               shape_only, to_nchw)
+from bayesdll_tpu_torch.ops.window_attention import (region_mask,
+                                                     window_attention)
 from bayesdll_tpu_torch.utils import profiling
 
 LN_EPS = 1e-5
 CPB_HIDDEN = 512
 LOGIT_SCALE_INIT = math.log(10.0)
 LOGIT_SCALE_MAX = math.log(100.0)
-MASK_VALUE = -100.0
-
-
-def fused_backends():
-    """The SDPA backends a card may run the core on."""
-    from torch.nn.attention import SDPBackend
-    return [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]
 
 
 class StageShape(NamedTuple):
@@ -131,13 +126,17 @@ def region_labels(grid: int, window: int, shift: int) -> torch.Tensor:
     return labels
 
 
-def shift_mask(grid: int, window: int, shift: int) -> torch.Tensor:
-    """[windows, N, N] fp32: 0 between tokens of one region, -100 else."""
+def window_regions(grid: int, window: int, shift: int) -> torch.Tensor:
+    """[windows, N] int32: each window's tokens' regions, row-major."""
     lab = region_labels(grid, window, shift)
     g = grid // window
-    lab = lab.view(g, window, g, window).transpose(1, 2).reshape(g * g, -1)
-    same = lab[:, :, None] == lab[:, None, :]
-    return torch.where(same, 0.0, MASK_VALUE)
+    return lab.view(g, window, g, window).transpose(1, 2).reshape(
+        g * g, -1).to(torch.int32)
+
+
+def shift_mask(grid: int, window: int, shift: int) -> torch.Tensor:
+    """[windows, N, N] fp32: 0 between tokens of one region, -100 else."""
+    return region_mask(window_regions(grid, window, shift))
 
 
 class BlockWeights(NamedTuple):
@@ -252,8 +251,9 @@ class SwinV2(nn.Module):
             raise ValueError(f"SwinV2 checkpoints whole blocks: remat_policy "
                              f"{remat_policy!r} is not supported (use '')")
         if not fused_attention:
-            raise ValueError("SwinV2's attention runs through SDPA only: "
-                             "fused_attention=False is not supported")
+            raise ValueError("SwinV2's attention runs through its window-"
+                             "attention core only: fused_attention=False "
+                             "is not supported")
         dt = getattr(torch, dtype)
         self.dtype = dt
         self.remat = remat
@@ -280,8 +280,9 @@ class SwinV2(nn.Module):
         return [getattr(self, f"stages_{s}") for s in range(len(self.shapes))]
 
     def constants(self, s: int, device) -> dict:
-        """Stage s's coordinate table, relative-position index and shift
-        mask (None where no block shifts) on `device`, built once."""
+        """Stage s's coordinate table, relative-position index and the
+        shifted windows' region labels (None where no block shifts) on
+        `device`, built once."""
         key = (s, str(device))
         if key not in self._consts:
             sh = self.shapes[s]
@@ -289,37 +290,19 @@ class SwinV2(nn.Module):
                 "table": coords_table(sh.window, sh.pretrained_window)
                 .to(device),
                 "index": relative_index(sh.window).reshape(-1).to(device),
-                "mask": shift_mask(sh.grid, sh.window, sh.shift).to(device)
-                if sh.shift else None}
+                "regions": window_regions(sh.grid, sh.window, sh.shift)
+                .to(device) if sh.shift else None}
         return self._consts[key]
 
-    def _bias(self, w: BlockWeights, sh: StageShape, const: dict,
-              shifted: bool):
-        """The attention bias in the query's dtype: [1, heads, N, N], or
-        with the shift mask [1, windows x heads, N, N]; fp32 until the
-        last cast."""
+    def _bias(self, w: BlockWeights, sh: StageShape, const: dict):
+        """The attention bias [heads, N, N] in fp32."""
         n = sh.window ** 2
         hid = F.relu(const["table"] @ w.cpb_0_kernel.float()
                      + w.cpb_0_bias.float())
         tbl = hid @ w.cpb_1_kernel.float()                   # [(2M-1)^2, h]
-        # gathered head-major: the card's kernels take a mask whose last
-        # axis has stride 1
-        bias = 16.0 * torch.sigmoid(
+        # gathered head-major: the core reads rows of stride 1
+        return 16.0 * torch.sigmoid(
             tbl.t()[:, const["index"]].view(sh.heads, n, n))
-        if shifted:
-            bias = (bias[None] + const["mask"][:, None]).reshape(-1, n, n)
-        return bias.to(self.dtype)[None]
-
-    def _core(self, q, k, v, bias):
-        """Attention of [B', H', N, d] q, k, v under the additive bias."""
-        if q.is_cuda:
-            from torch.nn.attention import sdpa_kernel
-            backends = sdpa_kernel(fused_backends())
-        else:
-            backends = contextlib.nullcontext()
-        with backends:
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
-                                                  scale=1.0)
 
     def _attention(self, x, w: BlockWeights, sh: StageShape, const: dict,
                    shifted: bool):
@@ -337,25 +320,26 @@ class SwinV2(nn.Module):
             x = x.view(b, g, m, g, m, c).transpose(2, 3).reshape(b, nw, n, c)
         qkv_bias = torch.cat([w.q_bias, torch.zeros_like(w.q_bias), w.v_bias])
         qkv = dense(x, w.qkv_kernel, qkv_bias, dt).view(b, nw, n, 3, h, d)
-        # one copy: [3, B, windows, heads, N, d]; a shifted block folds the
-        # windows into the heads, any other into the batch
-        fold = (b, nw * h) if shift else (b * nw, h)
-        q, k, v = qkv.permute(3, 0, 1, 4, 2, 5).reshape(3, *fold, n, d)
+        q, k, v = qkv.unbind(3)                      # [B, windows, N, h, d]
         tau = torch.exp(torch.clamp(w.logit_scale.float(),
-                                    max=LOGIT_SCALE_MAX))
-        tau = (tau.repeat(nw) if shift else tau).view(-1, 1, 1)
+                                    max=LOGIT_SCALE_MAX)).view(h, 1)
         q = q * (tau / _norm(q)).to(dt)
         k = k * (1.0 / _norm(k)).to(dt)
         with profiling.span("swin.bias"):
-            bias = self._bias(w, sh, const, bool(shift))
+            bias = self._bias(w, sh, const)
+        regions = const["regions"] if shift else None
         if profiling.recording():
             site = "global" if nw == 1 else "shifted" if shift else "plain"
             profiling.count("attn_windows", b * nw * h, site)
             profiling.count("attn_mask_bytes",
-                            bias.numel() * bias.element_size(), site)
+                            bias.numel() * bias.element_size()
+                            + (0 if regions is None else
+                               regions.numel() * regions.element_size()),
+                            site)
         with profiling.span("swin.attn"):
-            o = self._core(q, k, v, bias)
-        o = o.reshape(b, nw, h, n, d).transpose(2, 3).reshape(b, nw, n, c)
+            o = window_attention(q.transpose(2, 3), k.transpose(2, 3),
+                                 v.transpose(2, 3), bias, regions)
+        o = o.transpose(2, 3).reshape(b, nw, n, c)
         o = dense(o, w.proj_kernel, w.proj_bias, dt)
         with profiling.span("swin.window"):
             o = o.view(b, g, g, m, m, c).transpose(2, 3).reshape(b, r, r, c)

@@ -16,9 +16,11 @@ the gate come from a small int64 tensor on the card, which the fused
 path's captured CUDA graph fills before each replay.  It counts into the
 same `<name>.launches`; a launch recorded into a graph counts once at the
 capture, and the graph's runner (methods/graphed.py) sets the counts so
-that each replay adds its launches (`launch_counts`, `set_launch_counts`).
-Every wrapper takes `elem0`, the global index of its vectors' first element
-when they are one rank's shard of a longer flat vector (`check_offset`):
+that each replay adds its launches (`launch_counts`, `set_launch_counts`;
+these carry the window-attention kernels' counts too,
+ops/window_attention.py).  Every wrapper takes `elem0`, the global index
+of its vectors' first element when they are one rank's shard of a longer
+flat vector (`check_offset`):
 the noise is then that of the shard's own elements in the whole vector's
 draw, so the shards' launches concatenate to one whole-vector launch.
 """
@@ -36,6 +38,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from bayesdll_tpu_torch.ops import window_attention
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -205,13 +209,17 @@ def check_offset(elem0: int, n: int) -> int:
 
 
 def launch_counts() -> dict:
-    """Every kernel's launch count."""
-    return {name: globals()[name].launches for name in KERNELS}
+    """Every kernel's launch count, the window-attention kernels'
+    (ops/window_attention.py) included."""
+    return {**{name: globals()[name].launches for name in KERNELS},
+            **window_attention.launch_counts()}
 
 
 def set_launch_counts(counts: dict):
     for name, n in counts.items():
-        globals()[name].launches = n
+        if name in KERNELS:
+            globals()[name].launches = n
+    window_attention.set_launch_counts(counts)
 
 
 def _raise_on(err: int, name: str):

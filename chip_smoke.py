@@ -140,7 +140,17 @@ Phases, one line each:
      against the plain run's, the all-reduces per step, the peak memory;
      and Laplace's stage-2 Fisher of a ViT-B/16-width model at depth 2
      under --tensor_parallel 2 against this process's; every rank process
-     ends with the phase.
+     ends with the phase;
+  10. SwinV2's window attention (csrc/window_attention.cu), after the ViT
+     phases: at the three shapes of swinv2_l_w24_384.sample (batch 64, N
+     576 shifted with 16 windows of 6 heads, N 576 global with 24 heads, N
+     144 with 48 heads; d 32, bf16) forward and backward against the plain
+     version in fp32, each gap of o, dq, dk, dv and dBias no larger than
+     1.01 x SDPA's (memory-efficient kernels, the mask in the bias) on the
+     same inputs, two runs bit for bit; each kernel's time, and the
+     operator's fwd + bwd against its bound, the plain version's and
+     SDPA's, less than SDPA's over a step's blocks; the four kernels'
+     launches in one step of the SwinV2-L cSGHMC runner (24 each).
 The MLP and ResNet runners are freed before the ViT-L/32 phases.  The
 script prints its total time; the line before the last is a JSON record of
 the kernels; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -574,14 +584,15 @@ def make_runner(cfg, width=None, depth=None, workdir=None, loaders=None):
 
 
 def reset_launches():
+    """Every kernel's launch count to 0, the window-attention kernels'
+    too."""
     from bayesdll_tpu_torch.ops import kernels
-    for name in kernels.KERNELS:
-        getattr(kernels, name).launches = 0
+    kernels.set_launch_counts(dict.fromkeys(kernels.launch_counts(), 0))
 
 
 def read_launches() -> dict:
     from bayesdll_tpu_torch.ops import kernels
-    return {name: getattr(kernels, name).launches for name in kernels.KERNELS}
+    return kernels.launch_counts()
 
 
 # method, hparams, lr, the kernel its step launches.  lr 1e-3 for cSGHMC:
@@ -1472,6 +1483,215 @@ def phase_vit_steps(smi, runner, xs, ys):
     return out
 
 
+# swinv2_l_w24_384.sample's window attention at batch 64, head width 32,
+# bf16: (windows, heads, N, (grid, window, shift) of a shifted block's
+# regions or None, blocks of a step at that shape: stage 1's two, one of
+# them unshifted of the same size, and stage 2's two count as three)
+WINDOW_SHAPES = {"n576_shifted": (16, 6, 576, (96, 24, 12), 3),
+                 "n576_global": (1, 24, 576, None, 18),
+                 "n144_global": (1, 48, 144, None, 2)}
+WINDOW_BATCH = 64
+WINDOW_NAMES = ("o", "dq", "dk", "dv", "dbias")
+
+
+def window_inputs(w, h, n, regions, seed):
+    """q (normalised, times 10), k (normalised), v and dO in bf16 on the
+    card, the bias 16 sigmoid(randn) [h, n, n] in fp32 at values bf16 holds
+    (so the kernels, SDPA and the fp32 plain version read one bias), and
+    the int32 region labels (or None)."""
+    from bayesdll_tpu_torch.models import swinv2
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (WINDOW_BATCH, w, h, n, 32)
+
+    def randn(*sh):
+        return torch.randn(*sh, generator=g, device="cuda")
+    q = torch.nn.functional.normalize(randn(*shape), dim=-1) * 10.0
+    k = torch.nn.functional.normalize(randn(*shape), dim=-1)
+    v, do = randn(*shape), randn(*shape)
+    bias = (16.0 * torch.sigmoid(randn(h, n, n))).bfloat16().float()
+    lab = None if regions is None else swinv2.window_regions(*regions).cuda()
+    return [t.bfloat16() for t in (q, k, v)], bias, lab, do.bfloat16()
+
+
+def window_grads(fn, qkv, bias, lab, do):
+    """o and the gradients of q, k, v and the bias of sum(o dO)."""
+    leaves = [t.detach().clone().requires_grad_() for t in (*qkv, bias)]
+    o = fn(*leaves[:3], leaves[3], lab)
+    return [o.detach(), *torch.autograd.grad((o.float() * do.float()).sum(),
+                                             leaves)]
+
+
+def window_sdpa(q, k, v, bias, lab):
+    """The library yardstick: SDPA as the port called it before, the
+    windows folded into the heads and the mask added to the bias in q's
+    dtype."""
+    from bayesdll_tpu_torch.ops.window_attention import region_mask
+    b, w, h, n, d = q.shape
+    mask = bias[None] if lab is None else bias[None] + region_mask(lab)[:, None]
+    mask = mask.expand(w, h, n, n).reshape(1, w * h, n, n).to(q.dtype)
+    o = torch.nn.functional.scaled_dot_product_attention(
+        *(t.reshape(b, w * h, n, d) for t in (q, k, v)), attn_mask=mask,
+        scale=1.0)
+    return o.view(b, w, h, n, d)
+
+
+def window_plain(qkv, bias, lab, do, chunk=8):
+    """The plain version's o and gradients in fp32, over batch chunks."""
+    from bayesdll_tpu_torch.ops.window_attention import window_attention_plain
+    outs = [window_grads(window_attention_plain,
+                         [t[i:i + chunk].float() for t in qkv], bias, lab,
+                         do[i:i + chunk].float())
+            for i in range(0, WINDOW_BATCH, chunk)]
+    return ([torch.cat([o[j] for o in outs]) for j in range(4)]
+            + [sum(o[4] for o in outs)])
+
+
+def window_kernel_ms(qkv, bias, lab, do) -> dict:
+    """Each of the four kernels alone, back to back (ms a launch), on the
+    operands the autograd Function hands them."""
+    from bayesdll_tpu_torch.ops import window_attention as wa
+    q, k, v = (t.contiguous() for t in qkv)
+    do = do.contiguous()
+    b, w, h, n, _ = q.shape
+    bias_k = bias.to(q.dtype).contiguous()
+    bias_t = bias_k.transpose(1, 2).contiguous()
+    o, dq, dk, dv = (wa._rows_like(q) for _ in range(4))
+    lse = torch.empty(b, w, h, n, device="cuda")
+    delta = torch.empty_like(lse)
+    dbias = torch.empty(h, n, n, device="cuda")
+    bwd = dict(k=k, v=v, dout=do, lse=lse, delta=delta)
+    calls = {
+        "window_attn_fwd": lambda: wa._launch(
+            "window_attn_fwd", q, bias_k, lab, k=k, v=v, out0=o, lse=lse),
+        "window_attn_bwd_dq": lambda: wa._launch(
+            "window_attn_bwd_dq", q, bias_k, lab, o=o, out0=dq, **bwd),
+        "window_attn_bwd_dkdv": lambda: wa._launch(
+            "window_attn_bwd_dkdv", q, bias_t, lab, out0=dk, out1=dv, **bwd),
+        "window_attn_dbias": lambda: wa._launch(
+            "window_attn_dbias", q, bias_k, lab, dbias=dbias, **bwd)}
+    saved = wa.launch_counts()
+    out = {name: cuda_ms(fn, 10) for name, fn in calls.items()}
+    wa.set_launch_counts(saved)
+    return out
+
+
+def swinv2_step_launches() -> dict:
+    """The launches of one step of the SwinV2-L cSGHMC runner (the
+    benchmark cell's model, bf16, batch 64, synthetic 384x384 images),
+    every count set to 0 just before and read just after."""
+    from bayesdll_tpu_torch.config import Config
+    cfg = Config(method="csghmc", hparams=dict(HP), dataset="synthetic",
+                 backbone="swinv2_l_w24_384", num_classes=37,
+                 batch_size=WINDOW_BATCH, compute_dtype="bfloat16", lr=1e-3,
+                 epochs=1, seed=0, device="cuda")
+    cfg.synthetic_n_train = 2 * WINDOW_BATCH
+    cfg.synthetic_n_test = 8
+    runner, loaders = make_runner(cfg)
+    xs, ys = device_batches(loaders[0])
+    if hasattr(runner, "_ensure_sched"):
+        runner._ensure_sched(len(loaders[0]))
+    reset_launches()
+    loss, _ = runner.step_loop(0, xs[:1], ys[:1], 0)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    check(bool(torch.isfinite(loss).all()), "swinv2 step: a finite loss")
+    del runner, loaders, xs, ys
+    return counts
+
+
+def phase_window_attention(smi) -> list:
+    """SwinV2's window attention (csrc/window_attention.cu) at the three
+    shapes of swinv2_l_w24_384.sample: forward and backward against the
+    plain version in fp32, each gap of o, dq, dk, dv and dBias no larger
+    than 1.01 x that of SDPA's memory-efficient kernels on the same bf16
+    inputs, two runs bit for bit; the four kernels' launches in one step of
+    the SwinV2-L runner; and each kernel's time, the operator's fwd + bwd
+    through autograd against its bound (benchmark/swinv2_counts.py's 12
+    N^2 d FLOPs and 24 N d bytes a window and head at the bf16 peak and
+    the memory rate), the plain version's and SDPA's (library_ms).
+    Returns the kernels' records."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from bayesdll_tpu_torch.ops import window_attention as wa
+    dev = torch.cuda.get_device_name(0)
+    tic = time.perf_counter()
+    gaps, per_kernel, op = {}, {}, {}
+    for seed, (shape, (w, h, n, regions, _)) in enumerate(
+            WINDOW_SHAPES.items()):
+        qkv, bias, lab, do = window_inputs(w, h, n, regions, 21 + seed)
+        ref = window_plain(qkv, bias, lab, do)
+        got = window_grads(wa.window_attention, qkv, bias, lab, do)
+        again = window_grads(wa.window_attention, qkv, bias, lab, do)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"window attention {shape}: two runs bit for bit")
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            lib = window_grads(window_sdpa, qkv, bias, lab, do)
+
+        def gap(x, r):
+            return float((x.double() - r.double()).norm() / r.double().norm())
+        gaps[shape] = {nm: (gap(x, r), gap(y, r))
+                       for nm, x, y, r in zip(WINDOW_NAMES, got, lib, ref)}
+        for nm, (kg, sg) in gaps[shape].items():
+            check(kg <= 1.01 * sg, f"window attention {shape} {nm}: gap "
+                  f"{kg:.3e} against SDPA's {sg:.3e}")
+        per_kernel[shape] = window_kernel_ms(qkv, bias, lab, do)
+        problems = WINDOW_BATCH * w * h
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            library_ms = cuda_ms(
+                lambda: window_grads(window_sdpa, qkv, bias, lab, do), 5)
+        op[shape] = dict(
+            ms=cuda_ms(lambda: window_grads(wa.window_attention, qkv, bias,
+                                            lab, do), 5),
+            library_ms=library_ms,
+            plain_ms=cuda_ms(lambda: window_plain(qkv, bias, lab, do,
+                                                  chunk=16), 1, warmup=1),
+            bound_ms=max(problems * 12 * n * n * 32 / BF16_PEAK,
+                         problems * 24 * n * 32 / peak_bytes_per_s(dev)) * 1e3)
+        del qkv, bias, lab, do, ref, got, again, lib
+        free_device()
+        print(f"phase 10: [{smi}] window attention {shape} (batch "
+              f"{WINDOW_BATCH}, {w} windows x {h} heads, N {n}, d 32, bf16): "
+              "gaps to fp32, kernels / SDPA: " + "; ".join(
+                  f"{nm} {a:.3e} / {b:.3e}" for nm, (a, b) in
+                  gaps[shape].items())
+              + "; kernels ms: " + ", ".join(
+                  f"{k.replace('window_attn_', '')} {v:.3f}"
+                  for k, v in per_kernel[shape].items())
+              + f"; fwd + bwd through autograd {op[shape]['ms']:.3f} ms, "
+              f"bound {op[shape]['bound_ms']:.3f} ms "
+              f"({op[shape]['bound_ms'] / op[shape]['ms']:.2%}), SDPA "
+              f"{op[shape]['library_ms']:.3f} ms, plain "
+              f"{op[shape]['plain_ms']:.3f} ms", flush=True)
+    counts = swinv2_step_launches()
+    free_device()
+    want = {k: 24 for k in wa.KERNELS}
+    check({k: counts[k] for k in wa.KERNELS} == want,
+          f"swinv2 step: window-attention launches {counts}, want 24 each")
+    step = {key: sum(op[s][key] * WINDOW_SHAPES[s][4] for s in op)
+            for key in ("ms", "library_ms", "plain_ms", "bound_ms")}
+    check(step["ms"] < step["library_ms"],
+          f"window attention: a step's blocks take {step['ms']:.2f} ms, SDPA "
+          f"{step['library_ms']:.2f} ms")
+    print(f"phase 10: [{smi}] one swinv2_l_w24_384 cSGHMC step, bf16, batch "
+          f"{WINDOW_BATCH}: launches {counts}; a step's blocks: kernels "
+          f"{step['ms']:.2f} ms, bound {step['bound_ms']:.2f} ms "
+          f"({step['bound_ms'] / step['ms']:.2%}), SDPA "
+          f"{step['library_ms']:.2f} ms; {time.perf_counter() - tic:.1f} s",
+          flush=True)
+    return [{
+        "name": name, "route": "cuda",
+        "source": "bayesdll_tpu_torch/csrc/window_attention.cu",
+        "replaces": "none: SDPA's memory-efficient kernels "
+                    "(the JAX package has no SwinV2)",
+        "launches": counts[name],
+        "max_gap": max(g[nm][0] for g in gaps.values() for nm in g),
+        "ms": sum(per_kernel[s][name] * WINDOW_SHAPES[s][4]
+                  for s in per_kernel),
+        "ms_by_shape": {s: per_kernel[s][name] for s in per_kernel},
+        "op_ms": step["ms"], "bound_ms": step["bound_ms"],
+        "library_ms": step["library_ms"], "plain_ms": step["plain_ms"],
+    } for name in wa.KERNELS]
+
+
 def phase_vit_b_16(smi, cfg, nd_size, sched, xs, ys):
     """ViT-B/16 (197 tokens) at batch 128, with the ViT-L/32 run's config
     and batches, alone on the card."""
@@ -1631,7 +1851,7 @@ def phase_method_path(method):
         shutil.rmtree(work, ignore_errors=True)
     runner.workdir = None
     steps = epochs * len(loaders[0])
-    want = {k: 0 for k in kernels.KERNELS}
+    want = dict.fromkeys(kernels.launch_counts(), 0)
     if method in SMOKE_KERNEL:
         want[SMOKE_KERNEL[method]] = steps
     check(counts == want, f"{method}: launches {counts}, want {want}")
@@ -1737,7 +1957,7 @@ def phase_la_resnet50():
     secs = time.perf_counter() - tic
     counts = read_launches()
     peak_stage2 = fisher["peak_gb"]
-    check(counts == {k: 0 for k in kernels.KERNELS},
+    check(counts == dict.fromkeys(kernels.launch_counts(), 0),
           f"la resnet50: no kernel launched: {counts}")
     check(all(math.isfinite(x) for x in res["train_losses"]),
           "la resnet50: finite losses")
@@ -1915,7 +2135,7 @@ def phase_chain_path(method):
         shutil.rmtree(work, ignore_errors=True)
     what = f"{method} mlp_mnist {N_CHAINS} chains"
     steps = epochs * len(loaders[0])
-    want = {k: 0 for k in kernels.KERNELS}
+    want = dict.fromkeys(kernels.launch_counts(), 0)
     if method in CHAIN_KERNEL:
         want[CHAIN_KERNEL[method]] = N_CHAINS * steps
     check(counts == want, f"{what}: launches {counts}, want {want}")
@@ -2220,7 +2440,7 @@ def phase_big_chains(smi, name):
     tr = mc.trainer
     steps = tr.bi
     check(mc.runner.target.n_params == RESNET50_PARAMS, f"{name}: resnet50")
-    want = {k: 0 for k in kernels.KERNELS}
+    want = dict.fromkeys(kernels.launch_counts(), 0)
     if mc.runner.method_name == "csghmc":
         want["csghmc_update"] = N_CHAINS * steps
     check(counts == want, f"{name}: launches {counts}, want {want}")
@@ -2350,7 +2570,7 @@ def phase_fused_path(method, ref, ref_loaders):
     secs = time.perf_counter() - tic
     counts = read_launches()
     steps = cfg.epochs * len(loaders[0])
-    want = {k: 0 for k in kernels.KERNELS}
+    want = dict.fromkeys(kernels.launch_counts(), 0)
     if FUSED_KERNEL[method]:
         want[FUSED_KERNEL[method]] = steps
     check(counts == want, f"{method} fused: launches {counts}, want {want}")
@@ -2499,7 +2719,7 @@ def phase_fused_chain_path(method, ref, ref_loaders):
     counts = read_launches()
     what = f"{method} mlp_mnist {N_CHAINS} chains fused"
     steps = cfg.epochs * len(loaders[0])
-    want = {k: 0 for k in kernels.KERNELS}
+    want = dict.fromkeys(kernels.launch_counts(), 0)
     if FUSED_KERNEL[method]:
         want[FUSED_KERNEL[method]] = N_CHAINS * steps
     check(counts == want, f"{what}: launches {counts}, want {want}")
@@ -3474,7 +3694,7 @@ def phase_pretrain_cifar100(smi, root: Path) -> dict:
             check(runner.target.n_params == RESNET101_CIFAR100_PARAMS,
                   f"resnet101, 100 classes: {runner.target.n_params}")
             steps = cfg.epochs * len(train)
-            want = {k: 0 for k in kernels.KERNELS}
+            want = dict.fromkeys(kernels.launch_counts(), 0)
             want["csghmc_update"] = steps
             check(counts == want and runner.bi == steps,
                   f"pretrain {label}: launches {counts}, want {want}")
@@ -3649,7 +3869,7 @@ def phase_demo_vision(smi, root: Path) -> dict:
             shutil.rmtree(logdir, ignore_errors=True)
         runner = seen["runner"]
         steps = runner.cfg.epochs * len(seen["loaders"][0])
-        want = {k: 0 for k in kernels.KERNELS}
+        want = dict.fromkeys(kernels.launch_counts(), 0)
         want["csghmc_update"] = steps
         check(counts == want, f"demo_vision {dtype}: launches {counts}")
         check((runner.cfg.dataset, runner.cfg.backbone,
@@ -5245,6 +5465,8 @@ def main() -> int:
     free_device()
     phase_vit_b_16(smi, cfg, nd_size, sched, xs, ys)
     free_device()
+    window_record = phase_window_attention(smi)
+    free_device()
     by_path.update(phase_real_data(smi))
     free_device()
     phase_multi_device(smi, by_path)
@@ -5289,6 +5511,7 @@ def main() -> int:
         "pointer_entry_us_by_path": {p: d["pointer_ms"] * 1e3
                                      for p, d in draw.items()},
     })
+    record.extend(window_record)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

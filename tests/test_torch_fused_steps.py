@@ -24,7 +24,7 @@ import torch
 from bayesdll_tpu.core import moments as jmom
 from bayesdll_tpu_torch.core import moments as tmom
 from bayesdll_tpu_torch.methods import graphed
-from bayesdll_tpu_torch.ops import fused, kernels
+from bayesdll_tpu_torch.ops import fused, kernels, window_attention
 from tests.test_torch_multichain import CSGHMC_HP as CSGHMC_HP0
 from tests.test_torch_multichain_runner import (  # noqa: F401
     HPARAMS, build, one_thread)
@@ -475,8 +475,10 @@ def test_cpu_dispatch_reads_the_device_row():
 def test_launch_counts_round_trip():
     saved = kernels.launch_counts()
     try:
-        kernels.set_launch_counts({n: 5 for n in kernels.KERNELS})
-        assert kernels.launch_counts() == {n: 5 for n in kernels.KERNELS}
+        kernels.set_launch_counts({n: 5 for n in saved})
+        assert kernels.launch_counts() == {n: 5 for n in saved}
+        assert set(saved) == set(kernels.KERNELS) | set(
+            window_attention.KERNELS)
     finally:
         kernels.set_launch_counts(saved)
 

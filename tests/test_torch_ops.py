@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from bayesdll_tpu.ops import fused as jfused
-from bayesdll_tpu_torch.ops import fused, kernels
+from bayesdll_tpu_torch.ops import fused, kernels, window_attention
 
 TOL = dict(rtol=1e-6, atol=1e-6)  # the tolerance of tests/test_pallas_kernels.py
 
@@ -137,8 +137,10 @@ def test_kernel_library_name_tracks_its_sources():
     assert path.parent == kernels.BUILD_DIR
     assert path.name.startswith("libcsghmc_update-") and path.suffix == ".so"
     assert kernels.library_path("csghmc_update") == path
+    # every source is a library the port builds: the update kernels' and
+    # the window-attention kernels' (ops/window_attention.py)
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == \
-        {f"{k}.cu" for k in kernels.KERNELS}
+        {f"{k}.cu" for k in (*kernels.KERNELS, window_attention.LIBRARY)}
 
 
 def test_noise_prefactor():

@@ -7,10 +7,11 @@ global stage (4^2, window 4).  The JAX package has no SwinV2: nothing here
 compares against it.
 
 Tolerances: fp32 logits rtol = atol = 1e-5 and the flat gradient (also
-the vmapped per-example one against each example's) within 1e-5 of max |g| (the same fp32 arithmetic in other orders: the port scales
-q^ by tau before its product and folds windows into heads, the reference
-scales the product); bf16 logits within 5% of the reference's norm (every
-activation, and the attention bias, rounded to bf16 through six blocks:
+the vmapped per-example one against each example's) within 1e-5 of max
+|g| (the same fp32 arithmetic in other orders: the port scales q^ by tau
+before its product and adds the bias and the mask one after the other,
+the reference scales the product); bf16 logits within 5% of the
+reference's norm (every activation rounded to bf16 through six blocks:
 the preset reads 1-2%).  The shift masks, the CPB coordinates, the
 relative-position index and patch merging's order against hand-computed
 values; the full configuration's parameter count on the meta device; the
@@ -230,8 +231,9 @@ def test_bf16_logits_near_the_reference(tiny, one_thread):
 
 
 def test_explicit_core_and_remat_are_the_sdpa_forward(tiny, one_thread):
-    """Remat gives the SDPA forward's bits; an explicit core
-    (fused_attention=False) is refused."""
+    """Remat gives the window-attention core's forward bits (on the CPU
+    its plain version, which tests/test_torch_window_attention.py holds to
+    SDPA); an explicit core (fused_attention=False) is refused."""
     _, _, lay, th = tiny
     x, y = inputs(3)
     base, g = loss_grad(lambda t: port_target()[0].forward(t, {}, x)[0],
@@ -347,12 +349,13 @@ def test_recorded_forward_spans_and_counters(recording, monkeypatch):
     tgt, ns = port_target("bfloat16")
     x, _ = inputs(5)
     handed = []
-    real = F.scaled_dot_product_attention
+    real = swinv2.window_attention
 
-    def sdpa(q, k, v, attn_mask=None, **kw):
-        handed.append(attn_mask.numel() * attn_mask.element_size())
-        return real(q, k, v, attn_mask=attn_mask, **kw)
-    monkeypatch.setattr(F, "scaled_dot_product_attention", sdpa)
+    def core(q, k, v, bias, regions=None):
+        handed.append(bias.numel() * bias.element_size() + (
+            0 if regions is None else regions.numel() * 4))
+        return real(q, k, v, bias, regions)
+    monkeypatch.setattr(swinv2, "window_attention", core)
     with torch.no_grad():
         tgt.forward(tgt.theta0, ns, x)
     snap = profiling.snapshot()
@@ -374,10 +377,12 @@ def test_recorded_forward_spans_and_counters(recording, monkeypatch):
     assert c["attn_windows"] == {"plain": 8 * B, "shifted": 8 * B,
                                  "global": (2 * 4 + 2 * 8) * B}
     assert sum(c["attn_mask_bytes"].values()) == sum(handed)
-    n0 = 64 * 64 * 2   # bf16 [1, heads, 64, 64] at window 8
+    n0 = 64 * 64 * 4   # fp32 [heads, 64, 64] at window 8
     assert c["attn_mask_bytes"]["plain"] == 2 * n0
-    assert c["attn_mask_bytes"]["shifted"] == 4 * 2 * n0
-    assert c["attn_mask_bytes"]["global"] == 2 * (4 * n0 + 8 * 16 * 16 * 2)
+    # the shared bias and 4 windows' int32 region labels, not a [windows x
+    # heads, 64, 64] bias with the mask added
+    assert c["attn_mask_bytes"]["shifted"] == 2 * n0 + 4 * 64 * 4
+    assert c["attn_mask_bytes"]["global"] == 2 * (4 * n0 + 8 * 16 * 16 * 4)
 
 
 def test_recorder_off_records_nothing():
