@@ -20,14 +20,13 @@
 // elementwise kernels round them, so with nd = 0 the result equals the plain
 // PyTorch version bit for bit.
 //
-// Two entry points share the one kernel body.  `csghmc_update` takes the
-// Philox seed, the step and the gate by value, as the per-step path
-// launches it.  `csghmc_update_dev` reads them from device memory, an int64
-// [3] = (seed, step, gate) that the fused path's captured CUDA graph fills
-// before each replay, so the graph does not replay the values it was
-// captured with.  The float constants (prior_sig, 1 - α, noise_pref) are
-// fixed for a run and stay by value in both.  At the same (seed, step,
-// gate) the two write the same bits.
+// The Philox seed, the step and the gate come from device memory, an
+// int64 [3] = (seed, step, gate) that the kernel reads at each launch: the
+// per-step path copies it from pinned host memory without waiting, and the
+// fused path's captured CUDA graph fills it before each replay, so the
+// graph does not replay the values it was captured with.  The float
+// constants (prior_sig, 1 - α, noise_pref) are fixed for a run and come by
+// value.
 //
 // Contract: elem0 a multiple of 4 with every global quad below 2^32 (else
 // cudaErrorInvalidValue and no launch), all pointers 16-byte aligned, fp32,
@@ -47,7 +46,7 @@ struct Scalars {
   float prior_sig;
   float one_minus_alpha;
   float noise_pref;
-  int gate;
+  int gate;       // gate, seed and step: read from dev by the kernel
   uint64_t seed;
   uint64_t step;
   uint64_t quad0;  // global quad of element 0 (elem0 / 4)
@@ -63,19 +62,15 @@ __device__ __forceinline__ void update_one(float g, float& th, float& v,
   th = __fadd_rn(th, vn);
 }
 
-// kDevScalars: seed, step and gate come from dev = (seed, step, gate)
-template <bool kDevScalars>
 __global__ void csghmc_update_kernel(const float* __restrict__ g,
                                      float* __restrict__ theta,
                                      float* __restrict__ v,
                                      const float* __restrict__ lr, int64_t n,
                                      Scalars s,
                                      const int64_t* __restrict__ dev) {
-  if constexpr (kDevScalars) {
-    s.seed = static_cast<uint64_t>(dev[0]);
-    s.step = static_cast<uint64_t>(dev[1]);
-    s.gate = static_cast<int>(dev[2]);
-  }
+  s.seed = static_cast<uint64_t>(dev[0]);
+  s.step = static_cast<uint64_t>(dev[1]);
+  s.gate = static_cast<int>(dev[2]);
   const int64_t full_quads = n / 4;
   const int64_t quads = (n + 3) / 4;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -113,7 +108,6 @@ __global__ void csghmc_update_kernel(const float* __restrict__ g,
   }
 }
 
-template <bool kDevScalars>
 int launch(const void* g, void* theta, void* v, const void* lr, int64_t n,
            const Scalars& s, const void* dev, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
@@ -121,8 +115,8 @@ int launch(const void* g, void* theta, void* v, const void* lr, int64_t n,
   const int64_t quads = (n + 3) / 4;
   int64_t blocks = (quads + kThreads - 1) / kThreads;
   if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;  // grid-stride beyond
-  csghmc_update_kernel<kDevScalars><<<static_cast<unsigned>(blocks), kThreads,
-                                      0, static_cast<cudaStream_t>(stream)>>>(
+  csghmc_update_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g), static_cast<float*>(theta),
       static_cast<float*>(v), static_cast<const float*>(lr), n, s,
       static_cast<const int64_t*>(dev));
@@ -132,26 +126,14 @@ int launch(const void* g, void* theta, void* v, const void* lr, int64_t n,
 }  // namespace
 
 // elem0: the global index of element 0, a multiple of 4 (see
-// normal_from_bits.cuh); 0 for a whole vector
+// normal_from_bits.cuh), 0 for a whole vector; dev: int64 [3] = (seed,
+// step, gate) on the vectors' device
 extern "C" int csghmc_update(const void* g, void* theta, void* v,
                              const void* lr, int64_t n, int64_t elem0,
                              float prior_sig, float one_minus_alpha,
-                             float noise_pref, int gate, uint64_t seed,
-                             uint64_t step, void* stream) {
-  if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
-  const Scalars s{prior_sig, one_minus_alpha, noise_pref, gate, seed, step,
-                  static_cast<uint64_t>(elem0 / 4)};
-  return launch<false>(g, theta, v, lr, n, s, nullptr, stream);
-}
-
-// dev: int64 [3] = (seed, step, gate) on the vectors' device
-extern "C" int csghmc_update_dev(const void* g, void* theta, void* v,
-                                 const void* lr, int64_t n, int64_t elem0,
-                                 float prior_sig, float one_minus_alpha,
-                                 float noise_pref, const void* dev,
-                                 void* stream) {
+                             float noise_pref, const void* dev, void* stream) {
   if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
   const Scalars s{prior_sig, one_minus_alpha, noise_pref, 0, 0, 0,
                   static_cast<uint64_t>(elem0 / 4)};
-  return launch<true>(g, theta, v, lr, n, s, dev, stream);
+  return launch(g, theta, v, lr, n, s, dev, stream);
 }

@@ -9,8 +9,8 @@
 // (bayesdll_tpu/ops/fused.py:118, bayesdll_tpu/methods/adam_csghmc.py:119).
 // None of these is a Pallas kernel; the kernel exists so that the port's
 // fused path (a captured CUDA graph of the step) draws anew at each step:
-// the pointer entry point reads the seed and the step from device memory,
-// which the graph's runner fills before each replay.
+// the kernel reads the seed and the step from device memory, which the
+// graph's runner fills before each replay.
 //
 // Element i takes word i % 4 of the Philox4x32-10 call of quad i / 4 at
 // counter (quad, step low word, stream, step high word), the layout of
@@ -35,11 +35,10 @@
 // store per quad; a grid that covers the vector.  A scalar tail handles
 // n % 4.
 //
-// Two entry points share the one kernel body.  `philox_draw` takes the
-// seed and the step by value; `philox_draw_dev` reads them from dev, the
-// int64 [3] (seed, step, gate) row that the update kernels' pointer entry
-// points read (the gate unused here).  At the same (seed, step) the two
-// write the same bits.
+// The seed and the step come from dev, the int64 [3] (seed, step, gate)
+// row that the update kernels read (the gate unused here): the per-step
+// path copies it from pinned host memory without waiting, the fused
+// path's graph fills it before each replay.
 //
 // A launch may draw a shard of a longer vector: elem0, the global index of
 // its first element (a multiple of 4), shifts the counter's quad, so the
@@ -62,23 +61,20 @@ namespace {
 constexpr int kNormal = 0;
 constexpr int kUniform = 1;
 constexpr int kThreads = 256;
-// Element quads per thread and iteration (dispatch below).  From
+// Element quads per thread and iteration (philox_draw below).  From
 // kManyQuads quads on, a grid of 4-quad threads has at least 1024 blocks,
 // about as many as an H100 holds at once (132 SMs, 8 blocks of 256
 // threads each); below it normals take 2-quad threads, which keep more of
 // the card busy.
 constexpr int64_t kManyQuads = int64_t{1} << 20;
 
-// kDevScalars: seed and step come from dev = (seed, step, gate)
-template <bool kDevScalars, int kKind, int kQuads>
+// dev = (seed, step, gate), the gate unused
+template <int kKind, int kQuads>
 __global__ void __launch_bounds__(kThreads)
 philox_draw_kernel(float* __restrict__ out, int64_t n, uint64_t quad0,
-                   uint32_t stream_id, uint64_t seed, uint64_t step,
-                   const int64_t* __restrict__ dev) {
-  if constexpr (kDevScalars) {
-    seed = static_cast<uint64_t>(dev[0]);
-    step = static_cast<uint64_t>(dev[1]);
-  }
+                   uint32_t stream_id, const int64_t* __restrict__ dev) {
+  const uint64_t seed = static_cast<uint64_t>(dev[0]);
+  const uint64_t step = static_cast<uint64_t>(dev[1]);
   const int64_t full_quads = n / 4;
   const int64_t quads = (n + 3) / 4;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -115,67 +111,36 @@ philox_draw_kernel(float* __restrict__ out, int64_t n, uint64_t quad0,
 
 // kQuads element quads per thread and iteration, over a grid that covers
 // the vector (grid-stride beyond 2^20 blocks)
-template <bool kDevScalars, int kKind, int kQuads>
+template <int kKind, int kQuads>
 int launch(void* out, int64_t n, uint64_t quad0, uint32_t stream_id,
-           uint64_t seed, uint64_t step, const void* dev, void* stream) {
+           const void* dev, void* stream) {
   const int64_t per_block = int64_t{kThreads} * kQuads;
   int64_t blocks = ((n + 3) / 4 + per_block - 1) / per_block;
   if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;
-  philox_draw_kernel<kDevScalars, kKind, kQuads>
+  philox_draw_kernel<kKind, kQuads>
       <<<static_cast<unsigned>(blocks), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(
-          static_cast<float*>(out), n, quad0, stream_id, seed, step,
+          static_cast<float*>(out), n, quad0, stream_id,
           static_cast<const int64_t*>(dev));
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch shapes each draw ran fastest with (draw_sweep.py, which
-// builds this file with BDL_DRAW_QUADS to time other shapes): uniforms 2
-// quads per thread; normals 4 from kManyQuads quads on, else 2.
-template <bool kDevScalars>
-int dispatch(void* out, int64_t n, int64_t elem0, int kind,
-             uint32_t stream_id, uint64_t seed, uint64_t step,
-             const void* dev, void* stream) {
+}  // namespace
+
+// elem0: the global index of element 0, a multiple of 4, 0 for a whole
+// vector; dev: int64 [3] = (seed, step, gate) on out's device, the gate
+// unused.  The launch shapes each draw ran fastest with: uniforms 2 quads
+// per thread; normals 4 from kManyQuads quads on, else 2.
+extern "C" int philox_draw(void* out, int64_t n, int64_t elem0, int kind,
+                           uint32_t stream_id, const void* dev, void* stream) {
   if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
   const uint64_t quad0 = static_cast<uint64_t>(elem0 / 4);
-#ifdef BDL_DRAW_QUADS
-  if (kind == kNormal) {
-    return launch<kDevScalars, kNormal, BDL_DRAW_QUADS>(out, n, quad0, stream_id,
-                                                        seed, step, dev,
-                                                        stream);
-  }
-  return launch<kDevScalars, kUniform, BDL_DRAW_QUADS>(out, n, quad0, stream_id,
-                                                       seed, step, dev,
-                                                       stream);
-#else
   if (kind != kNormal) {
-    return launch<kDevScalars, kUniform, 2>(out, n, quad0, stream_id, seed, step,
-                                            dev, stream);
+    return launch<kUniform, 2>(out, n, quad0, stream_id, dev, stream);
   }
   if ((n + 3) / 4 < kManyQuads) {
-    return launch<kDevScalars, kNormal, 2>(out, n, quad0, stream_id, seed, step,
-                                           dev, stream);
+    return launch<kNormal, 2>(out, n, quad0, stream_id, dev, stream);
   }
-  return launch<kDevScalars, kNormal, 4>(out, n, quad0, stream_id, seed, step, dev,
-                                         stream);
-#endif
-}
-
-}  // namespace
-
-// elem0: the global index of element 0, a multiple of 4; 0 for a whole
-// vector
-extern "C" int philox_draw(void* out, int64_t n, int64_t elem0, int kind,
-                           uint32_t stream_id, uint64_t seed, uint64_t step,
-                           void* stream) {
-  return dispatch<false>(out, n, elem0, kind, stream_id, seed, step, nullptr,
-                         stream);
-}
-
-// dev: int64 [3] = (seed, step, gate) on out's device; the gate is unused
-extern "C" int philox_draw_dev(void* out, int64_t n, int64_t elem0,
-                               int kind, uint32_t stream_id, const void* dev,
-                               void* stream) {
-  return dispatch<true>(out, n, elem0, kind, stream_id, 0, 0, dev, stream);
+  return launch<kNormal, 4>(out, n, quad0, stream_id, dev, stream);
 }

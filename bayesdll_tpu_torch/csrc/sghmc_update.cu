@@ -20,12 +20,11 @@
 // computes the CPU's bits.  The lr clamp keeps 2α / (N * lr) finite where
 // lr = 0, as the TPU kernel does.
 //
-// Two entry points share the one kernel body: `sghmc_update` takes the
-// Philox seed and the step by value, as the per-step path launches it;
-// `sghmc_update_dev` reads them from device memory, an int64 [3] =
-// (seed, step, unused) that the fused path's captured CUDA graph fills
-// before each replay.  The float constants stay by value in both.  At the
-// same (seed, step) the two write the same bits.
+// The Philox seed and the step come from device memory, an int64 [3] =
+// (seed, step, unused) that the kernel reads at each launch: the per-step
+// path copies it from pinned host memory without waiting, and the fused
+// path's captured CUDA graph fills it before each replay.  The float
+// constants come by value.
 //
 // Contract: elem0 a multiple of 4 with every global quad below 2^32 (else
 // cudaErrorInvalidValue and no launch), all pointers 16-byte aligned, fp32,
@@ -47,7 +46,7 @@ struct Scalars {
   float nd;
   float one_minus_alpha;  // 1 - α, rounded on the host
   float two_alpha;        // 2α, rounded on the host
-  uint64_t seed;
+  uint64_t seed;  // seed and step: read from dev by the kernel
   uint64_t step;
   uint64_t quad0;  // global quad of element 0 (elem0 / 4)
 };
@@ -68,7 +67,6 @@ __device__ __forceinline__ void update_one(float& g, float& v, float th,
   g = __fadd_rn(g, vn);
 }
 
-template <bool kDevScalars>
 __global__ void sghmc_update_kernel(float* __restrict__ g,
                                     const float* __restrict__ theta,
                                     const float* __restrict__ theta0,
@@ -77,10 +75,8 @@ __global__ void sghmc_update_kernel(float* __restrict__ g,
                                     const float* __restrict__ lr, int64_t n,
                                     Scalars s,
                                     const int64_t* __restrict__ dev) {
-  if constexpr (kDevScalars) {  // dev = (seed, step, unused)
-    s.seed = static_cast<uint64_t>(dev[0]);
-    s.step = static_cast<uint64_t>(dev[1]);
-  }
+  s.seed = static_cast<uint64_t>(dev[0]);  // dev = (seed, step, unused)
+  s.step = static_cast<uint64_t>(dev[1]);
   const int64_t full_quads = n / 4;
   const int64_t quads = (n + 3) / 4;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -120,7 +116,6 @@ __global__ void sghmc_update_kernel(float* __restrict__ g,
   }
 }
 
-template <bool kDevScalars>
 int launch(void* g, const void* theta, const void* theta0, void* v,
            const void* mask, const void* lr, int64_t n, const Scalars& s,
            const void* dev, void* stream) {
@@ -129,8 +124,8 @@ int launch(void* g, const void* theta, const void* theta0, void* v,
   const int64_t quads = (n + 3) / 4;
   int64_t blocks = (quads + kThreads - 1) / kThreads;
   if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;  // grid-stride beyond
-  sghmc_update_kernel<kDevScalars><<<static_cast<unsigned>(blocks), kThreads,
-                                     0, static_cast<cudaStream_t>(stream)>>>(
+  sghmc_update_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(g), static_cast<const float*>(theta),
       static_cast<const float*>(theta0), static_cast<float*>(v),
       static_cast<const float*>(mask), static_cast<const float*>(lr), n, s,
@@ -141,27 +136,15 @@ int launch(void* g, const void* theta, const void* theta0, void* v,
 }  // namespace
 
 // elem0: the global index of element 0, a multiple of 4 (see
-// normal_from_bits.cuh); 0 for a whole vector
+// normal_from_bits.cuh), 0 for a whole vector; dev: int64 [3] = (seed,
+// step, unused) on the vectors' device
 extern "C" int sghmc_update(void* g, const void* theta, const void* theta0,
                             void* v, const void* mask, const void* lr,
                             int64_t n, int64_t elem0, float sig2, float n_eff,
                             float nd, float one_minus_alpha, float two_alpha,
-                            uint64_t seed, uint64_t step, void* stream) {
-  if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
-  const Scalars s{sig2, n_eff, nd, one_minus_alpha, two_alpha, seed, step,
-                  static_cast<uint64_t>(elem0 / 4)};
-  return launch<false>(g, theta, theta0, v, mask, lr, n, s, nullptr, stream);
-}
-
-// dev: int64 [3] = (seed, step, unused) on the vectors' device
-extern "C" int sghmc_update_dev(void* g, const void* theta, const void* theta0,
-                                void* v, const void* mask, const void* lr,
-                                int64_t n, int64_t elem0, float sig2,
-                                float n_eff, float nd, float one_minus_alpha,
-                                float two_alpha, const void* dev,
-                                void* stream) {
+                            const void* dev, void* stream) {
   if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
   const Scalars s{sig2, n_eff, nd, one_minus_alpha, two_alpha, 0, 0,
                   static_cast<uint64_t>(elem0 / 4)};
-  return launch<true>(g, theta, theta0, v, mask, lr, n, s, dev, stream);
+  return launch(g, theta, theta0, v, mask, lr, n, s, dev, stream);
 }

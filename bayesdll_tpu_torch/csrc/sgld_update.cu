@@ -19,12 +19,11 @@
 // PyTorch version's order, so the card computes the CPU's bits.  The lr
 // clamp keeps 2 / (N * lr) finite where lr = 0, as the TPU kernel does.
 //
-// Two entry points share the one kernel body: `sgld_update` takes the
-// Philox seed and the step by value, as the per-step path launches it;
-// `sgld_update_dev` reads them from device memory, an int64 [3] =
-// (seed, step, unused) that the fused path's captured CUDA graph fills
-// before each replay.  The float constants stay by value in both.  At the
-// same (seed, step) the two write the same bits.
+// The Philox seed and the step come from device memory, an int64 [3] =
+// (seed, step, unused) that the kernel reads at each launch: the per-step
+// path copies it from pinned host memory without waiting, and the fused
+// path's captured CUDA graph fills it before each replay.  The float
+// constants come by value.
 //
 // Contract: elem0 a multiple of 4 with every global quad below 2^32 (else
 // cudaErrorInvalidValue and no launch), all pointers 16-byte aligned, fp32,
@@ -44,7 +43,7 @@ struct Scalars {
   float sig2;   // prior_sig², rounded to fp32 on the host
   float n_eff;  // N
   float nd;
-  uint64_t seed;
+  uint64_t seed;  // seed and step: read from dev by the kernel
   uint64_t step;
   uint64_t quad0;  // global quad of element 0 (elem0 / 4)
 };
@@ -63,7 +62,6 @@ __device__ __forceinline__ float update_one(float g, float th, float th0,
   return out;
 }
 
-template <bool kDevScalars>
 __global__ void sgld_update_kernel(float* __restrict__ g,
                                    const float* __restrict__ theta,
                                    const float* __restrict__ theta0,
@@ -71,10 +69,8 @@ __global__ void sgld_update_kernel(float* __restrict__ g,
                                    const float* __restrict__ lr, int64_t n,
                                    Scalars s,
                                    const int64_t* __restrict__ dev) {
-  if constexpr (kDevScalars) {  // dev = (seed, step, unused)
-    s.seed = static_cast<uint64_t>(dev[0]);
-    s.step = static_cast<uint64_t>(dev[1]);
-  }
+  s.seed = static_cast<uint64_t>(dev[0]);  // dev = (seed, step, unused)
+  s.step = static_cast<uint64_t>(dev[1]);
   const int64_t full_quads = n / 4;
   const int64_t quads = (n + 3) / 4;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -107,7 +103,6 @@ __global__ void sgld_update_kernel(float* __restrict__ g,
   }
 }
 
-template <bool kDevScalars>
 int launch(void* g, const void* theta, const void* theta0, const void* mask,
            const void* lr, int64_t n, const Scalars& s, const void* dev,
            void* stream) {
@@ -116,8 +111,8 @@ int launch(void* g, const void* theta, const void* theta0, const void* mask,
   const int64_t quads = (n + 3) / 4;
   int64_t blocks = (quads + kThreads - 1) / kThreads;
   if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;  // grid-stride beyond
-  sgld_update_kernel<kDevScalars><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
+  sgld_update_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(g), static_cast<const float*>(theta),
       static_cast<const float*>(theta0), static_cast<const float*>(mask),
       static_cast<const float*>(lr), n, s, static_cast<const int64_t*>(dev));
@@ -127,22 +122,13 @@ int launch(void* g, const void* theta, const void* theta0, const void* mask,
 }  // namespace
 
 // elem0: the global index of element 0, a multiple of 4 (see
-// normal_from_bits.cuh); 0 for a whole vector
+// normal_from_bits.cuh), 0 for a whole vector; dev: int64 [3] = (seed,
+// step, unused) on the vectors' device
 extern "C" int sgld_update(void* g, const void* theta, const void* theta0,
                            const void* mask, const void* lr, int64_t n,
                            int64_t elem0, float sig2, float n_eff, float nd,
-                           uint64_t seed, uint64_t step, void* stream) {
-  if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
-  const Scalars s{sig2, n_eff, nd, seed, step, static_cast<uint64_t>(elem0 / 4)};
-  return launch<false>(g, theta, theta0, mask, lr, n, s, nullptr, stream);
-}
-
-// dev: int64 [3] = (seed, step, unused) on the vectors' device
-extern "C" int sgld_update_dev(void* g, const void* theta, const void* theta0,
-                               const void* mask, const void* lr, int64_t n,
-                               int64_t elem0, float sig2, float n_eff,
-                               float nd, const void* dev, void* stream) {
+                           const void* dev, void* stream) {
   if (!bdl::valid_offset(elem0, n)) return static_cast<int>(cudaErrorInvalidValue);
   const Scalars s{sig2, n_eff, nd, 0, 0, static_cast<uint64_t>(elem0 / 4)};
-  return launch<true>(g, theta, theta0, mask, lr, n, s, dev, stream);
+  return launch(g, theta, theta0, mask, lr, n, s, dev, stream);
 }

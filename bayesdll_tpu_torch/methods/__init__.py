@@ -12,15 +12,10 @@ _METHODS = {name: f"bayesdll_tpu_torch.methods.{name}" for name in (
     "vanilla", "vi", "mc_dropout", "sgld", "sghmc", "adam_sghmc", "csgld",
     "csghmc", "adam_csghmc", "csghmc_fs", "la")}
 
-# methods of the JAX package still to be ported (ROADMAP.md queue 1 item)
-_PENDING: dict = {}
-
 
 def get_runner_cls(method: str):
     if method not in _METHODS:
-        where = (f"ROADMAP.md queue 1 item {_PENDING[method]}"
-                 if method in _PENDING else "not a method of bayesdll_tpu")
         raise NotImplementedError(
-            f"method '{method}' is not ported ({where}); "
-            f"ported: {sorted(_METHODS)}")
+            f"method '{method}' is not ported (not a method of "
+            f"bayesdll_tpu); ported: {sorted(_METHODS)}")
     return importlib.import_module(_METHODS[method]).Runner

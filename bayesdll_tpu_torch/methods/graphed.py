@@ -22,7 +22,7 @@ keeps static buffers, and a segment is
 The scalars are what the per-step path computes on the host
 (`BaseRunner.fused_rows`, through `step_scalars` and
 `bias_corrections`): per step the int64 (seed, step, gate) that the
-kernels' pointer entry points read, and the fp32 (lr_body, lr_head,
+kernels read, and the fp32 (lr_body, lr_head,
 collect, bc1, bc2), the last two Adam's bias corrections.  The graph only
 indexes into them, so it computes the per-step path's bits.
 

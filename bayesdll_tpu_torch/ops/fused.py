@@ -6,12 +6,13 @@ versions, with the JAX package's formulas and contracts; they are the
 oracles the tests and chip_smoke.py hold the kernels against.  The
 versions with a trailing underscore are what the runners call: on CUDA
 tensors they launch the hand-written kernel (ops/kernels.py) and nothing
-else; on CPU tensors they run the plain version.  The per-step path hands
-them the seed, the step and csghmc's gate as host values; the fused path
-hands them `dev`, an int64 tensor (seed, step, gate) on the vectors'
-device, which the kernel's pointer entry point reads on the card (a
-captured graph cannot take host values that change from step to step) and
-which the CPU reads as the same three values.  `adam_sghmc_update` (and
+else; on CPU tensors they run the plain version.  Each takes the seed, the
+step and csghmc's gate either as host values (the per-step path) or as
+`dev`, an int64 row (seed, step, gate) on the vectors' device (the fused
+path, whose captured graph cannot take host values that change from step
+to step).  Host values become that row once, through
+`kernels.dev_scalars`; the kernel reads it on the card, and the CPU reads
+it as the same three values.  `adam_sghmc_update` (and
 its momentum, `adam_sghmc_momentum`) has no kernel in either package: it
 is plain PyTorch on every device, in place on the Adam state.  `draw_` is
 the whole-vector draw of VI, MC-dropout and the Adam momentum noise: the
@@ -390,6 +391,13 @@ _HOST_STREAM = {kernels.STREAM_VI: rng.VI, kernels.STREAM_ADAM: rng.ADAM,
                 kernels.STREAM_MC_DROPOUT: rng.MC_DROPOUT}
 
 
+def _host_scalars(dev):
+    """(seed, step, gate) that the row `dev` holds, read on the CPU, where
+    reading waits on nothing."""
+    seed, step, gate = (int(x) for x in dev.tolist())
+    return seed & kernels._U64, step, bool(gate)
+
+
 @_in_update_span
 def draw_(like, *, kind: str, stream: int, seed: int = 0, step: int = 0,
           dev=None, elem0: int = 0, total=None):
@@ -403,12 +411,11 @@ def draw_(like, *, kind: str, stream: int, seed: int = 0, step: int = 0,
     given, stands for seed and step.  With `total`, `like` is the shard at
     elem0 of a vector of `total` elements, and the draw is that slice of
     the whole vector's draw."""
+    if dev is None:
+        dev = kernels.dev_scalars(seed, step, device=like.device)
     if like.is_cuda:
-        if dev is not None:
-            return kernels.philox_draw_dev(like, dev, kind=kind, stream=stream,
-                                           elem0=elem0)
-        return kernels.philox_draw(like, kind=kind, stream=stream, seed=seed,
-                                   step=step, elem0=elem0)
+        return kernels.philox_draw(like, dev, kind=kind, stream=stream,
+                                   elem0=elem0)
     if like.device.type != "cpu":
         raise ValueError(f"draw_: no path for device {like.device}")
     if kind not in kernels.DRAW_KINDS:
@@ -417,19 +424,10 @@ def draw_(like, *, kind: str, stream: int, seed: int = 0, step: int = 0,
     if stream not in _HOST_STREAM:
         raise ValueError(f"stream: one of {kernels.DRAW_STREAMS}, got "
                          f"{stream!r}")
-    seed, step, _ = _host_scalars(dev, seed, step)
+    seed, step, _ = _host_scalars(dev)
     gen = rng.generator("cpu", seed, _HOST_STREAM[stream], step)
     draw = torch.randn if kind == "normal" else torch.rand
     return shard_of_draw(draw, like, gen, elem0, total)
-
-
-def _host_scalars(dev, seed, step, gate=False):
-    """(seed, step, gate): the host values, or those `dev` holds (read on
-    the CPU, where reading waits on nothing)."""
-    if dev is None:
-        return seed, step, gate
-    seed, step, gate = (int(x) for x in dev.tolist())
-    return seed & kernels._U64, step, bool(gate)
 
 
 @_in_update_span
@@ -442,17 +440,13 @@ def csghmc_update_(g, theta, v, *, prior_sig: float, n_eff: float, nd: float,
     CPU tensors take the plain version.  `dev` (seed, step, gate), when
     given, stands for seed, step and should_sample; `elem0` and `total`
     place a shard in its whole vector (module docstring)."""
+    if dev is None:
+        dev = kernels.dev_scalars(seed, step, should_sample, theta.device)
     if theta.is_cuda:
-        pref = kernels.noise_prefactor(nd, alpha, n_eff)
-        if dev is not None:
-            return kernels.csghmc_update_dev(g, theta, v, lr, dev,
-                                             prior_sig=prior_sig, alpha=alpha,
-                                             noise_pref=pref, elem0=elem0)
         return kernels.csghmc_update(
-            g, theta, v, lr, prior_sig=prior_sig, alpha=alpha,
-            noise_pref=pref, gate=should_sample, seed=seed, step=step,
-            elem0=elem0)
-    seed, step, should_sample = _host_scalars(dev, seed, step, should_sample)
+            g, theta, v, lr, dev, prior_sig=prior_sig, alpha=alpha,
+            noise_pref=kernels.noise_prefactor(nd, alpha, n_eff), elem0=elem0)
+    seed, step, should_sample = _host_scalars(dev)
     th_new, v_new = csghmc_update(
         g, theta, v, prior_sig=prior_sig, n_eff=n_eff, nd=nd, alpha=alpha,
         lr=lr, should_sample=should_sample,
@@ -470,15 +464,13 @@ def sgld_update_(g, theta, theta0, prior_mask, lr, *, prior_sig: float,
     step).  CUDA tensors go to the kernel, which launches or raises; CPU
     tensors take the plain version.  `dev`, when given, stands for seed and
     step; `elem0` and `total` place a shard in its whole vector."""
+    if dev is None:
+        dev = kernels.dev_scalars(seed, step, device=g.device)
     if g.is_cuda:
-        if dev is not None:
-            return kernels.sgld_update_dev(g, theta, theta0, prior_mask, lr,
-                                           dev, prior_sig=prior_sig,
-                                           n_eff=n_eff, nd=nd, elem0=elem0)
-        return kernels.sgld_update(g, theta, theta0, prior_mask, lr,
+        return kernels.sgld_update(g, theta, theta0, prior_mask, lr, dev,
                                    prior_sig=prior_sig, n_eff=n_eff, nd=nd,
-                                   seed=seed, step=step, elem0=elem0)
-    seed, step, _ = _host_scalars(dev, seed, step)
+                                   elem0=elem0)
+    seed, step, _ = _host_scalars(dev)
     noise = _noise(g, "sgld_update_", seed, step, elem0, total) \
         if nd != 0.0 else {}
     return g.copy_(sgld_update(g, theta, theta0, prior_mask, lr,
@@ -492,17 +484,13 @@ def sghmc_update_(g, theta, theta0, v, prior_mask, lr, *, prior_sig: float,
                   step: int = 0, dev=None, elem0: int = 0, total=None):
     """sghmc_update IN PLACE on g and v, as sgld_update_ dispatches.
     Returns (g, v)."""
+    if dev is None:
+        dev = kernels.dev_scalars(seed, step, device=g.device)
     if g.is_cuda:
-        if dev is not None:
-            return kernels.sghmc_update_dev(g, theta, theta0, v, prior_mask,
-                                            lr, dev, prior_sig=prior_sig,
-                                            n_eff=n_eff, nd=nd, alpha=alpha,
-                                            elem0=elem0)
-        return kernels.sghmc_update(g, theta, theta0, v, prior_mask, lr,
+        return kernels.sghmc_update(g, theta, theta0, v, prior_mask, lr, dev,
                                     prior_sig=prior_sig, n_eff=n_eff, nd=nd,
-                                    alpha=alpha, seed=seed, step=step,
-                                    elem0=elem0)
-    seed, step, _ = _host_scalars(dev, seed, step)
+                                    alpha=alpha, elem0=elem0)
+    seed, step, _ = _host_scalars(dev)
     noise = _noise(g, "sghmc_update_", seed, step, elem0, total) \
         if nd != 0.0 else {}
     g_new, v_new = sghmc_update(g, theta, theta0, v, prior_mask, lr,

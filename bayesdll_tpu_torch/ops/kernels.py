@@ -10,19 +10,18 @@ tests import this module on machines with no nvcc and no card.
 
 Each wrapper takes CUDA tensors only; on anything else it raises.  It counts
 its launches in `<wrapper>.launches`, so a run can show that its main path
-went through the kernel.  Each kernel has a second wrapper, `<name>_dev`,
-over its pointer entry point: the Philox seed, the step and (for csghmc)
-the gate come from a small int64 tensor on the card, which the fused
-path's captured CUDA graph fills before each replay.  It counts into the
-same `<name>.launches`; a launch recorded into a graph counts once at the
-capture, and the graph's runner (methods/graphed.py) sets the counts so
-that each replay adds its launches (`launch_counts`, `set_launch_counts`;
-these carry the window-attention kernels' counts too,
-ops/window_attention.py).  Every wrapper takes `elem0`, the global index
-of its vectors' first element when they are one rank's shard of a longer
-flat vector (`check_offset`):
-the noise is then that of the shard's own elements in the whole vector's
-draw, so the shards' launches concatenate to one whole-vector launch.
+went through the kernel.  Each kernel reads the Philox seed, the step and
+(for csghmc) the gate from `dev`, an int64 row (seed, step, gate) on the
+card: `dev_scalars` copies host values there without the host waiting, and
+the fused path's captured CUDA graph fills its own row before each replay.
+A launch recorded into a graph counts once at the capture, and the graph's
+runner (methods/graphed.py) sets the counts so that each replay adds its
+launches (`launch_counts`, `set_launch_counts`; these carry the
+window-attention kernels' counts too, ops/window_attention.py).  Every
+wrapper takes `elem0`, the global index of its vectors' first element when
+they are one rank's shard of a longer flat vector (`check_offset`): the
+noise is then that of the shard's own elements in the whole vector's draw,
+so the shards' launches concatenate to one whole-vector launch.
 """
 
 from __future__ import annotations
@@ -95,42 +94,27 @@ def build(names=KERNELS) -> float:
 def _library(name: str) -> ctypes.CDLL:
     build((name,))
     lib = ctypes.CDLL(str(library_path(name)))
-    for symbol in (name, f"{name}_dev"):
-        fn = getattr(lib, symbol)
-        fn.argtypes = _ARGTYPES[symbol]
-        fn.restype = ctypes.c_int
+    fn = getattr(lib, name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
     return lib
 
 
-_P, _I64, _F, _U = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_uint64
+_P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+# each kernel's C prototype (csrc/<name>.cu); dev is the int64 row
 _ARGTYPES = {
-    # g, theta, v, lr, n, elem0, prior_sig, 1-alpha, noise_pref, gate, seed,
-    # step, stream
-    "csghmc_update": [_P, _P, _P, _P, _I64, _I64, _F, _F, _F, ctypes.c_int, _U,
-                      _U, _P],
-    # g, theta, theta0, mask, lr, n, elem0, sigma^2, N, nd, seed, step, stream
-    "sgld_update": [_P, _P, _P, _P, _P, _I64, _I64, _F, _F, _F, _U, _U, _P],
-    # g, theta, theta0, v, mask, lr, n, elem0, sigma^2, N, nd, 1-alpha,
-    # 2 alpha, seed, step, stream
-    "sghmc_update": [_P, _P, _P, _P, _P, _P, _I64, _I64, _F, _F, _F, _F, _F,
-                     _U, _U, _P],
-    # out, n, elem0, kind, stream id, seed, step, stream
-    "philox_draw": [_P, _I64, _I64, ctypes.c_int, ctypes.c_uint32, _U, _U, _P],
-}
-# the pointer entry points: (seed, step, gate) from the int64 tensor `dev`
-_ARGTYPES.update({
     # g, theta, v, lr, n, elem0, prior_sig, 1-alpha, noise_pref, dev, stream
-    "csghmc_update_dev": [_P, _P, _P, _P, _I64, _I64, _F, _F, _F, _P, _P],
+    "csghmc_update": [_P, _P, _P, _P, _I64, _I64, _F, _F, _F, _P, _P],
     # g, theta, theta0, mask, lr, n, elem0, sigma^2, N, nd, dev, stream
-    "sgld_update_dev": [_P, _P, _P, _P, _P, _I64, _I64, _F, _F, _F, _P, _P],
+    "sgld_update": [_P, _P, _P, _P, _P, _I64, _I64, _F, _F, _F, _P, _P],
     # g, theta, theta0, v, mask, lr, n, elem0, sigma^2, N, nd, 1-alpha,
     # 2 alpha, dev, stream
-    "sghmc_update_dev": [_P, _P, _P, _P, _P, _P, _I64, _I64, _F, _F, _F, _F,
-                         _F, _P, _P],
+    "sghmc_update": [_P, _P, _P, _P, _P, _P, _I64, _I64, _F, _F, _F, _F, _F,
+                     _P, _P],
     # out, n, elem0, kind, stream id, dev, stream
-    "philox_draw_dev": [_P, _I64, _I64, ctypes.c_int, ctypes.c_uint32, _P, _P],
-})
-DEV_SCALARS = 3  # (seed, step, gate), the pointer entry points' int64 row
+    "philox_draw": [_P, _I64, _I64, ctypes.c_int, ctypes.c_uint32, _P, _P],
+}
+DEV_SCALARS = 3  # (seed, step, gate), the kernels' int64 row
 # philox_draw's stream ids (csrc/normal_from_bits.cuh): one for each method
 # step that draws a whole vector; 0-2 are the update kernels' own
 STREAM_VI, STREAM_ADAM, STREAM_MC_DROPOUT = 3, 4, 5
@@ -139,16 +123,21 @@ DRAW_KINDS = {"normal": 0, "uniform": 1}
 
 
 def seed_int64(seed: int) -> int:
-    """The seed's 64 bits as an int64 (two's complement), as the pointer
-    entry points read it."""
+    """The seed's 64 bits as an int64 (two's complement), as the kernels
+    read it."""
     s = int(seed) & _U64
     return s - (1 << 64) if s >> 63 else s
 
 
 def dev_scalars(seed: int, step: int, gate: bool = False, device="cuda"):
-    """The int64 tensor (seed, step, gate) a pointer entry point reads."""
-    return torch.tensor([seed_int64(seed), int(step), int(bool(gate))],
-                        dtype=torch.int64, device=device)
+    """The int64 row (seed, step, gate) the kernels read, on `device`.  On
+    a card it is filled in pinned host memory and copied without the host
+    waiting: PyTorch's caching host allocator keeps the pinned block until
+    the copy has run."""
+    device = torch.device(device)
+    row = torch.tensor([seed_int64(seed), int(step), int(bool(gate))],
+                       dtype=torch.int64, pin_memory=device.type == "cuda")
+    return row.to(device, non_blocking=True)
 
 
 def _check_vectors(**tensors: torch.Tensor) -> torch.Tensor:
@@ -181,8 +170,8 @@ def _check_no_overlap(written: dict, read: dict):
 
 
 def _check_dev(dev: torch.Tensor, like: torch.Tensor):
-    """The pointer entry points' scalars: a contiguous int64 tensor of
-    DEV_SCALARS elements on the vectors' device."""
+    """The kernels' scalars: a contiguous int64 tensor of DEV_SCALARS
+    elements on the vectors' device."""
     if not dev.is_cuda or dev.device != like.device:
         raise ValueError(f"dev: kernel needs the scalars on {like.device}, "
                          f"got {dev.device}")
@@ -227,30 +216,30 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
 
 
-def csghmc_update(g, theta, v, lr, *, prior_sig: float, alpha: float,
-                  noise_pref: float, gate: bool, seed: int, step: int,
-                  elem0: int = 0):
+def csghmc_update(g, theta, v, lr, dev, *, prior_sig: float, alpha: float,
+                  noise_pref: float, elem0: int = 0):
     """cSGHMC update on the card, IN PLACE on theta and v (csrc/csghmc_update.cu):
 
         v     <- (1 - alpha) v - lr * (g + prior_sig * theta)
                  + gate * noise_pref * sqrt(lr) * z
         theta <- theta + v
 
-    noise_pref = nd * sqrt(2 alpha) / N; z is Philox noise keyed by `seed`
-    at counter `step`, of global elements [elem0, elem0 + n) (the vectors
-    a shard of a longer one at that offset).  Returns (theta, v).
+    noise_pref = nd * sqrt(2 alpha) / N; `dev` is the int64 row (seed,
+    step, gate) on the card (`dev_scalars`); z is Philox noise keyed by the
+    seed at counter `step`, of global elements [elem0, elem0 + n) (the
+    vectors a shard of a longer one at that offset).  Returns (theta, v).
     """
     _check_vectors(g=g, theta=theta, v=v, lr=lr)
     _check_no_overlap(dict(theta=theta, v=v), dict(g=g, lr=lr))
+    _check_dev(dev, theta)
     lib = _library("csghmc_update")
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.csghmc_update(
             g.data_ptr(), theta.data_ptr(), v.data_ptr(), lr.data_ptr(),
             theta.numel(), check_offset(elem0, theta.numel()),
-            float(prior_sig), float(1.0 - alpha),
-            float(noise_pref), int(bool(gate)), int(seed) & _U64,
-            int(step) & _U64, stream)
+            float(prior_sig), float(1.0 - alpha), float(noise_pref),
+            dev.data_ptr(), stream)
     _raise_on(err, "csghmc_update")
     csghmc_update.launches += 1
     return theta, v
@@ -259,49 +248,29 @@ def csghmc_update(g, theta, v, lr, *, prior_sig: float, alpha: float,
 csghmc_update.launches = 0
 
 
-def csghmc_update_dev(g, theta, v, lr, dev, *, prior_sig: float,
-                      alpha: float, noise_pref: float, elem0: int = 0):
-    """csghmc_update with (seed, step, gate) read on the card from `dev`,
-    an int64 tensor of 3 (`dev_scalars`), through the pointer entry point:
-    the same bits as csghmc_update at the same values.  Counts into
-    csghmc_update.launches.  Returns (theta, v)."""
-    _check_vectors(g=g, theta=theta, v=v, lr=lr)
-    _check_no_overlap(dict(theta=theta, v=v), dict(g=g, lr=lr))
-    _check_dev(dev, theta)
-    lib = _library("csghmc_update")
-    with torch.cuda.device(theta.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.csghmc_update_dev(
-            g.data_ptr(), theta.data_ptr(), v.data_ptr(), lr.data_ptr(),
-            theta.numel(), check_offset(elem0, theta.numel()),
-            float(prior_sig), float(1.0 - alpha), float(noise_pref),
-            dev.data_ptr(), stream)
-    _raise_on(err, "csghmc_update_dev")
-    csghmc_update.launches += 1
-    return theta, v
-
-
-def sgld_update(g, theta, theta0, mask, lr, *, prior_sig: float, n_eff: float,
-                nd: float, seed: int, step: int, elem0: int = 0):
+def sgld_update(g, theta, theta0, mask, lr, dev, *, prior_sig: float,
+                n_eff: float, nd: float, elem0: int = 0):
     """SGLD crafted gradient on the card, IN PLACE on g (csrc/sgld_update.cu):
 
         g <- g + mask * (theta - theta0) / prior_sig^2 / N
                + nd * sqrt(2 / (N * max(lr, 1e-30))) * z
 
-    z is Philox noise keyed by `seed` at counter `step`, of global elements
-    [elem0, elem0 + n).  Returns g.
+    z is Philox noise keyed by the seed of `dev` (int64 [3], the last
+    unused) at counter `step`, of global elements [elem0, elem0 + n).
+    Returns g.
     """
     _check_vectors(g=g, theta=theta, theta0=theta0, mask=mask, lr=lr)
     _check_no_overlap(dict(g=g), dict(theta=theta, theta0=theta0, mask=mask,
                                       lr=lr))
+    _check_dev(dev, g)
     lib = _library("sgld_update")
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sgld_update(
             g.data_ptr(), theta.data_ptr(), theta0.data_ptr(), mask.data_ptr(),
             lr.data_ptr(), g.numel(), check_offset(elem0, g.numel()),
-            float(prior_sig ** 2), float(n_eff), float(nd), int(seed) & _U64,
-            int(step) & _U64, stream)
+            float(prior_sig ** 2), float(n_eff), float(nd), dev.data_ptr(),
+            stream)
     _raise_on(err, "sgld_update")
     sgld_update.launches += 1
     return g
@@ -310,31 +279,8 @@ def sgld_update(g, theta, theta0, mask, lr, *, prior_sig: float, n_eff: float,
 sgld_update.launches = 0
 
 
-def sgld_update_dev(g, theta, theta0, mask, lr, dev, *, prior_sig: float,
-                    n_eff: float, nd: float, elem0: int = 0):
-    """sgld_update with (seed, step) read on the card from `dev` (int64
-    [3], the last unused), through the pointer entry point.  Counts into
-    sgld_update.launches.  Returns g."""
-    _check_vectors(g=g, theta=theta, theta0=theta0, mask=mask, lr=lr)
-    _check_no_overlap(dict(g=g), dict(theta=theta, theta0=theta0, mask=mask,
-                                      lr=lr))
-    _check_dev(dev, g)
-    lib = _library("sgld_update")
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sgld_update_dev(
-            g.data_ptr(), theta.data_ptr(), theta0.data_ptr(), mask.data_ptr(),
-            lr.data_ptr(), g.numel(), check_offset(elem0, g.numel()),
-            float(prior_sig ** 2), float(n_eff), float(nd), dev.data_ptr(),
-            stream)
-    _raise_on(err, "sgld_update_dev")
-    sgld_update.launches += 1
-    return g
-
-
-def sghmc_update(g, theta, theta0, v, mask, lr, *, prior_sig: float,
-                 n_eff: float, nd: float, alpha: float, seed: int, step: int,
-                 elem0: int = 0):
+def sghmc_update(g, theta, theta0, v, mask, lr, dev, *, prior_sig: float,
+                 n_eff: float, nd: float, alpha: float, elem0: int = 0):
     """SGHMC momentum update on the card, IN PLACE on g and v
     (csrc/sghmc_update.cu), with lr clamped at 1e-30:
 
@@ -342,12 +288,14 @@ def sghmc_update(g, theta, theta0, v, mask, lr, *, prior_sig: float,
              + nd * sqrt(2 alpha / (N * lr)) * z
         g <- g + v
 
-    z is Philox noise keyed by `seed` at counter `step`, of global elements
-    [elem0, elem0 + n).  Returns (g, v).
+    z is Philox noise keyed by the seed of `dev` (int64 [3], the last
+    unused) at counter `step`, of global elements [elem0, elem0 + n).
+    Returns (g, v).
     """
     _check_vectors(g=g, theta=theta, theta0=theta0, v=v, mask=mask, lr=lr)
     _check_no_overlap(dict(g=g, v=v), dict(theta=theta, theta0=theta0,
                                            mask=mask, lr=lr))
+    _check_dev(dev, g)
     lib = _library("sghmc_update")
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -356,36 +304,13 @@ def sghmc_update(g, theta, theta0, v, mask, lr, *, prior_sig: float,
             mask.data_ptr(), lr.data_ptr(), g.numel(),
             check_offset(elem0, g.numel()), float(prior_sig ** 2),
             float(n_eff), float(nd), float(1.0 - alpha), float(2.0 * alpha),
-            int(seed) & _U64, int(step) & _U64, stream)
+            dev.data_ptr(), stream)
     _raise_on(err, "sghmc_update")
     sghmc_update.launches += 1
     return g, v
 
 
 sghmc_update.launches = 0
-
-
-def sghmc_update_dev(g, theta, theta0, v, mask, lr, dev, *, prior_sig: float,
-                     n_eff: float, nd: float, alpha: float, elem0: int = 0):
-    """sghmc_update with (seed, step) read on the card from `dev` (int64
-    [3], the last unused), through the pointer entry point.  Counts into
-    sghmc_update.launches.  Returns (g, v)."""
-    _check_vectors(g=g, theta=theta, theta0=theta0, v=v, mask=mask, lr=lr)
-    _check_no_overlap(dict(g=g, v=v), dict(theta=theta, theta0=theta0,
-                                           mask=mask, lr=lr))
-    _check_dev(dev, g)
-    lib = _library("sghmc_update")
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sghmc_update_dev(
-            g.data_ptr(), theta.data_ptr(), theta0.data_ptr(), v.data_ptr(),
-            mask.data_ptr(), lr.data_ptr(), g.numel(),
-            check_offset(elem0, g.numel()), float(prior_sig ** 2),
-            float(n_eff), float(nd), float(1.0 - alpha), float(2.0 * alpha),
-            dev.data_ptr(), stream)
-    _raise_on(err, "sghmc_update_dev")
-    sghmc_update.launches += 1
-    return g, v
 
 
 def _draw_args(like, kind: str, stream: int):
@@ -405,18 +330,19 @@ def _draw_args(like, kind: str, stream: int):
     return out, DRAW_KINDS[kind], int(stream)
 
 
-def philox_draw(like, *, kind: str, stream: int, seed: int, step: int,
-                elem0: int = 0):
+def philox_draw(like, dev, *, kind: str, stream: int, elem0: int = 0):
     """A new fp32 vector shaped as `like` on its card (csrc/philox_draw.cu):
     N(0, 1) (kind "normal") or U[0, 1) (kind "uniform") draws, a pure
-    function of (seed, step, stream), `stream` one of DRAW_STREAMS: the
+    function of (seed, step, stream), the seed and the step read from `dev`
+    (int64 [3], the last unused), `stream` one of DRAW_STREAMS: the
     elements [elem0, elem0 + n) of that draw of a longer vector."""
     out, k, sid = _draw_args(like, kind, stream)
+    _check_dev(dev, out)
     lib = _library("philox_draw")
     with torch.cuda.device(out.device):
         err = lib.philox_draw(out.data_ptr(), out.numel(),
                               check_offset(elem0, out.numel()), k, sid,
-                              int(seed) & _U64, int(step) & _U64,
+                              dev.data_ptr(),
                               torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "philox_draw")
     philox_draw.launches += 1
@@ -424,23 +350,6 @@ def philox_draw(like, *, kind: str, stream: int, seed: int, step: int,
 
 
 philox_draw.launches = 0
-
-
-def philox_draw_dev(like, dev, *, kind: str, stream: int, elem0: int = 0):
-    """philox_draw with (seed, step) read on the card from `dev` (int64 [3],
-    the last unused), through the pointer entry point: the same bits as
-    philox_draw at the same values.  Counts into philox_draw.launches."""
-    out, k, sid = _draw_args(like, kind, stream)
-    _check_dev(dev, out)
-    lib = _library("philox_draw")
-    with torch.cuda.device(out.device):
-        err = lib.philox_draw_dev(out.data_ptr(), out.numel(),
-                                  check_offset(elem0, out.numel()), k, sid,
-                                  dev.data_ptr(),
-                                  torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "philox_draw_dev")
-    philox_draw.launches += 1
-    return out
 
 
 def noise_prefactor(nd: float, alpha: float, n_eff: float) -> float:

@@ -37,47 +37,31 @@ Phases, one line each:
      batch 32) through the port's CLI, and width-32 cSGHMC and SGHMC runs
      whose every chain equals, bit for bit, the single-chain run from its
      initial state, batches and seed;
-  4. times with CUDA events: each kernel, its plain version, its bound, at
-     each main path's D (all three at ViT-L/32's), and the training steps:
-     the MLP's cSGHMC (fp32 and bf16, and fp32 on one and on two chains)
-     and SGHMC steps and the seven other methods' steps, the 2-chain
-     ResNet-50 cSGHMC step, ResNet-101's and ViT-L/32's cSGHMC steps (without
-     remat and with remat_policy="names"), ViT-L/32's Adam-cSGHMC step and
-     ViT-B/16's cSGHMC step (ms/step, gradient-evals/s, TFLOP/s, the share
-     of the bf16 peak, peak device memory);
-  5. those training steps' device time by kernel and by family
-     (torch.profiler); for ViT-L/32 also the shares of the whole-vector
-     cast and its backward, the per-step lr vector, the moments update and,
-     for Adam-cSGHMC, its Adam momentum and SGD step.
+  4. each kernel's time with CUDA events, L2 flushed before each launch,
+     its plain version's and its bound, at each main path's D (all three
+     at ViT-L/32's).  The training steps' times and profiles are the
+     benchmark's (BENCHMARK.json, benchmark/), not this script's;
   6. the fused path (fused_steps: segments of steps as replays of a
      captured CUDA graph, methods/graphed.py), fp32 with TF32 off: (a) all
      eleven methods (cSGHMC, SGLD, SGHMC, cSGLD, vanilla, Laplace's stage
      1, cSGHMC-FS, and VI, MC-dropout, Adam-SGHMC and Adam-cSGHMC, whose
      step draws through philox_draw) through `train` on the full-width MLP,
      each in its phase-3 config and bitwise equal to that per-step run
-     (state, counts, Adam's t, losses), noise on; (b) the JAX bench's
-     headline form, cSGHMC at batch 128 with run_steps K = 100, fp32 and
-     bf16, and the four drawing methods' steps at batch 64 with K = 50,
-     against the per-step loop in turns (host ms/step, device us/step from
-     CUDA events and the profiler, busy share, capture seconds); (c) the
-     eleven at 2 chains, each chain bitwise equal to the per-step 2-chain
-     run; (d) ViT-L/32 cSGHMC (bf16, batch 128) fused through `train`, its
-     losses against the spread of two per-step runs, and its step fused,
-     without remat and with remat "names", beside phase 4's per-step times
-     (host ms/step, device us/step, busy share, peak memory); ViT-L/32
-     Adam-cSGHMC fused in segments of 3, its losses against two per-step
-     runs, its time and peak memory; (e) each kernel's pointer entry point
-     (step, seed and gate read from the card) bitwise against its by-value
-     entry point, noise on, and against its plain version, timed at the
-     MLP's and ViT-L/32's D (philox_draw also against the kernel's own
-     fp32 arithmetic run in torch ops, bitwise or within an ulp, against
-     its moments, the independence of its streams, and beside torch.randn
-     and torch.rand; its registers, spills and SASS instructions, and those
-     of the commit before where build/parent_csrc holds its sources), and a
-     profiler trace of one replayed MLP segment of 10 steps: each kernel 10
-     times on the card, one cudaGraphLaunch per step and no matrix product
-     dispatched on the host.  The per-step timings of phases 4 and 5 run
-     `step_loop`, the fused ones `run_steps`.
+     (state, counts, Adam's t, losses), noise on; (c) the eleven at 2
+     chains, each chain bitwise equal to the per-step 2-chain run; (d)
+     ViT-L/32 cSGHMC (bf16, batch 128) fused through `train`, its losses
+     against the spread of two per-step runs;
+     ViT-L/32 Adam-cSGHMC fused in segments of 3, its losses against two
+     per-step runs; (e) each update kernel at the MLP's and ViT-L/32's D,
+     (seed, step, gate) read from its int64 row at points past 2^63 and
+     2^32, against its plain version handed the kernel's normals;
+     philox_draw against its plain version (uniforms bitwise, normals
+     against float64 Box-Muller and against the kernel's own fp32
+     arithmetic run in torch ops, bitwise or within an ulp), its moments,
+     the independence of its streams, and its time beside torch.randn and
+     torch.rand; and a profiler trace of one replayed MLP segment of 10
+     steps: each kernel 10 times on the card, one cudaGraphLaunch per step
+     and no matrix product dispatched on the host.
   7. the real-data paths, on fixtures written from a seed into a temporary
      directory under build/: (a) the card's host (cores, PIL, g++), the
      native preprocessing library built from bayesdll_tpu_torch/native
@@ -87,8 +71,8 @@ Phases, one line each:
      through the pretraining CLI's main at its defaults (cSGHMC,
      ResNet-101, batch 256, lr 0.1, momentum 0.9), 1 epoch per step and
      1 fused, bit for bit equal (cuDNN deterministic), csghmc_update
-     launched once a step, finite loss and NLL, per-epoch ms/step, images/s,
-     training error and busy share, the CIFAR loader's images/s alone; a
+     launched once a step, finite loss and NLL, per-epoch ms/step, images/s
+     and training error, the CIFAR loader's images/s alone; a
      mini ResNet on the fixture cut to 256 images, card against CPU; (c)
      where PIL imports, a Pets-layout fixture (512 + 256 JPEGs at 500x375)
      through demo_vision's main (pets, resnet101, batch 128), fp32 and bf16,
@@ -114,15 +98,14 @@ Phases, one line each:
      launch inside an `update` span (fused: inside a `fused.segment`).
   9. multi-device (parallel/): (a) each of the four kernels on 2 and 4
      shards of the MLP's and of ViT-L/32's D at their global offsets
-     (`elem0`), by value and through the pointer entry, bitwise equal to
-     one whole-vector launch, one launch per shard; (b) the process-group
-     path in a world of one rank over NCCL (`--multihost`, a
-     ('chain', 'data') mesh, the gradient's all-reduce, the losses'
-     gathers): 2-chain cSGHMC on the full-width MLP through the CLI and
-     ViT-L/32 cSGHMC (bf16, batch 128) with --fsdp, each bitwise equal to
-     the single-process run per step and fused, with ms/step beside the
-     single process's; (c) two ranks sharing the card over gloo (NCCL
-     refuses two ranks on one GPU), each a CLI process with --multihost:
+     (`elem0`), bitwise equal to one whole-vector launch, one launch per
+     shard; (b) the process-group path in a world of one rank over NCCL
+     (`--multihost`, a ('chain', 'data') mesh, the gradient's all-reduce,
+     the losses' gathers): 2-chain cSGHMC on the full-width MLP through the
+     CLI and ViT-L/32 cSGHMC (bf16, batch 128) with --fsdp, each bitwise
+     equal to the single-process run per step and fused; (c) two ranks
+     sharing the card over gloo (NCCL refuses two ranks on one GPU), each a
+     CLI process with --multihost:
      the MLP with --data_parallel 2 at nd = 0 against the single step,
      with --fsdp bitwise equal to replicated data parallel at nd > 0 (half
      of D per rank), --num_chains 2 over the ranks bitwise the
@@ -179,18 +162,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# the H100 SXM peaks (fp32 outside the tensor cores, bf16 dense on them) and
-# the forward FLOPs of one 224x224 example, a training step 3 forwards' worth
-from bayesdll_tpu_torch.utils.profiling import (BF16_PEAK, FP32_PEAK,
-                                                FWD_FLOPS_PER_EXAMPLE)
+# the H100 SXM peaks (fp32 outside the tensor cores, bf16 dense on them)
+from bayesdll_tpu_torch.utils.profiling import BF16_PEAK, FP32_PEAK
 
 HP = {"prior_sig": "1.0", "Ninflate": "1.0", "nd": "1.0", "thin": "2",
       "bias": "informative", "nst": "2", "momentum_decay": "0.05"}
 SG_HP = dict(HP, burnin="1")  # SGLD and SGHMC: moments from epoch 1 on
 LR_SG = 1e-2  # SGLD, SGHMC and cSGLD (see PATHS)
 TOL = dict(rtol=1e-6, atol=1e-6)  # as tests/test_pallas_kernels.py
-STEPS_TIMED = 50
-PROFILED_STEPS = 10
 
 
 def check(cond: bool, what: str):
@@ -210,7 +189,6 @@ def peak_bytes_per_s(name: str) -> float:
     return 3.35e12  # H100 SXM
 
 
-
 # the JAX bench's ResNet-101 cell (bench.py::resnet101_mfu): cSGHMC, 37
 # classes (Pets), batch 256, bf16 forward, synthetic data, 40 epochs of 2
 # steps.  The bench's hparams but prior_sig: cSGHMC applies it as a weight
@@ -228,8 +206,6 @@ RESNET_HP = dict(HP, prior_sig="5e-4")
 RESNET_LR = 1e-2
 RESNET_TRAIN_ERR = 0.5  # the last epoch's training error, against 0.973
 RESNET_PARAMS = 42_575_973
-RESNET_STEPS_TIMED = 10
-RESNET_PROFILED_STEPS = 3
 
 # the JAX package's ViT bench (tools/big_model_bench.py as tools/hw_sweep.sh
 # runs it): cSGHMC on vit_l_32, 37 classes (Pets), batch 128, bf16 forward
@@ -250,8 +226,7 @@ VIT_LR = 1e-3
 VIT_ERR = 0.5  # last epoch's training error and the test error, vs 0.973
 VIT_PARAMS = 305_548_325
 VIT_DIM = 305_549_312
-# timed steps, profiled again from the same step (section 5's busy share
-# needs the same collect steps in both)
+# steps of the Adam-cSGHMC runs held fused against per step (phase 6d)
 VIT_STEPS = 6
 # checkpoints of the ViT-L/32 run go to a temporary directory here (build/
 # is in .gitignore); each holds several 1.22 GB vectors
@@ -335,6 +310,17 @@ def csghmc_inputs(target, lr_body=1e-2, lr_head=2e-2):
     return g, theta, v, lr
 
 
+def csghmc_kernel(args, *, nd, gate, n_eff, seed=7, step=11):
+    """csghmc_update on copies of args = (g, theta, v, lr), its (seed, step,
+    gate) row from the host values; returns (theta', v')."""
+    from bayesdll_tpu_torch.ops import kernels
+    g, th, v, lr = (t.clone() for t in args)
+    kernels.csghmc_update(
+        g, th, v, lr, kernels.dev_scalars(seed, step, gate), prior_sig=1.0,
+        alpha=0.05, noise_pref=kernels.noise_prefactor(nd, 0.05, n_eff))
+    return th, v
+
+
 def phase_kernels(target, label: str):
     """csghmc_update against its plain version at `target`'s D: bitwise at
     nd = 0, the noise against its closed form."""
@@ -344,11 +330,8 @@ def phase_kernels(target, label: str):
     n_eff = 1000.0
 
     def kern(nd, gate, seed=7, step=11, a=(g, theta, v, lr)):
-        gg, th, vv, ll = (t.clone() for t in a)
-        kernels.csghmc_update(
-            gg, th, vv, ll, noise_pref=kernels.noise_prefactor(nd, kw["alpha"], n_eff),
-            gate=gate, seed=seed, step=step, **kw)
-        return th, vv
+        return csghmc_kernel(a, nd=nd, gate=gate, n_eff=n_eff, seed=seed,
+                             step=step)
 
     th_p, v_p = fused.csghmc_update(g, theta, v, n_eff=n_eff, nd=0.0, lr=lr,
                                     should_sample=True, **kw)
@@ -395,7 +378,7 @@ def phase_kernels(target, label: str):
           "another seed draws other noise")
     try:  # the wrapper refuses before it launches, so nothing is written
         kernels.csghmc_update(*(t[1:] for t in (g, theta, v, lr)),
-                              noise_pref=0.0, gate=False, seed=7, step=11,
+                              kernels.dev_scalars(7, 11), noise_pref=0.0,
                               **kw)
     except ValueError:
         pass
@@ -410,6 +393,8 @@ def phase_kernels(target, label: str):
 
 
 SG_ALPHA = {"sgld_update": {}, "sghmc_update": {"alpha": 0.05}}
+# the update kernels' Philox stream ids (csrc/normal_from_bits.cuh)
+KERNEL_STREAM = {"csghmc_update": 0, "sgld_update": 1, "sghmc_update": 2}
 
 
 def sg_inputs(target, lr_body=1e-2, lr_head=2e-2):
@@ -436,16 +421,18 @@ def sg_kernel(name, args, *, nd, n_eff, seed=7, step=11):
     """The kernel on copies of `args`; returns what it wrote, with the
     output that carries the noise (g' for sgld, v' for sghmc) last."""
     from bayesdll_tpu_torch.ops import kernels
-    out = getattr(kernels, name)(*(t.clone() for t in args), prior_sig=1.0,
-                                 n_eff=n_eff, nd=nd, seed=seed, step=step,
+    out = getattr(kernels, name)(*(t.clone() for t in args),
+                                 kernels.dev_scalars(seed, step),
+                                 prior_sig=1.0, n_eff=n_eff, nd=nd,
                                  **SG_ALPHA[name])
     return out if isinstance(out, tuple) else (out,)
 
 
-def sg_plain(name, args, *, nd, n_eff, generator=None):
+def sg_plain(name, args, *, nd, n_eff, noise=None, generator=None):
     from bayesdll_tpu_torch.ops import fused
     out = getattr(fused, name)(*args, prior_sig=1.0, n_eff=n_eff, nd=nd,
-                               generator=generator, **SG_ALPHA[name])
+                               noise=noise, generator=generator,
+                               **SG_ALPHA[name])
     return out if isinstance(out, tuple) else (out,)
 
 
@@ -522,9 +509,9 @@ def phase_sg_kernels():
                                         seed=8)[-1], noisy[-1]),
               f"{name}: another seed draws other noise")
         try:  # the wrapper refuses before it launches, so nothing is written
-            getattr(kernels, name)(*(t[1:] for t in args), prior_sig=1.0,
-                                   n_eff=n_eff, nd=0.0, seed=7, step=11,
-                                   **SG_ALPHA[name])
+            getattr(kernels, name)(*(t[1:] for t in args),
+                                   kernels.dev_scalars(7, 11), prior_sig=1.0,
+                                   n_eff=n_eff, nd=0.0, **SG_ALPHA[name])
         except ValueError:
             pass
         else:
@@ -580,7 +567,6 @@ def make_runner(cfg, width=None, depth=None, workdir=None, loaders=None):
     if hasattr(runner, "set_reinit_fn"):
         runner.set_reinit_fn(make_reinit_fn(model, target, cfg.seed))
     return runner, loaders
-
 
 
 def reset_launches():
@@ -913,11 +899,13 @@ OPS_PER_ELEM = {"csghmc_update": 45, "sgld_update": 45, "sghmc_update": 50}
 
 def kernel_times_at(smi, target, names=tuple(REPLACES)):
     """Each kernel in `names` cold against its bound and its plain version
-    at `target`'s D, the operands freed before the next."""
+    at `target`'s D, the operands freed before the next.  Every launch reads
+    one row (seed 0, step 1, the gate on or off), made before the timing:
+    a launch's time does not depend on the values."""
     from bayesdll_tpu_torch.ops import fused, kernels
     flush = torch.zeros(64 * 2**20, device="cuda")  # 256 MB, 5x the L2
     gen = torch.Generator(device="cuda").manual_seed(0)
-    step = [0]
+    rows = {on: kernels.dev_scalars(0, 1, on) for on in (False, True)}
     out = {}
     kw = dict(prior_sig=1.0, alpha=0.05)
     d = target.dim
@@ -928,9 +916,8 @@ def kernel_times_at(smi, target, names=tuple(REPLACES)):
         pref = kernels.noise_prefactor(1.0, kw["alpha"], n_eff)
 
         def csghmc(gate):
-            step[0] += 1
-            kernels.csghmc_update(g, theta, v, lr, noise_pref=pref, gate=gate,
-                                  seed=0, step=step[0], **kw)
+            kernels.csghmc_update(g, theta, v, lr, rows[gate],
+                                  noise_pref=pref, **kw)
 
         out["csghmc_update"] = kernel_times(
             smi, "csghmc_update", csghmc,
@@ -948,10 +935,9 @@ def kernel_times_at(smi, target, names=tuple(REPLACES)):
         args = sg_operands(name, *vecs)
 
         def sg(noise, name=name, args=args):
-            step[0] += 1
-            getattr(kernels, name)(*args, prior_sig=1.0, n_eff=n_eff,
-                                   nd=1.0 if noise else 0.0, seed=0,
-                                   step=step[0], **SG_ALPHA[name])
+            getattr(kernels, name)(*args, rows[True], prior_sig=1.0,
+                                   n_eff=n_eff, nd=1.0 if noise else 0.0,
+                                   **SG_ALPHA[name])
 
         out[name] = kernel_times(
             smi, name, sg,
@@ -973,325 +959,15 @@ def free_device():
     torch.cuda.empty_cache()
 
 
-def phase_step_time(smi, method, runner, loaders, label="mlp_mnist",
-                    sampler=None):
-    """The training step at the run's batch size through step_loop, on
-    batches already on the card; then its profile, with the share of the
-    kernels named after `sampler` (default: the method's own)."""
-    train = loaders[0]
-    xs, ys = [], []
-    for x, y, _ in train:
-        xs.append(x)
-        ys.append(y)
-        if len(xs) == STEPS_TIMED:
-            break
-    while len(xs) < STEPS_TIMED:
-        xs, ys = xs + xs, ys + ys
-    xs = torch.from_numpy(np.stack(xs[:STEPS_TIMED])).cuda()
-    ys = torch.from_numpy(np.stack(ys[:STEPS_TIMED])).cuda()
-    ep = runner.cfg.epochs - 1
-    runner.step_loop(ep, xs[:5], ys[:5], runner.bi)  # warm-up
-    torch.cuda.synchronize()
-    tic = time.perf_counter()
-    loss_k, _ = runner.step_loop(ep, xs, ys, runner.bi)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - tic
-    check(bool(torch.isfinite(loss_k).all()),
-          f"{method} {label}: finite losses in the timed steps")
-    ms_step = dt / STEPS_TIMED * 1e3
-    gevals = STEPS_TIMED * xs.shape[1] / dt
-    print(f"phase 4: [{smi}] {method} training step {label} batch "
-          f"{xs.shape[1]}: {ms_step:.3f} ms/step over {STEPS_TIMED} step_loop "
-          f"steps = {gevals:.0f} gradient-evals/s", flush=True)
-    phase_profile(smi, f"{method} {label}", runner, xs[:PROFILED_STEPS],
-                  ys[:PROFILED_STEPS], ms_step, sampler or f"{method}_update")
-
-
-def phase_mlp_bf16_step_time(smi):
-    """The MLP cSGHMC step with the bf16 forward through the whole-vector
-    cast, the JAX bench headline's dtype, beside the fp32 step."""
-    from bayesdll_tpu_torch.config import Config
-    cfg = Config(method="csghmc", hparams=dict(HP), dataset="synthetic",
-                 backbone="mlp_mnist", epochs=2, batch_size=128, lr=1e-3,
-                 num_cycles=2, seed=0, device="cuda", compute_dtype="bfloat16")
-    runner, loaders = make_runner(cfg)
-    check(runner.target.fwd_cast == "bfloat16", "mlp bf16: whole-vector cast")
-    runner._ensure_sched(len(loaders[0]))
-    phase_step_time(smi, "csghmc", runner, loaders, label="mlp_mnist bf16")
-    return runner, loaders
-
-
-def big_step_time(smi, label, runner, xs, ys, steps, profiled,
-                  sampler="csghmc_update"):
-    """A big backbone's training step through step_loop on batches already
-    on the card (the per-batch pinned copy of a host batch stays out of the
-    window): ms/step, gradient-evals/s, TFLOP/s, the share of the bf16
-    peak, and the peak device memory of the steps; then the profile of the
-    first `profiled` steps of the window, run again from the same step (so
-    with the same collect steps, which cost a moments update each)."""
-    name = runner.cfg.backbone
-    bs = runner.cfg.batch_size
-    xs = [xs[i % len(xs)] for i in range(steps)]
-    ys = [ys[i % len(ys)] for i in range(steps)]
-    torch.cuda.reset_peak_memory_stats()
-    sec, bi0 = host_s_per_step(runner, xs, ys, label)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    fwd = FWD_FLOPS_PER_EXAMPLE[name]
-    tflops = 3 * fwd * bs / sec / 1e12
-    print(f"phase 4: [{smi}] {runner.method_name} training step {label} bf16 "
-          f"batch {bs}: "
-          f"{sec * 1e3:.2f} ms/step over {steps} step_loop steps on "
-          f"{len(set(map(id, xs)))} distinct batches = {bs / sec:.1f} "
-          f"gradient-evals/s; {tflops:.1f} TFLOP/s (3 x {fwd / 1e9:.1f} GFLOP "
-          f"x {bs} per step); {name}_mfu_bf16={tflops * 1e12 / BF16_PEAK:.2%} "
-          f"of the H100 SXM bf16 dense peak (989 TFLOP/s); peak device memory "
-          f"{peak_gb:.2f} GB (max_memory_allocated)", flush=True)
-    phase_profile(smi, f"{runner.method_name} {label}", runner, xs[:profiled],
-                  ys[:profiled], sec * 1e3, sampler,
-                  pieces=name.startswith("vit"), bi0=bi0)
-    return dict(ms=sec * 1e3, gevals=bs / sec, tflops=tflops, peak_gb=peak_gb)
-
-
-def host_s_per_step(runner, xs, ys, label, warmup=2, fused=False):
-    """(seconds per step on the host clock, the window's first step), after
-    `warmup` steps, the window closed by a synchronize; the steps through
-    step_loop (per step), or run_steps (fused)."""
-    ep = runner.cfg.epochs - 1
-    steps = runner.run_steps if fused else runner.step_loop
-    steps(ep, xs[:warmup], ys[:warmup], runner.bi)
-    torch.cuda.synchronize()
-    bi0 = runner.bi
-    tic = time.perf_counter()
-    loss_k, _ = steps(ep, xs, ys, bi0)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - tic
-    check(bool(torch.isfinite(loss_k).all()),
-          f"{label}: finite losses in the timed steps")
-    return dt / len(xs), bi0
-
-
 def device_batches(loader):
     """The loader's batches, copied to the card once."""
     return ([torch.from_numpy(x).cuda() for x, _, _ in loader],
             [torch.from_numpy(y).cuda() for _, y, _ in loader])
 
 
-def phase_resnet_step_time(smi, runner, loaders):
-    """The ResNet-101 cSGHMC step on the run's two train batches; then its
-    profile."""
-    big_step_time(smi, "resnet101", runner, *device_batches(loaders[0]),
-                  RESNET_STEPS_TIMED, RESNET_PROFILED_STEPS)
-
-
-def labelled(name, fn):
-    """fn, its calls marked as the piece `name` for the profiler."""
-    from torch.profiler import record_function
-
-    def marked(*args, **kw):
-        with record_function(PIECE + name):
-            return fn(*args, **kw)
-    return marked
-
-
-@contextlib.contextmanager
-def labelled_pieces(runner):
-    """Marks, for the profiler, the pieces of a step that the ViT profile
-    reports on their own: the cast of theta at the unravel (its backward is
-    autograd's ToCopyBackward0 nodes, the unravel's SplitWithSizesBackward0),
-    the per-step lr vector and the moments update (Welford for cSGHMC); for
-    Adam-cSGHMC also its Adam momentum and its SGD step.  The step computes
-    what it computes unmarked."""
-    from bayesdll_tpu_torch.methods import adam_csghmc
-    from bayesdll_tpu_torch.ops import fused
-    target = runner.target
-    marked = dataclasses.replace(target)
-    marked.leaves = labelled("fwd_cast", target.leaves)
-    moments = runner.state.moments
-    adam = runner.method_name == "adam_csghmc"
-    momentum, sgd = fused.adam_sghmc_momentum, adam_csghmc.sgd_step
-
-    runner.target = marked
-    runner.cyclical_lr_vec = labelled("cyclical_lr_vec", runner.cyclical_lr_vec)
-    moments.update = labelled("welford_update" if not adam else
-                              "moments_update", moments.update)
-    if adam:
-        fused.adam_sghmc_momentum = labelled("adam_momentum", momentum)
-        adam_csghmc.sgd_step = labelled("sgd_step", sgd)
-    try:
-        yield
-    finally:
-        runner.target = target
-        del runner.cyclical_lr_vec, moments.update
-        fused.adam_sghmc_momentum, adam_csghmc.sgd_step = momentum, sgd
-
-
-PIECE = "piece: "
-# pieces that run on collect steps only, reported per collect step
-COLLECT_PIECES = ("welford_update", "moments_update")
-# autograd nodes whose device time the ViT profile reports
-PIECE_NODES = ("ToCopyBackward0", "SplitWithSizesBackward0", "UnbindBackward0")
-
-
-def piece_name(key: str):
-    """The piece a profiler event stands for, or None."""
-    if key.startswith(PIECE):
-        return key[len(PIECE):]
-    return next((n for n in PIECE_NODES if key.endswith(n)), None)
-
-
-def collect_steps(runner, bi0: int, n: int) -> int:
-    """How many of the steps bi0 .. bi0 + n - 1 collect a sample."""
-    bi = runner.bi
-    flags = []
-    for k in range(n):
-        runner.bi = bi0 + k
-        flags.append(runner.step_scalars(0)["collect"])
-    runner.bi = bi
-    return sum(flags)
-
-
-def _device_total(e) -> float:
-    us = getattr(e, "device_time_total", None)
-    return e.cuda_time_total if us is None else us
-
-
 def _self_device(e) -> float:
     us = getattr(e, "self_device_time_total", None)
     return e.self_cuda_time_total if us is None else us
-
-
-def phase_profile(smi, what, runner, xs, ys, ms_step, sampler, pieces=False,
-                  bi0=None, fused=False):
-    """Where a training step's device time goes: torch.profiler over a few
-    step_loop (or, fused, run_steps) steps, device time summed by kernel
-    name.  The busy share
-    divides the device time per step by the unprofiled ms/step; the
-    sampler's share is that of the kernels named after `sampler`.  With
-    `pieces`, also the device time under each labelled piece
-    (`labelled_pieces`) and autograd node of PIECE_NODES.  The steps run
-    from step bi0 (default: the runner's next).  Returns the device us per
-    step, or None where the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    bi0 = runner.bi if bi0 is None else bi0
-    collects = collect_steps(runner, bi0, len(xs)) if pieces else 0
-    with contextlib.ExitStack() as stack:
-        if pieces:
-            stack.enter_context(labelled_pieces(runner))
-        prof = stack.enter_context(profile(activities=[
-            ProfilerActivity.CPU, ProfilerActivity.CUDA]))
-        steps = runner.run_steps if fused else runner.step_loop
-        steps(runner.cfg.epochs - 1, xs, ys, bi0)
-        torch.cuda.synchronize()
-    per_kernel, piece_us = {}, {}
-    for e in prof.key_averages():
-        on_card = e.device_type == torch.autograd.DeviceType.CUDA
-        name = piece_name(e.key)
-        if name and not on_card:
-            # a node and its evaluate_function wrapper hold the same
-            # kernels: keep the larger, do not add
-            piece_us[name] = max(piece_us.get(name, 0.0), _device_total(e))
-        if not on_card or e.key.startswith(PIECE):
-            continue
-        per_kernel[e.key] = (per_kernel.get(e.key, 0.0)
-                             + _self_device(e) / len(xs))
-    total = sum(per_kernel.values())
-    if total <= 0:
-        print(f"phase 5: {what}: profiler recorded no device time: "
-              "breakdown not measured", flush=True)
-        return None
-    fam_shares, shares = breakdown(per_kernel)
-    samp = sum(us for name, us in per_kernel.items() if sampler in name)
-    extra = ""
-    if pieces:
-        per = {k: v / max(collects, 1) if k in COLLECT_PIECES else
-               v / len(xs) for k, v in piece_us.items()}
-        extra = "; pieces: " + (", ".join(
-            f"{k} {us:.1f} us/{'collect ' if k in COLLECT_PIECES else ''}"
-            f"step ({us / total:.2%})" for k, us in sorted(per.items()))
-            if any(piece_us.values()) else "not measured (no device time "
-            "under the labels)") + f"; {collects} collect steps of {len(xs)}"
-    print(f"phase 5: [{smi}] {what} profile over {len(xs)} steps: device time "
-          f"{total:.1f} us/step = {total / (ms_step * 1e3):.1%} busy of "
-          f"{ms_step:.3f} ms/step; {sampler} {samp:.1f} us/step "
-          f"({samp / total:.2%} of device time); by family: {fam_shares}; "
-          f"by kernel: {shares}{extra}", flush=True)
-    return total
-
-
-def breakdown(per_kernel: dict):
-    """(by family, top six kernels) of device times keyed by kernel name,
-    as text."""
-    total = sum(per_kernel.values())
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    shares = "; ".join(f"{name[:60]} {us:.1f} us ({us / total:.1%})"
-                       for name, us in top)
-    families = {}
-    for name, us in per_kernel.items():
-        fam = next((f for f, keys in KERNEL_FAMILIES if any(
-            k in name.lower() for k in keys)), "other")
-        families[fam] = families.get(fam, 0.0) + us
-    fam_shares = ", ".join(f"{f} {us / total:.1%}" for f, us in sorted(
-        families.items(), key=lambda kv: -kv[1]))
-    return fam_shares, shares
-
-
-def phase_fisher_profile(label, runner, loader):
-    """Where LA's vmapped Fisher spends its time: the first batch of the
-    training set's eval view through `fisher_accumulate` at the MAP, on the
-    host clock and under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    from bayesdll_tpu_torch.methods.la import fisher_accumulate
-
-    x, y, v = next(iter(loader.eval_view()))
-    xd, yd, vd = (runner._to_device(a) for a in (x, y, v))
-    prec = torch.zeros_like(runner.map_theta)
-
-    def run():
-        with torch.no_grad():
-            fisher_accumulate(runner.target, runner.map_theta,
-                              runner.net_state, prec, xd, yd.long(), vd,
-                              runner.fisher_microbatch)
-        torch.cuda.synchronize()
-
-    run()
-    tic = time.perf_counter()
-    run()
-    host_ms = (time.perf_counter() - tic) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    per_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            per_kernel[e.key] = e.self_cuda_time_total if us is None else us
-    total = sum(per_kernel.values())
-    if total <= 0:
-        print(f"phase 5: {label} Fisher: profiler recorded no device time: "
-              "breakdown not measured", flush=True)
-        return
-    fam_shares, shares = breakdown(per_kernel)
-    print(f"phase 5: [{CARD}] {label} Fisher, one batch of {len(y)} examples "
-          f"in microbatches of {runner.fisher_microbatch}: {host_ms:.2f} ms on "
-          f"the host clock, device time {total / 1e3:.2f} ms "
-          f"({total / 1e3 / host_ms:.1%} busy); by family: {fam_shares}; by "
-          f"kernel: {shares}", flush=True)
-
-
-# kernel families of the profile, by substrings of the kernel's name, the
-# first that matches
-KERNEL_FAMILIES = (
-    ("sampler", ("_update_kernel",)),
-    ("attention", ("flash", "fmha", "sdpa", "attention", "attn")),
-    ("layer norm", ("layer_norm", "layernorm")),
-    ("batch norm", ("batch_norm",)),
-    ("conv and gemm", ("conv", "gemm", "xmma", "cutlass", "cudnn", "wgrad",
-                       "dgrad", "fprop", "sm90_", "nvjet")),
-    ("elementwise", ("elementwise",)),
-    ("reduce", ("reduce",)),
-    ("pooling", ("pool",)),
-    ("copy and cat", ("cat", "copy", "stack")),
-)
 
 
 # ---- ViT-L/32 ---------------------------------------------------------------
@@ -1458,29 +1134,6 @@ def phase_vit_reference():
           f"'names' gradient vs no remat on the card: max abs err {gerr:.3g} "
           f"({'bitwise equal' if gerr == 0 else 'within rtol 1e-5'})",
           flush=True)
-
-
-def phase_vit_steps(smi, runner, xs, ys):
-    """ViT-L/32's step without remat and with remat_policy="names" (the
-    setting the JAX sweep ran), on the run's batches already on the card;
-    each with its profile."""
-    from bayesdll_tpu_torch.models import create_backbone
-
-    out = {"vit_l_32": big_step_time(smi, "vit_l_32", runner, xs, ys,
-                                     VIT_STEPS, VIT_STEPS)}
-    # the same runner through a module built with remat: the module holds
-    # no weights, so only the forward changes and the peaks compare
-    cfg, target = runner.cfg, runner.target
-    model, _, _ = create_backbone("vit_l_32", num_classes=cfg.num_classes,
-                                  **dict(cfg.backbone_kw(), remat=True,
-                                         remat_policy="names"))
-    runner.target = dataclasses.replace(target, module=model)
-    try:
-        out["vit_l_32 remat names"] = big_step_time(
-            smi, "vit_l_32 remat names", runner, xs, ys, VIT_STEPS, VIT_STEPS)
-    finally:
-        runner.target = target
-    return out
 
 
 # swinv2_l_w24_384.sample's window attention at batch 64, head width 32,
@@ -1690,25 +1343,6 @@ def phase_window_attention(smi) -> list:
         "op_ms": step["ms"], "bound_ms": step["bound_ms"],
         "library_ms": step["library_ms"], "plain_ms": step["plain_ms"],
     } for name in wa.KERNELS]
-
-
-def phase_vit_b_16(smi, cfg, nd_size, sched, xs, ys):
-    """ViT-B/16 (197 tokens) at batch 128, with the ViT-L/32 run's config
-    and batches, alone on the card."""
-    from bayesdll_tpu_torch.core.prior import make_flat_target
-    from bayesdll_tpu_torch.methods import get_runner_cls
-    from bayesdll_tpu_torch.models import create_backbone
-
-    cfg = dataclasses.replace(cfg, backbone="vit_b_16")
-    model, _, _ = create_backbone("vit_b_16", num_classes=cfg.num_classes,
-                                  **cfg.backbone_kw())
-    target, theta, ns = make_flat_target(
-        model, nd_size=nd_size, num_classes=cfg.num_classes,
-        rng=torch.Generator().manual_seed(0), device="cuda")
-    runner = get_runner_cls("csghmc")(target, theta, ns, cfg)
-    runner.sched = sched
-    return big_step_time(smi, "vit_b_16", runner, xs, ys, VIT_STEPS,
-                         VIT_STEPS)
 
 
 # ---- the other seven methods ------------------------------------------------
@@ -1981,7 +1615,6 @@ def phase_la_resnet50():
           f"nll={res['nll']:.4f} ece={res['ece']:.4f} mce={res['mce']:.4f} "
           f"test_err={res['test_err']:.4f} (chance 0.9); {shown}",
           flush=True)
-    phase_fisher_profile("la resnet50", runner, loaders[0])
     return counts
 
 
@@ -2058,24 +1691,6 @@ def phase_fisher_reference():
           f"and one padded: vmapped Fisher (microbatch 4 and a remainder) vs "
           f"the one-example loop on the card: max rel err {rel:.3g} (rtol "
           f"2e-3, atol 1e-6 of max {scale:.3g})", flush=True)
-
-
-def phase_vit_adam_step(smi, vit, xs, ys):
-    """The ViT-L/32 Adam-cSGHMC step beside the cSGHMC step: the same
-    target, config and batches (bf16, batch 128), the smoke matrix's Adam
-    hparams; its profile gives the Adam momentum's and the SGD step's own
-    device time."""
-    from bayesdll_tpu_torch.config import parse_hparams
-    from bayesdll_tpu_torch.methods import get_runner_cls
-
-    hp = {**vit.cfg.hparams, **parse_hparams(SMOKE["adam_csghmc"][0]),
-          "perform_cold_restarts": "0"}
-    cfg = dataclasses.replace(vit.cfg, method="adam_csghmc", hparams=hp)
-    runner = get_runner_cls("adam_csghmc")(vit.target, vit.state.theta,
-                                           vit.net_state, cfg)
-    runner.sched = vit.sched
-    return big_step_time(smi, "vit_l_32", runner, xs, ys, VIT_STEPS,
-                         VIT_STEPS, sampler="philox_draw")
 
 
 # ---- multi-chain runs ---------------------------------------------------------
@@ -2251,24 +1866,6 @@ def phase_chain_reference(method, hp, fields, momentum=0.0):
           f"{float((a - b).abs().max()):.4g}", flush=True)
 
 
-class ChainSteps:
-    """A multi-chain trainer in the shape the step timers take (cfg, bi,
-    step_loop and run_steps over [K, C, B, ...] batches)."""
-
-    def __init__(self, trainer):
-        self.trainer, self.cfg = trainer, trainer.runner.cfg
-
-    @property
-    def bi(self):
-        return self.trainer.bi
-
-    def step_loop(self, ep, xs, ys, bi0):
-        return self.trainer.step_loop(ep, xs, ys, bi0)
-
-    def run_steps(self, ep, xs, ys, bi0):
-        return self.trainer.run_steps(ep, xs, ys, bi0)
-
-
 def stacked_batches(loader, steps: int):
     """The loader's first `steps` batches on the card, [K, B, ...] (repeated
     where the loader has fewer)."""
@@ -2280,41 +1877,6 @@ def stacked_batches(loader, steps: int):
     ys = [ys[i % len(ys)] for i in range(steps)]
     return (torch.from_numpy(np.stack(xs)).cuda(),
             torch.from_numpy(np.stack(ys)).cuda())
-
-
-def phase_chain_step_time(smi, runner, loaders):
-    """The full-width MLP cSGHMC step (batch 128, fp32) on one chain and on
-    two chains in turns (1, 2, 2, 1), step_loop over the same batches (the
-    second chain's shifted by one step); host ms/step and the profile's
-    device us/step of each."""
-    from bayesdll_tpu_torch.parallel import MultiChainTrainer
-    trainer = MultiChainTrainer(runner, N_CHAINS)
-    two = ChainSteps(trainer)
-    xs, ys = stacked_batches(loaders[0], STEPS_TIMED)
-    xs2 = torch.stack([xs, xs.roll(1, dims=0)], 1)
-    ys2 = torch.stack([ys, ys.roll(1, dims=0)], 1)
-    host = {1: [], 2: []}
-    for n in (1, 2, 2, 1):
-        steps = (runner, xs, ys) if n == 1 else (two, xs2, ys2)
-        host[n].append(host_s_per_step(*steps, f"csghmc {n} chain")[0] * 1e3)
-    ms = {n: sum(v) / len(v) for n, v in host.items()}
-    dev = {1: phase_profile(smi, "csghmc mlp_mnist 1 chain", runner,
-                            xs[:PROFILED_STEPS], ys[:PROFILED_STEPS], ms[1],
-                            "csghmc_update"),
-           2: phase_profile(smi, f"csghmc mlp_mnist {N_CHAINS} chains", two,
-                            xs2[:PROFILED_STEPS], ys2[:PROFILED_STEPS], ms[2],
-                            "csghmc_update")}
-    shown = "; ".join(
-        f"{n} chain{'s' * (n > 1)}: host {ms[n]:.3f} ms/step "
-        f"{[round(t, 3) for t in host[n]]}, device "
-        + (f"{dev[n]:.1f} us/step" if dev[n] else "not measured")
-        for n in (1, 2))
-    ratio = (f"; device ratio {dev[2] / dev[1]:.3f}" if dev[1] and dev[2]
-             else "")
-    print(f"phase 4: [{smi}] csghmc training step mlp_mnist batch "
-          f"{xs.shape[1]}, {STEPS_TIMED} step_loop steps, in turns 1, 2, 2, "
-          f"1 chains: {shown}; host ratio {ms[2] / ms[1]:.3f}{ratio}",
-          flush=True)
 
 
 # tools/tpu_smoke_all_methods.py:52-71 (BIG_CONFIGS), through the port's
@@ -2341,7 +1903,6 @@ BIG_CONFIGS = {
 # classes, so the numbers compare in kind only)
 BIGSMOKE = {"csghmc_multichain_gmm": (3.3885, 0.8984),
             "la_multichain_fisher": (1.4567e17, 0.918)}
-RESNET50_STEPS_TIMED = 6
 
 
 def bn_differs(a, b) -> bool:
@@ -2480,26 +2041,6 @@ def phase_big_chains(smi, name):
     return mc, counts
 
 
-def phase_resnet50_chain_step_time(smi, mc):
-    """The 2-chain ResNet-50 cSGHMC step (bf16, batch 32) through the
-    trainer's step_loop on batches already on the card: host ms/step, then
-    its profile."""
-    from bayesdll_tpu_torch.models import create_backbone
-    _, in_shape, _ = create_backbone("resnet50")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    k = RESNET50_STEPS_TIMED
-    xs = torch.randn((k, N_CHAINS, 32, *in_shape), generator=gen,
-                     device="cuda")
-    ys = torch.randint(0, 10, (k, N_CHAINS, 32), generator=gen, device="cuda")
-    steps = ChainSteps(mc.trainer)
-    sec, bi0 = host_s_per_step(steps, xs, ys, "csghmc resnet50 2 chains")
-    print(f"phase 4: [{smi}] csghmc training step resnet50 bf16 batch 32, "
-          f"{N_CHAINS} chains: {sec * 1e3:.2f} ms/step over {k} step_loop "
-          f"steps ({sec * 1e3 / N_CHAINS:.2f} ms per chain step)", flush=True)
-    phase_profile(smi, f"csghmc resnet50 {N_CHAINS} chains", steps, xs[:2],
-                  ys[:2], sec * 1e3, "csghmc_update", bi0=bi0)
-
-
 # ---- phase 6: the fused path (fused_steps) ---------------------------------
 
 # the eleven methods the fused path serves; the kernel each one's step
@@ -2508,15 +2049,10 @@ FUSED_KERNEL = {"csghmc": "csghmc_update", "sgld": "sgld_update",
                 "sghmc": "sghmc_update", "csgld": "sgld_update",
                 "csghmc_fs": "csghmc_update", "vanilla": None, "la": None,
                 **{m: "philox_draw" for m in DRAWS}}
-# the four drawing methods' fused MLP steps against their per-step loops:
-# steps a window, and the windows in turns (per step, fused)
-DRAW_K = 50
-DRAW_TURNS = (False, True, True, False)
 FUSED_K = 10  # the replayed segment the profiler traces
-HEADLINE_K = 100  # bench.py:128-140: run_steps with K = 100
-HEADLINE_TURNS = (False, True, True, False, False, True)  # per step, fused
-# (seed, step, gate) at which the pointer entry points are held to the
-# by-value ones: a seed past 2^63 and a step past 2^32 included
+# (seed, step, gate) at which the kernels, reading them from their row, are
+# held to their plain versions: a seed past 2^63 and a step past 2^32
+# included
 DEV_POINTS = ((7, 11, True), (2**63 + 12345, 2**33 + 5, True),
               (123456789, 1, False), (0, 0, True))
 
@@ -2595,13 +2131,6 @@ def phase_fused_path(method, ref, ref_loaders):
     return runner, loaders
 
 
-def capture_seconds(runner) -> float:
-    """Host seconds the runner's fused path has spent on its eager steps
-    and captures."""
-    graph = runner._step_graphs.get(runner.seed)
-    return 0.0 if graph is None else graph.capture_s
-
-
 def phase_fused_trace(smi, method, runner, loaders):
     """(e) torch.profiler over one replayed segment of FUSED_K steps of a
     runner whose graph exists: on the host one cudaGraphLaunch per step and
@@ -2641,63 +2170,6 @@ def phase_fused_trace(smi, method, runner, loaders):
           f"aten::addmm/mm/index_select dispatched {n['dispatch']} times, "
           f"cudaLaunchKernel {n['launch']} times (the segment's copies in "
           "and out)", flush=True)
-
-
-def phase_fused_headline(smi, runner, loaders, label, k=HEADLINE_K,
-                         turns=HEADLINE_TURNS, sampler="csghmc_update"):
-    """(b) The JAX bench's headline form (bench.py:128-140): the runner's
-    step (cSGHMC on the full-width MLP, batch 128) as run_steps with K = k
-    (HEADLINE_K), against step_loop over the same batches, in turns
-    (`turns`, per step or fused): host ms/step, device us/step from CUDA
-    events around each window and from the profiler, the busy share
-    (profiler device time over host time) and the capture seconds; the
-    kernels named after `sampler` in the profile."""
-    method = runner.method_name
-    xs, ys = stacked_batches(loaders[0], k)
-    ep = runner.cfg.epochs - 1
-    runner.step_loop(ep, xs[:5], ys[:5], runner.bi)  # warm
-    capture_s = capture_seconds(runner)
-    runner.run_steps(ep, xs, ys, runner.bi)  # the captures
-    torch.cuda.synchronize()
-    capture_s = capture_seconds(runner) - capture_s
-
-    def window(fused):
-        steps = runner.run_steps if fused else runner.step_loop
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        start.record()
-        loss, _ = steps(ep, xs, ys, runner.bi)
-        end.record()
-        torch.cuda.synchronize()
-        host = (time.perf_counter() - tic) / k
-        check(bool(torch.isfinite(loss).all()), f"{label}: finite losses")
-        return host * 1e3, start.elapsed_time(end) / k * 1e3
-
-    out = {False: [], True: []}
-    for fused in turns:
-        out[fused].append(window(fused))
-    text = []
-    for fused in (False, True):
-        host = [h for h, _ in out[fused]]
-        events = [d for _, d in out[fused]]
-        ms = sum(host) / len(host)
-        prof = phase_profile(smi, f"{method} {label} "
-                             f"{'fused' if fused else 'per step'}", runner,
-                             xs[:2 * FUSED_K], ys[:2 * FUSED_K], ms, sampler,
-                             fused=fused)
-        text.append(
-            f"{'fused K=' + str(k) if fused else 'per step'}: host "
-            f"{[round(h, 4) for h in host]} ms/step, CUDA events "
-            f"{[round(d, 1) for d in events]} us/step, profiler "
-            + (f"{prof:.1f} us/step, busy {prof / (ms * 1e3):.1%}" if prof
-               else "not measured"))
-    print(f"phase 6b: [{smi}] {method} {label} batch {xs.shape[1]}, "
-          f"{k} steps a window, in turns: {'; '.join(text)}; "
-          f"captures {capture_s:.3f} s (an eager step and the capture, for "
-          "each graph)",
-          flush=True)
 
 
 def phase_fused_chain_path(method, ref, ref_loaders):
@@ -2740,136 +2212,63 @@ def phase_fused_chain_path(method, ref, ref_loaders):
           f"test_err={res['test_err']:.4f}", flush=True)
 
 
-def dev_kernel(name, args, dev, *, n_eff):
-    """The pointer entry point of `name` on copies of `args` (csghmc:
-    (g, theta, v, lr); the others sg_operands' order)."""
-    from bayesdll_tpu_torch.ops import kernels
-    a = [t.clone() for t in args]
-    if name == "csghmc_update":
-        kernels.csghmc_update_dev(
-            *a, dev, prior_sig=1.0, alpha=0.05,
-            noise_pref=kernels.noise_prefactor(1.0, 0.05, n_eff))
-        return a[1], a[2]
-    out = getattr(kernels, f"{name}_dev")(*a, dev, prior_sig=1.0, n_eff=n_eff,
-                                          nd=1.0, **SG_ALPHA[name])
-    return out if isinstance(out, tuple) else (out,)
-
-
-def value_kernel(name, args, seed, step, gate, *, n_eff):
-    """The by-value entry point on copies of `args`, as dev_kernel."""
-    from bayesdll_tpu_torch.ops import kernels
-    a = [t.clone() for t in args]
-    if name == "csghmc_update":
-        kernels.csghmc_update(
-            *a, prior_sig=1.0, alpha=0.05,
-            noise_pref=kernels.noise_prefactor(1.0, 0.05, n_eff), gate=gate,
-            seed=seed, step=step)
-        return a[1], a[2]
-    return sg_kernel(name, args, nd=1.0, n_eff=n_eff, seed=seed, step=step)
-
-
-def phase_fused_kernels(smi, target, label, flush):
-    """(e) Each kernel's pointer entry point against its by-value entry
-    point at `target`'s D, bitwise with noise on at each of DEV_POINTS, and
-    against the plain version at nd = 0 (csghmc bitwise, the others within
-    TOL as phase 2); then its time, L2 flushed before each launch.  Returns
-    {kernel: us} of the pointer entry point."""
-    from bayesdll_tpu_torch.ops import fused, kernels
+def phase_kernels_at_dev_points(smi, target, label):
+    """(e) Each update kernel at `target`'s D, noise on, at each (seed, step,
+    gate) of DEV_POINTS read from its row, against its plain version handed
+    the kernel's normals (`philox_draw_plain` of the kernel's stream in the
+    kernel's fp32 arithmetic, as phase 6e holds philox_draw to it) on the
+    windows of `draw_windows`: within TOL, as phase 2 holds the kernels,
+    and csghmc bitwise where its gate is 0.  Returns the max abs error of
+    each."""
+    from bayesdll_tpu_torch.ops import fused
     n_eff = 1000.0
-    g, theta, v, lr = csghmc_inputs(target)
-    vecs = sg_inputs(target)
-    operands = {"csghmc_update": (g, theta, v, lr),
-                **{n: sg_operands(n, *vecs) for n in SG_ALPHA}}
-    out = {}
+    operands = {"csghmc_update": csghmc_inputs(target),
+                **{n: sg_operands(n, *sg_inputs(target)) for n in SG_ALPHA}}
+    errs = {}
     for name, args in operands.items():
+        err = 0.0
         for seed, step, gate in DEV_POINTS:
-            dev = kernels.dev_scalars(seed, step, gate)
-            a = dev_kernel(name, args, dev, n_eff=n_eff)
-            b = value_kernel(name, args, seed, step, gate, n_eff=n_eff)
-            check(all(torch.equal(x, y) for x, y in zip(a, b)),
-                  f"{name} pointer vs by-value at D={target.dim}, (seed, "
-                  f"step, gate) = {(seed, step, gate)}")
-        # nd = 0 (csghmc: gate 0) against the plain version
-        dev = kernels.dev_scalars(7, 11, False)
-        if name == "csghmc_update":
-            c = [t.clone() for t in args]
-            kernels.csghmc_update_dev(*c, dev, prior_sig=1.0, alpha=0.05,
-                                      noise_pref=0.0)
-            want = fused.csghmc_update(*args[:3], prior_sig=1.0, n_eff=n_eff,
-                                       nd=0.0, alpha=0.05, lr=args[3],
-                                       should_sample=False)
-            got = (c[1], c[2])
-            ok = all(torch.equal(x, y) for x, y in zip(got, want))
-        else:
-            c = [t.clone() for t in args]
-            got = getattr(kernels, f"{name}_dev")(*c, dev, prior_sig=1.0,
-                                                  n_eff=n_eff, nd=0.0,
-                                                  **SG_ALPHA[name])
-            got = got if isinstance(got, tuple) else (got,)
-            want = sg_plain(name, args, nd=0.0, n_eff=n_eff)
-            ok = all(torch.allclose(x, y, **TOL) for x, y in zip(got, want))
-        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
-        check(ok, f"{name} pointer entry vs plain at nd=0: max abs err {err}")
-        step = [0]
-        dev_t = kernels.dev_scalars(0, 1, True)
-
-        def launch(name=name, args=args, dev_t=dev_t):
-            step[0] += 1
             if name == "csghmc_update":
-                kernels.csghmc_update_dev(
-                    *args, dev_t, prior_sig=1.0, alpha=0.05,
-                    noise_pref=kernels.noise_prefactor(1.0, 0.05, n_eff))
+                got = csghmc_kernel(args, nd=1.0, gate=gate, n_eff=n_eff,
+                                    seed=seed, step=step)
             else:
-                getattr(kernels, f"{name}_dev")(*args, dev_t, prior_sig=1.0,
-                                                n_eff=n_eff, nd=1.0,
-                                                **SG_ALPHA[name])
-        out[name] = cuda_ms_cold(launch, 100, flush) * 1e3
-        print(f"phase 6e: [{smi}] {name} pointer entry point at D="
-              f"{target.dim} ({label}): bitwise equal to the by-value entry "
-              f"point with noise on at (seed, step, gate) in {DEV_POINTS}; "
-              f"vs plain at nd=0 max abs err {err:.3g}; "
-              f"{out[name]:.2f} us a launch, L2 flushed before each",
+                got = sg_kernel(name, args, nd=1.0, n_eff=n_eff, seed=seed,
+                                step=step)
+            for lo, hi in draw_windows(target.dim):
+                z = fused.philox_draw_plain(
+                    hi - lo, kind="normal", stream=KERNEL_STREAM[name],
+                    seed=seed, step=step, device="cuda", offset=lo,
+                    fp32=True)
+                part = [t[lo:hi] for t in args]
+                if name == "csghmc_update":
+                    want = fused.csghmc_update(
+                        *part[:3], prior_sig=1.0, n_eff=n_eff, nd=1.0,
+                        alpha=0.05, lr=part[3], should_sample=gate, noise=z)
+                else:
+                    want = sg_plain(name, part, nd=1.0, n_eff=n_eff, noise=z)
+                pairs = [(x[lo:hi], y) for x, y in zip(got, want)]
+                e = max(float((x - y).abs().max()) for x, y in pairs)
+                err = max(err, e)
+                exact = name == "csghmc_update" and not gate
+                check(all(torch.equal(x, y) if exact else
+                          torch.allclose(x, y, **TOL) for x, y in pairs),
+                      f"{name} vs plain with its normals at D={target.dim} "
+                      f"[{lo}, {hi}), (seed, step, gate) = "
+                      f"{(seed, step, gate)}: max abs err {e}")
+            del got
+        errs[name] = err
+        print(f"phase 6e: [{smi}] {name} at D={target.dim} ({label}), "
+              f"(seed, step, gate) from its row at each of {DEV_POINTS}: "
+              f"vs plain with the kernel's normals max abs err {err:.3g} "
+              f"(rtol=atol=1e-6"
+              + ("; bitwise at gate 0)" if name == "csghmc_update" else ")"),
               flush=True)
-    del g, theta, v, lr, vecs, operands
+    del operands, args
     free_device()
-    return out
+    return errs
 
 
-def fused_vit_times(smi, runner, xs, ys, label, per_step_ms):
-    """The ViT-L/32 step of `runner` fused on the run's batches (VIT_STEPS
-    steps a window, twice), beside `per_step_ms`, phase 4's per-step time
-    of the same step in this run: host ms/step, the fused profile's device
-    us/step and busy share, the capture seconds, and peak device memory
-    with the fused path (from before its captures: max_memory_allocated
-    and max_memory_reserved, the graphs' pool included)."""
-    xs = [xs[i % len(xs)] for i in range(VIT_STEPS)]
-    ys = [ys[i % len(ys)] for i in range(VIT_STEPS)]
-    xs, ys = torch.stack(xs), torch.stack(ys)
-    free_device()
-    torch.cuda.reset_peak_memory_stats()
-    capture_s = capture_seconds(runner)
-    runner.run_steps(runner.cfg.epochs - 1, xs, ys, runner.bi)  # captures
-    torch.cuda.synchronize()
-    capture_s = capture_seconds(runner) - capture_s
-    host = [host_s_per_step(runner, xs, ys, label, fused=True)[0] * 1e3
-            for _ in range(2)]
-    peak = (torch.cuda.max_memory_allocated() / 1e9,
-            torch.cuda.max_memory_reserved() / 1e9)
-    ms = sum(host) / len(host)
-    dev = phase_profile(smi, f"csghmc {label} fused", runner, xs, ys, ms,
-                        "csghmc_update", fused=True)
-    print(f"phase 6d: [{smi}] csghmc {label} bf16 batch "
-          f"{runner.cfg.batch_size}, {VIT_STEPS} steps a window: fused "
-          f"{[round(t, 2) for t in host]} ms/step (per step, phase 4: "
-          f"{per_step_ms:.2f}); fused device "
-          + (f"{dev:.1f} us/step, busy {dev / (ms * 1e3):.1%}"
-             if dev else "not measured")
-          + f"; captures {capture_s:.2f} s; peak device memory with the "
-          f"fused path {peak[0]:.2f} GB allocated, {peak[1]:.2f} GB "
-          "reserved", flush=True)
-
-
-def phase_fused_vit(smi, vit, loaders, xs, ys, per_step):
+def phase_fused_vit(vit, loaders):
     """(d) ViT-L/32 cSGHMC at full width with fused_steps (the path's
     config, at its depth; K = 3 under the 256 MiB window): through `train`, no
     checkpoints; training and test error below 0.5; the kernel launched
@@ -2877,10 +2276,7 @@ def phase_fused_vit(smi, vit, loaders, xs, ys, per_step):
     per-step runs (the path's, and one more here without checkpoints):
     attention's backward need not be deterministic, so the gate is that
     the fused run lies no farther from the first per-step run than twice
-    the largest gap between the two per-step runs, plus 1e-6 of the loss.
-    Then its step without remat and with remat "names", fused, beside
-    `per_step` (phase_vit_steps' results) (fused_vit_times)."""
-    from bayesdll_tpu_torch.models import create_backbone
+    the largest gap between the two per-step runs, plus 1e-6 of the loss."""
     ref = vit.results["train_losses"]
     second, sl = make_runner(vit.cfg, loaders=loaders)
     tic = time.perf_counter()
@@ -2916,16 +2312,6 @@ def phase_fused_vit(smi, vit, loaders, xs, ys, per_step):
     check(gap <= 2 * spread + 1e-6 * max(abs(x) for x in ref),
           f"vit_l_32 fused: per-epoch losses {gap} from the per-step run's, "
           f"spread of two per-step runs {spread}")
-    fused_vit_times(smi, runner, xs, ys, "vit_l_32",
-                    per_step["vit_l_32"]["ms"])
-    cfg, target = runner.cfg, runner.target
-    model, _, _ = create_backbone("vit_l_32", num_classes=cfg.num_classes,
-                                  **dict(cfg.backbone_kw(), remat=True,
-                                         remat_policy="names"))
-    runner.target = dataclasses.replace(target, module=model)
-    fused_vit_times(smi, runner, xs, ys, "vit_l_32 remat names",
-                    per_step["vit_l_32 remat names"]["ms"])
-    runner.target = target
     del runner
     free_device()
 
@@ -2968,128 +2354,6 @@ def draw_windows(dim: int):
     return [(0, DRAW_WINDOW), (tail, dim)]
 
 
-# the commit before's csrc/, where it has been copied (build/ is in
-# .gitignore): phase_draw_sass compiles it beside csrc/ to show what changed
-PARENT_CSRC = SCRATCH / "parent_csrc"
-# one Box-Muller pair, and the same loads and stores without it: the
-# difference of their SASS is the pair's instruction count
-BOX_MULLER_PROBE = r"""
-#include <cstdint>
-#include "normal_from_bits.cuh"
-extern "C" __global__ void bm_probe(const uint2* in, float2* out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float z0, z1;
-  bdl::box_muller(in[i].x, in[i].y, z0, z1);
-  out[i] = make_float2(z0, z1);
-}
-extern "C" __global__ void bm_copy(const uint2* in, float2* out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  out[i] = make_float2(__uint_as_float(in[i].x), __uint_as_float(in[i].y));
-}
-"""
-
-
-def kernel_label(mangled: str) -> str:
-    """philox_draw_kernel<dev, kind, quads>'s template arguments, read from
-    its mangled name (the commit before's kernel has only the first)."""
-    m = re.search(r"philox_draw_kernelILb(\d)E(?:Li(\d)E)?(?:Li(\d+)E)?",
-                  mangled)
-    if m is None:
-        return mangled
-    entry = "pointer" if m[1] == "1" else "by value"
-    kind = {None: "either kind", "0": "normal", "1": "uniform"}[m[2]]
-    return f"{entry}, {kind}" + (f", {m[3]} quads" if m[3] else "")
-
-
-def sass_counts(cuobjdump: str, cubin: Path) -> dict:
-    """Instructions (NOPs left out) and MUFUs of each function in cubin."""
-    text = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
-    counts, fn = {}, None
-    for line in text.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = {"instructions": 0, "mufu": 0}
-            continue
-        parts = line.split("*/")
-        if fn is None or len(parts) < 2 or not line.strip().startswith("/*"):
-            continue
-        words = parts[1].split()
-        if words and words[0].startswith("@"):  # a predicate, then the opcode
-            words = words[1:]
-        op = words[0] if words else ""
-        if op[:1].isupper() and not op.startswith("NOP"):
-            counts[fn]["instructions"] += 1
-            counts[fn]["mufu"] += op.startswith("MUFU")
-    return counts
-
-
-def phase_draw_sass(smi) -> dict:
-    """philox_draw's registers and spills for each instantiation (nvcc
-    -Xptxas -v) and the SASS instructions of one Box-Muller pair and of each
-    kernel (cuobjdump -sass, where the toolkit has it), for csrc/ and, where
-    PARENT_CSRC holds them, for the commit before's sources: all compiles
-    started together.  Returns {"after": ..., "before": ... or None}."""
-    from bayesdll_tpu_torch.ops import kernels
-    nvcc = kernels._nvcc()
-    cuobjdump = shutil.which("cuobjdump") or str(Path(nvcc).with_name(
-        "cuobjdump"))
-    flags = [f for f in kernels.NVCC_FLAGS
-             if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    trees = {"after": kernels.CSRC}
-    if (PARENT_CSRC / "philox_draw.cu").exists():
-        trees["before"] = PARENT_CSRC
-    jobs = {}
-    for tag, csrc in trees.items():
-        out = SCRATCH / "sass" / tag
-        out.mkdir(parents=True, exist_ok=True)
-        (out / "bm_probe.cu").write_text(BOX_MULLER_PROBE)
-        for src in (csrc / "philox_draw.cu", out / "bm_probe.cu"):
-            cubin = out / f"{src.stem}.cubin"
-            jobs[tag, src.stem] = (cubin, subprocess.Popen(
-                [nvcc, *flags, "-cubin", "-Xptxas", "-v", "-I", str(csrc),
-                 "-o", str(cubin), str(src)], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-    report = {"after": None, "before": None}
-    for (tag, stem), (cubin, proc) in jobs.items():
-        log, _ = proc.communicate(timeout=300)
-        check(proc.returncode == 0, f"nvcc -cubin {tag} {stem}:\n{log}")
-        entry = report[tag] = report[tag] or {"ptxas": {}, "sass": {}}
-        fn = None
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                fn = line.split("'")[1]
-            elif fn and "Used" in line and "registers" in line:
-                entry["ptxas"].setdefault(kernel_label(fn), {})["registers"] = \
-                    int(line.split("Used")[1].split()[0])
-            elif fn and "spill stores" in line:
-                nums = [int(w) for w in line.replace(",", " ").split()
-                        if w.isdigit()]
-                entry["ptxas"].setdefault(kernel_label(fn), {}).update(
-                    stack_bytes=nums[0], spill_store_bytes=nums[1],
-                    spill_load_bytes=nums[2])
-        if os.path.exists(cuobjdump):
-            entry["sass"].update({kernel_label(f): c for f, c in
-                                  sass_counts(cuobjdump, cubin).items()})
-    for tag in ("before", "after"):
-        entry = report[tag]
-        if entry is None:
-            print(f"phase 6e: philox_draw {tag}: no sources at {PARENT_CSRC}",
-                  flush=True)
-            continue
-        sass = entry["sass"]
-        if "bm_probe" in sass:
-            entry["box_muller_pair_instructions"] = \
-                sass["bm_probe"]["instructions"] - sass["bm_copy"]["instructions"]
-        print(f"phase 6e: [{smi}] philox_draw {tag} (sm_90a): ptxas "
-              f"{entry['ptxas']}; SASS "
-              f"{ {k: v for k, v in sass.items() if k != 'bm_copy'} or 'cuobjdump absent'}; "
-              f"one Box-Muller pair "
-              f"{entry.get('box_muller_pair_instructions', 'not counted')} "
-              f"instructions", flush=True)
-    return report
-
-
 def ulp_diffs(a: torch.Tensor, b: torch.Tensor):
     """(elements that differ, the largest difference in ulps) of two fp32
     tensors of values of one sign, compared as integers."""
@@ -3098,21 +2362,20 @@ def ulp_diffs(a: torch.Tensor, b: torch.Tensor):
 
 
 def phase_draw_kernel(smi, dim: int, label: str, flush):
-    """(e) philox_draw at D = dim: its pointer entry point bitwise equal to
-    its by-value entry point at each of DEV_POINTS, for each draw; each
-    against its plain version (uniforms bitwise, normals within DRAW_TOL of
-    float64 Box-Muller, and against the kernel's own fp32 arithmetic run in
-    torch ops, `philox_draw_plain(fp32=True)`: bitwise, or within an ulp
-    where MUFU.RSQ rounds r otherwise, the differing elements counted); the
+    """(e) philox_draw at D = dim, (seed, step) read from its row at each
+    of DEV_POINTS, for each draw: against its plain version (uniforms
+    bitwise, normals within DRAW_TOL of float64 Box-Muller, and against the
+    kernel's own fp32 arithmetic run in torch ops,
+    `philox_draw_plain(fp32=True)`: bitwise, or within an ulp where
+    MUFU.RSQ rounds r otherwise, the differing elements counted); the
     moments (normal mean within 0.01 and std within 2% of 1; uniforms in
     [0, 1) with mean within 0.01 of 0.5); the VI and Adam draws at one
     (seed, step) uncorrelated (|r| < 0.01).  Then its times with L2
-    flushed before each launch, twice in turns: by value (normal and
-    uniform), by pointer, the plain version, and torch.randn(D,
-    generator=g) and torch.rand(D, generator=g) on the card (the same
-    distributions, other bits) as the library calls; the normal draw's
-    ratio to the uniform one and its share of the bound.  Returns the
-    kernel's record."""
+    flushed before each launch, twice in turns: normal and uniform, the
+    plain version, and torch.randn(D, generator=g) and torch.rand(D,
+    generator=g) on the card (the same distributions, other bits) as the
+    library calls; the normal draw's ratio to the uniform one and its share
+    of the bound.  Returns the kernel's record."""
     from bayesdll_tpu_torch.ops import fused, kernels
     streams = {"vi": (kernels.STREAM_VI, "normal"),
                "adam": (kernels.STREAM_ADAM, "normal"),
@@ -3123,11 +2386,7 @@ def phase_draw_kernel(smi, dim: int, label: str, flush):
     for seed, step, gate in DEV_POINTS:
         dev = kernels.dev_scalars(seed, step, gate)
         for name, (sid, kind) in streams.items():
-            a = kernels.philox_draw_dev(like, dev, kind=kind, stream=sid)
-            b = kernels.philox_draw(like, kind=kind, stream=sid, seed=seed,
-                                    step=step)
-            check(torch.equal(a, b), f"philox_draw {name} pointer vs "
-                  f"by-value at D={dim}, (seed, step) = {(seed, step)}")
+            a = kernels.philox_draw(like, dev, kind=kind, stream=sid)
             for lo, hi in draw_windows(dim):
                 kw = dict(kind=kind, stream=sid, seed=seed, step=step,
                           device="cuda", offset=lo)
@@ -3147,10 +2406,9 @@ def phase_draw_kernel(smi, dim: int, label: str, flush):
                           f"arithmetic at D={dim} [{lo}, {hi}), (seed, step) "
                           f"= {(seed, step)}: {n_diff} differ, by up to "
                           f"{ulps} ulps")
-            del a, b, want
-    seed, step = DEV_POINTS[1][:2]
-    z = {n: kernels.philox_draw(like, kind=k, stream=sid, seed=seed,
-                                step=step)
+            del a, want
+    dev = kernels.dev_scalars(*DEV_POINTS[1])
+    z = {n: kernels.philox_draw(like, dev, kind=k, stream=sid)
          for n, (sid, k) in streams.items()}
     mean = float(torch.mean(z["vi"], dtype=torch.float64))
     std = float(torch.sqrt(torch.mean(
@@ -3171,23 +2429,18 @@ def phase_draw_kernel(smi, dim: int, label: str, flush):
     del z, u
     free_device()
 
-    counter = [0]
     sid_vi = kernels.STREAM_VI
-    dev_t = kernels.dev_scalars(0, 1)
+    row = kernels.dev_scalars(0, 1)
 
-    def by_value(kind="normal"):
-        counter[0] += 1
-        kernels.philox_draw(like, kind=kind, stream=sid_vi, seed=0,
-                            step=counter[0])
+    def draw(kind="normal"):
+        kernels.philox_draw(like, row, kind=kind, stream=sid_vi)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     timed = {
-        "normal": by_value,
+        "normal": draw,
         "randn": lambda: torch.randn(dim, generator=gen, device="cuda"),
-        "uniform": lambda: by_value("uniform"),
+        "uniform": lambda: draw("uniform"),
         "rand": lambda: torch.rand(dim, generator=gen, device="cuda"),
-        "pointer": lambda: kernels.philox_draw_dev(like, dev_t, kind="normal",
-                                                   stream=sid_vi),
     }
     p1 = cuda_ms_cold(lambda: fused.philox_draw_plain(
         dim, kind="normal", stream=sid_vi, seed=0, step=1, device="cuda"), 3,
@@ -3199,7 +2452,7 @@ def phase_draw_kernel(smi, dim: int, label: str, flush):
     p2 = cuda_ms_cold(lambda: fused.philox_draw_plain(
         dim, kind="normal", stream=sid_vi, seed=0, step=1, device="cuda"), 3,
         flush, warmup=1)
-    k_warm = cuda_ms(by_value, 100)
+    k_warm = cuda_ms(draw, 100)
     ms = {k: sum(v) / len(v) for k, v in runs.items()}
     name = torch.cuda.get_device_name(0)
     bytes_ms = DRAW_BYTES_PER_ELEM * dim / peak_bytes_per_s(name) * 1e3
@@ -3208,18 +2461,18 @@ def phase_draw_kernel(smi, dim: int, label: str, flush):
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     plain_ms = (p1 + p2) / 2
     both = {k: "/".join(f"{t * 1e3:.2f}" for t in v) for k, v in runs.items()}
-    print(f"phase 6e: [{smi}] philox_draw D={dim} ({label}): pointer entry "
-          f"bitwise equal to the by-value entry at (seed, step, gate) in "
-          f"{DEV_POINTS} for the VI, Adam and MC-dropout draws; vs plain: "
-          f"uniforms bitwise, normals max abs err {err:.3g} (tol {DRAW_TOL}); "
+    print(f"phase 6e: [{smi}] philox_draw D={dim} ({label}), (seed, step) "
+          f"from its row at each of {DEV_POINTS}, the VI, Adam and "
+          f"MC-dropout draws vs plain: uniforms bitwise, normals max abs "
+          f"err {err:.3g} (tol {DRAW_TOL}); "
           f"normals vs the kernel's fp32 arithmetic: {emu_diff} of "
           f"{emu_elems} differ, by at most {emu_ulp} ulp; "
           f"normal mean {mean:+.2e} std {std:.5f}, uniform in [{u_lo:.3g}, "
           f"{u_hi:.8f}] mean {u_mean:.5f}, VI vs Adam r {r:+.2e}; L2 flushed "
           f"before each launch (two runs in turns): normal {both['normal']} "
-          f"us, uniform {both['uniform']} us, pointer entry "
-          f"{both['pointer']} us, torch.randn {both['randn']} us, torch.rand "
-          f"{both['rand']} us; normal {k_warm * 1e3:.2f} us back to back; "
+          f"us, uniform {both['uniform']} us, torch.randn {both['randn']} "
+          f"us, torch.rand {both['rand']} us; normal {k_warm * 1e3:.2f} us "
+          f"back to back; "
           f"normal / uniform {ms['normal'] / ms['uniform']:.3f}, normal / "
           f"torch.randn {ms['normal'] / ms['randn']:.3f}, uniform / "
           f"torch.rand {ms['uniform'] / ms['rand']:.3f}; bound "
@@ -3236,7 +2489,6 @@ def phase_draw_kernel(smi, dim: int, label: str, flush):
     return dict(ms=ms["normal"], plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=ms["randn"], max_abs_err=err,
                 uniform_ms=ms["uniform"], uniform_library_ms=ms["rand"],
-                pointer_ms=ms["pointer"],
                 normal_to_uniform=ms["normal"] / ms["uniform"],
                 normal_share_of_bound=bound_ms / ms["normal"],
                 fp32_arithmetic={"differing": emu_diff, "of": emu_elems,
@@ -3244,19 +2496,16 @@ def phase_draw_kernel(smi, dim: int, label: str, flush):
                 runs_ms=runs, dim=dim)
 
 
-def phase_fused_vit_adam(smi, vit, xs, ys, per_step_ms):
-    """(d) ViT-L/32 Adam-cSGHMC at full width, bf16, batch 128, as
-    phase_vit_adam_step runs it per step, fused in segments of K = 3 (as
-    the 256 MiB window cuts phase 6d's run): from the same θ, two per-step
-    runs of VIT_STEPS steps (step_loop) and one fused (run_steps), their
-    per-step losses held as 6d holds cSGHMC's (the fused run no farther
-    from the first per-step run than twice the spread of the two, plus
-    1e-6 of the loss); philox_draw launched once per step and no other
-    kernel; then the fused step's host ms/step beside `per_step_ms`
-    (phase 4's per-step time in this run), its profile's device us/step
-    and busy share, the capture seconds and the peak device memory with
-    the fused path (allocated and reserved, the graphs' pool
-    included).  Returns the fused run's launches."""
+def phase_fused_vit_adam(smi, vit, xs, ys):
+    """(d) ViT-L/32 Adam-cSGHMC at full width, bf16, batch 128, the smoke
+    matrix's Adam hparams on the cSGHMC run's target, config and batches,
+    fused in segments of K = 3 (as the 256 MiB window cuts phase 6d's
+    run): from the same θ, two per-step runs of VIT_STEPS steps
+    (step_loop) and one fused (run_steps), their per-step losses held as
+    6d holds cSGHMC's (the fused run no farther from the first per-step
+    run than twice the spread of the two, plus 1e-6 of the loss);
+    philox_draw launched once per step and no other kernel.  Returns the
+    fused run's launches."""
     from bayesdll_tpu_torch.config import parse_hparams
     from bayesdll_tpu_torch.methods import get_runner_cls
 
@@ -3281,7 +2530,6 @@ def phase_fused_vit_adam(smi, vit, xs, ys, per_step_ms):
         thetas.append(r.state.theta.cpu())
         del r
         free_device()
-    torch.cuda.reset_peak_memory_stats()
     runner = fresh()
     reset_launches()
     fused_loss = torch.cat([runner.run_steps(ep, xs[s:s + k], ys[s:s + k], s)[0]
@@ -3289,7 +2537,6 @@ def phase_fused_vit_adam(smi, vit, xs, ys, per_step_ms):
     torch.cuda.synchronize()
     counts = read_launches()
     fused_loss = fused_loss.double().cpu()
-    capture_s = capture_seconds(runner)
     want = {n: 0 for n in counts}
     want["philox_draw"] = VIT_STEPS
     check(counts == want, f"adam_csghmc vit_l_32 fused: launches {counts}, "
@@ -3307,40 +2554,12 @@ def phase_fused_vit_adam(smi, vit, xs, ys, per_step_ms):
           and gap <= 2 * spread + 1e-6 * scale,
           f"adam_csghmc vit_l_32 fused: per-step losses {gap} from the "
           f"per-step run's, spread of two per-step runs {spread}")
-    host, queued, events = [], [], []
-    for _ in range(2):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        start.record()
-        for s in range(0, VIT_STEPS, k):
-            runner.run_steps(ep, xs[s:s + k], ys[s:s + k], runner.bi)
-        end.record()
-        queued.append((time.perf_counter() - tic) / VIT_STEPS * 1e3)
-        torch.cuda.synchronize()
-        host.append((time.perf_counter() - tic) / VIT_STEPS * 1e3)
-        events.append(start.elapsed_time(end) / VIT_STEPS)
-    peak = (torch.cuda.max_memory_allocated() / 1e9,
-            torch.cuda.max_memory_reserved() / 1e9)
-    ms = sum(host) / len(host)
-    dev = phase_profile(smi, "adam_csghmc vit_l_32 fused", runner, xs[:k],
-                        ys[:k], ms, "philox_draw", fused=True)
     print(f"phase 6d: [{smi}] adam_csghmc vit_l_32 bf16 batch "
           f"{cfg.batch_size}, fused in segments of {k}: launches {counts}; "
           f"per-step losses fused vs per-step run 1 max gap {gap:.3g}, "
           f"per-step runs 1 vs 2 (the spread) {spread:.3g}; theta max gap "
           f"{th_gap:.3g} (spread {th_spread:.3g}); t {runner.state.t} after "
-          f"{VIT_STEPS} steps; fused {[round(t, 2) for t in host]} ms/step "
-          f"(per step, phase 4: {per_step_ms:.2f}), of which the host "
-          f"returned after {[round(t, 2) for t in queued]}, CUDA events "
-          f"{[round(t, 2) for t in events]} ms/step; fused device "
-          + (f"{dev:.1f} us/step, busy {dev / (ms * 1e3):.1%}" if dev
-             else "not measured")
-          + f"; eager steps and captures {capture_s:.2f} s; peak device "
-          f"memory with the fused path {peak[0]:.2f} GB allocated, "
-          f"{peak[1]:.2f} GB reserved (the cSGHMC runner resident)",
-          flush=True)
+          f"{VIT_STEPS} steps", flush=True)
     del runner
     free_device()
     return counts
@@ -3733,51 +2952,21 @@ def phase_pretrain_cifar100(smi, root: Path) -> dict:
           a["res"]["nll"] == b["res"]["nll"],
           f"pretrain fused losses bitwise: {a['res']['train_losses']} vs "
           f"{b['res']['train_losses']}")
-    # the busy share: the device time of a profiled window of the run's own
-    # steps (augmented batches, copied to the card), cuDNN deterministic as
-    # in the run, over each epoch's host time per step (the cycle end, in
-    # the last epoch, taken out)
     for label, run in runs.items():
-        runner = run["runner"]
-        xs, ys = [], []
-        for x, y, _ in run["train"].chain_view(0, 3):
-            xs.append(x)
-            ys.append(y)
-            if len(xs) == PROFILED_STEPS:
-                break
-        xs = torch.from_numpy(np.stack(xs)).cuda()
-        ys = torch.from_numpy(np.stack(ys)).cuda()
         secs = [t for _, _, t in run["epochs"]]
         secs[-1] -= run["cycle_end_s"]
         host_ms = [t / run["steps"] * 1e3 for t in secs]
-        torch.backends.cudnn.deterministic = True
-        try:
-            dev_us = phase_profile(
-                smi, f"csghmc resnet101 cifar100 {label}", runner, xs, ys,
-                host_ms[-1], "csghmc_update", fused=label == "fused")
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
-        bs = runner.cfg.batch_size
-        busy = ["not measured" if dev_us is None else
-                f"{dev_us / (ms * 1e3):.1%}" for ms in host_ms]
+        bs = run["runner"].cfg.batch_size
         per_epoch = "; ".join(
             f"epoch {ep}: {ms:.2f} ms/step, {bs / ms * 1e3:.0f} images/s, "
-            f"loss {loss:.4f}, training error {err:.4f}, busy {b}"
-            for ep, (ms, b, (loss, err, _)) in enumerate(zip(
-                host_ms, busy, run["epochs"])))
+            f"loss {loss:.4f}, training error {err:.4f}"
+            for ep, (ms, (loss, err, _)) in enumerate(zip(host_ms,
+                                                          run["epochs"])))
         print(f"phase 7b: [{smi}] pretrain {label} per epoch (host clock, "
               f"data loading and augmentation included, the cycle end's "
               f"{run['cycle_end_s']:.2f} s (likelihood pass over the training "
-              f"set, nst=5, and the cycle's checkpoint) taken out of the last;"
-              f" busy = profiled device us/step over the epoch's ms/step): "
-              f"{per_epoch}", flush=True)
-        if label == "per step":
-            # the same steps with cuDNN's default (possibly nondeterministic)
-            # algorithms, as the CLI runs them
-            ms = host_s_per_step(runner, xs, ys, "pretrain default")[0] * 1e3
-            phase_profile(smi, "csghmc resnet101 cifar100 per step, cuDNN "
-                          "default algorithms, batches on the card", runner,
-                          xs, ys, ms, "csghmc_update")
+              f"set, nst=5, and the cycle's checkpoint) taken out of the "
+              f"last): {per_epoch}", flush=True)
     print(f"phase 7b: [{smi}] fused equals per step bit for bit (θ, v, "
           f"batch_stats, training losses, NLL; cuDNN deterministic); CIFAR "
           f"train loader alone, batch 256, one thread: "
@@ -4339,53 +3528,39 @@ SHARD_WRITES = {"csghmc_update": ("theta", "v"), "sgld_update": ("g",),
                 "sghmc_update": ("g", "v"), "philox_draw": ()}
 
 
-def shard_call(name, vec, lo, hi, pointer: bool):
-    """`name`'s wrapper on vec's [lo, hi) at elem0 = lo, by value or
-    through its pointer entry; returns the draw (philox_draw) or None."""
+def shard_call(name, vec, lo, hi):
+    """`name`'s wrapper on vec's [lo, hi) at elem0 = lo, (seed, step, gate)
+    from its row; returns the draw (philox_draw) or None."""
     from bayesdll_tpu_torch.ops import kernels
     a = {k: t[lo:hi] for k, t in vec.items()}
-    seed, step = SHARD_DRAW["seed"], SHARD_DRAW["step"]
-    dev = kernels.dev_scalars(seed, step, True) if pointer else None
-    by = {"dev": dev} if pointer else {"seed": seed, "step": step}
+    dev = kernels.dev_scalars(SHARD_DRAW["seed"], SHARD_DRAW["step"], True)
     kw = dict(elem0=lo)
     if name == "csghmc_update":
-        pref = kernels.noise_prefactor(1.0, 0.05, 1000.0)
-        if pointer:
-            kernels.csghmc_update_dev(a["g"], a["theta"], a["v"], a["lr"], dev,
-                                      prior_sig=1.0, alpha=0.05,
-                                      noise_pref=pref, **kw)
-        else:
-            kernels.csghmc_update(a["g"], a["theta"], a["v"], a["lr"],
-                                  prior_sig=1.0, alpha=0.05, noise_pref=pref,
-                                  gate=True, seed=seed, step=step, **kw)
+        kernels.csghmc_update(a["g"], a["theta"], a["v"], a["lr"], dev,
+                              prior_sig=1.0, alpha=0.05,
+                              noise_pref=kernels.noise_prefactor(
+                                  1.0, 0.05, 1000.0), **kw)
         return None
+    if name == "philox_draw":
+        return kernels.philox_draw(a["g"], dev, kind="normal",
+                                   stream=kernels.STREAM_VI, **kw)
     sg = dict(prior_sig=1.0, n_eff=1000.0, nd=1.0, **kw)
     if name == "sgld_update":
-        fn = kernels.sgld_update_dev if pointer else kernels.sgld_update
-        args = (a["g"], a["theta"], a["theta0"], a["mask"], a["lr"])
-    elif name == "sghmc_update":
-        fn = kernels.sghmc_update_dev if pointer else kernels.sghmc_update
-        args = (a["g"], a["theta"], a["theta0"], a["v"], a["mask"], a["lr"])
-        sg["alpha"] = 0.05
+        kernels.sgld_update(a["g"], a["theta"], a["theta0"], a["mask"],
+                            a["lr"], dev, **sg)
     else:
-        fn = kernels.philox_draw_dev if pointer else kernels.philox_draw
-        draw = dict(kind="normal", stream=kernels.STREAM_VI, **kw)
-        return fn(a["g"], dev, **draw) if pointer else fn(a["g"], seed=seed,
-                                                           step=step, **draw)
-    if pointer:
-        fn(*args, dev, **sg)
-    else:
-        fn(*args, seed=seed, step=step, **sg)
+        kernels.sghmc_update(a["g"], a["theta"], a["theta0"], a["v"],
+                             a["mask"], a["lr"], dev, alpha=0.05, **sg)
     return None
 
 
-def shard_run(name, vec, d, n, pointer):
+def shard_run(name, vec, d, n):
     """n shard launches of `name` over copies of `vec`: the written vectors
     (or the draws) concatenated, and the launches counted."""
     out = {k: t.clone() for k, t in vec.items()}
     reset_launches()
     size = d // n
-    draws = [shard_call(name, out, r * size, (r + 1) * size, pointer)
+    draws = [shard_call(name, out, r * size, (r + 1) * size)
              for r in range(n)]
     torch.cuda.synchronize()
     counts = read_launches()
@@ -4395,35 +3570,32 @@ def shard_run(name, vec, d, n, pointer):
 
 
 def phase_shard_kernels(smi, dims: dict) -> dict:
-    """9a: each kernel on 2 and 4 shards of D at their global offsets, by
-    value and through the pointer entry, against one whole-vector launch:
-    bitwise, one launch per shard.  Returns the launches."""
+    """9a: each kernel on 2 and 4 shards of D at their global offsets
+    against one whole-vector launch: bitwise, one launch per shard.
+    Returns the launches."""
     from bayesdll_tpu_torch.ops import kernels
     tic = time.perf_counter()
     launches = {}
     for label, d in dims.items():
         vec = shard_vectors(d)
         for name in kernels.KERNELS:
-            for pointer in (False, True):
-                whole, _ = shard_run(name, vec, d, 1, pointer)
-                for n in SHARD_COUNTS:
-                    got, counts = shard_run(name, vec, d, n, pointer)
-                    check(counts[name] == n and sum(counts.values()) == n,
-                          f"9a {name} {n} shards: launches {counts}")
-                    same = all(torch.equal(a, b) for a, b in zip(got, whole))
-                    check(same, f"9a {name} at D={d}, {n} shards "
-                          f"({'pointer' if pointer else 'by value'}): the "
-                          "shards' concatenation is not the whole launch")
-                    launches[name] = launches.get(name, 0) + n
-                del whole
+            whole, _ = shard_run(name, vec, d, 1)
+            for n in SHARD_COUNTS:
+                got, counts = shard_run(name, vec, d, n)
+                check(counts[name] == n and sum(counts.values()) == n,
+                      f"9a {name} {n} shards: launches {counts}")
+                same = all(torch.equal(a, b) for a, b in zip(got, whole))
+                check(same, f"9a {name} at D={d}, {n} shards: the shards' "
+                      "concatenation is not the whole launch")
+                launches[name] = launches.get(name, 0) + n
+            del whole
         del vec
         free_device()
     print(f"phase 9a: [{smi}] csghmc_update, sgld_update, sghmc_update, "
           f"philox_draw on {list(SHARD_COUNTS)} shards at their global "
-          f"offsets, by value and through the pointer entry, at D = "
-          f"{dims}: each concatenation bitwise equal to one whole-vector "
-          f"launch (noise on, seed 2^63+5, step 2^32+9), one launch per "
-          f"shard; {time.perf_counter() - tic:.1f} s", flush=True)
+          f"offsets, at D = {dims}: each concatenation bitwise equal to one "
+          f"whole-vector launch (noise on, seed 2^63+5, step 2^32+9), one "
+          f"launch per shard; {time.perf_counter() - tic:.1f} s", flush=True)
     return launches
 
 
@@ -4455,39 +3627,14 @@ def chain_states_differ(a, b) -> list:
             if (d := differing(sa, sb))]
 
 
-def chain_steps_ms(mc, xs, ys) -> float:
-    """ms/step of `mc`'s trainer over len(xs) per-step steps (step_loop),
-    host clock to a synchronize."""
-    tr = mc.trainer
-    torch.cuda.synchronize()
-    tic = time.perf_counter()
-    tr.step_loop(0, xs, ys, tr.bi)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - tic) * 1e3 / len(xs)
-
-
-def in_turns(runs: dict, xs, ys) -> dict:
-    """ms/step of the two runners of `runs` ("single", "world 1") timed in
-    turns, single, world 1, world 1, single, after one untimed step each;
-    each runner's mean."""
-    for mc in runs.values():
-        chain_steps_ms(mc, xs[:1], ys[:1])
-    ms = {name: [] for name in runs}
-    for name in ("single", "world 1", "world 1", "single"):
-        ms[name].append(chain_steps_ms(runs[name], xs, ys))
-    return {name: sum(v) / len(v) for name, v in ms.items()}
-
-
-def phase_world1_mlp(smi, by_path) -> dict:
+def phase_world1_mlp(smi, by_path):
     """9b: 2-chain cSGHMC on the full-width MLP through the CLI, single
     process and as a world of one rank over NCCL (the process-group path:
     the ('chain', 'data') mesh, the gradient's all-reduce, the losses'
-    gathers), per step and fused: every chain's state bitwise equal; then
-    ms/step of each, in turns."""
+    gathers), per step and fused: every chain's state bitwise equal."""
     argv = CKPT_CLI + ["--num_chains", "2"] + ONE_EPOCH
     SCRATCH.mkdir(parents=True, exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="world1_", dir=SCRATCH))
-    ms = {}
 
     def cli_run(name, flags, tag):
         seen = {}
@@ -4520,22 +3667,13 @@ def phase_world1_mlp(smi, by_path) -> dict:
                     runs["single"].chain_cycle_stats,
                     runs["world 1"].chain_cycle_stats),
                     f"9b mlp {tag}: the cycle registries")
-                if not fused:
-                    xs, ys = stacked_batches(runs["single"]._train_loader,
-                                             20)
-                    ms = in_turns(
-                        runs, xs[:, None].expand(-1, 2, *xs.shape[1:]),
-                        ys[:, None].expand(-1, 2, -1))
             del runs
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"phase 9b: [{smi}] csghmc mlp_mnist 2 chains batch 128 through "
           f"the CLI, single process and --multihost world 1 over NCCL, per "
           f"step and fused: every chain's state and the cycle registries "
-          f"bitwise equal; step_loop in turns {ms['single']:.3f} ms/step "
-          f"single, {ms['world 1']:.3f} ms/step world 1 "
-          f"({ms['world 1'] / ms['single'] - 1:+.1%})", flush=True)
-    return ms
+          f"bitwise equal", flush=True)
 
 
 def vit_fsdp_runner(world: bool):
@@ -4561,13 +3699,13 @@ def vit_fsdp_runner(world: bool):
     return mc, loaders
 
 
-def phase_world1_vit(smi, by_path) -> dict:
+def phase_world1_vit(smi, by_path):
     """9b: ViT-L/32 cSGHMC (batch 128, bf16, full width) with --fsdp at
     data_parallel 1, single process and as a world of one rank over NCCL:
     3 steps per step, then a fused segment of 3, θ and v bitwise equal
-    after each; ms/step of each, in turns."""
+    after each."""
     import torch.distributed as dist
-    runs, out = {}, {}
+    out = {}
     try:
         for name in ("single", "world 1"):
             mc, loaders = vit_fsdp_runner(name == "world 1")
@@ -4591,30 +3729,21 @@ def phase_world1_vit(smi, by_path) -> dict:
                 by_path["csghmc vit_l_32 fsdp world 1 nccl fused"] = fused
             full = tr.full_state(0)
             out[name] = (snap, full.theta.clone(), full.v.clone())
-            runs[name] = mc
-            del full, snap, loaders
-            # the fused segment's graphs and their pool: the two runners
-            # are then timed per step side by side
-            mc.runner._step_graphs.clear()
+            del full, snap, loaders, mc, tr, xs, ys
             free_device()
         same = [torch.equal(a, b)
                 for a, b in zip(out["single"], out["world 1"])]
         check(all(same), f"9b vit: θ after the per-step steps, θ and v "
               f"after the fused segment, single against world 1: {same}")
         del out
-        ms = in_turns(runs, xs[:4], ys[:4])
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    del runs, mc, tr, xs, ys
     free_device()
     print(f"phase 9b: [{smi}] csghmc vit_l_32 bf16 batch 128 --fsdp at "
           f"data_parallel 1, single process and world 1 over NCCL: θ after "
           f"3 per-step steps and θ, v after a fused segment of 3 bitwise "
-          f"equal; step_loop in turns {ms['single']:.1f} ms/step single, "
-          f"{ms['world 1']:.1f} ms/step world 1 "
-          f"({ms['world 1'] / ms['single'] - 1:+.2%})", flush=True)
-    return ms
+          f"equal", flush=True)
 
 
 # 9c: a rank of the CLI, one process each: the CLI's main with its runner
@@ -5347,8 +4476,8 @@ def phase_multi_device(smi, by_path: dict) -> dict:
     out = {"9a_launches": phase_shard_kernels(
         smi, {"mlp_mnist": full_width_target(1000)[0].dim,
               "vit_l_32": VIT_DIM})}
-    out["9b_mlp_ms"] = phase_world1_mlp(smi, by_path)
-    out["9b_vit_ms"] = phase_world1_vit(smi, by_path)
+    phase_world1_mlp(smi, by_path)
+    phase_world1_vit(smi, by_path)
     out["9c"] = phase_two_ranks(smi, by_path)
     print(f"phase 9: [{smi}] multi-device in "
           f"{time.perf_counter() - tic:.1f} s", flush=True)
@@ -5368,7 +4497,6 @@ def main() -> int:
                                  phase_kernels(resnet.target, "resnet101")),
             **phase_sg_kernels()}
     flush = torch.zeros(64 * 2**20, device="cuda")  # 256 MB, 5x the L2
-    draw_sass = phase_draw_sass(smi)
     draw = {"mlp_mnist": phase_draw_kernel(smi, mlp_target.dim, "mlp_mnist",
                                            flush)}
     runners, by_path = {}, {}
@@ -5413,29 +4541,15 @@ def main() -> int:
     times = {"mlp_mnist": kernel_times_at(smi, mlp_target),
              "resnet101": kernel_times_at(smi, resnet.target,
                                           ("csghmc_update",))}
-    dev_us = {"mlp_mnist": phase_fused_kernels(smi, mlp_target, "mlp_mnist",
-                                               flush)}
-    for method in ("csghmc", "sghmc"):
-        phase_step_time(smi, method, *runners[method])
-    phase_chain_step_time(smi, *runners["csghmc"])
-    for method in SMOKE:
-        phase_step_time(smi, method, *runners[method],
-                        sampler=SMOKE_KERNEL.get(method, "_update_kernel"))
-    phase_fisher_profile("la mlp_mnist", runners["la"][0], runners["la"][1][0])
-    phase_fused_headline(smi, *runners["csghmc"], "mlp_mnist")
-    phase_fused_headline(smi, *phase_mlp_bf16_step_time(smi), "mlp_mnist bf16")
-    for method in DRAWS:
-        phase_fused_headline(smi, *runners[method], "mlp_mnist", k=DRAW_K,
-                             turns=DRAW_TURNS, sampler="philox_draw")
-    phase_resnet_step_time(smi, resnet, resnet_loaders)
+    for name, err in phase_kernels_at_dev_points(smi, mlp_target,
+                                                 "mlp_mnist").items():
+        errs[name] = max(errs[name], err)
     del resnet, resnet_loaders, runners, runner, loaders
     free_device()
     by_path["la resnet50"] = phase_la_resnet50()
     free_device()
     for name in BIG_CONFIGS:
         mc, by_path[f"{name} resnet50"] = phase_big_chains(smi, name)
-        if name == "csghmc_multichain_gmm":
-            phase_resnet50_chain_step_time(smi, mc)
         del mc
         free_device()
 
@@ -5450,20 +4564,15 @@ def main() -> int:
     times["vit_l_32"] = kernel_times_at(smi, vit.target)
     xs, ys = device_batches(vit_loaders[0])
     phase_checkpoints_and_traces(smi, vit, xs, ys, by_path)
-    per_step = phase_vit_steps(smi, vit, xs, ys)
-    adam_step = phase_vit_adam_step(smi, vit, xs, ys)
-    dev_us["vit_l_32"] = phase_fused_kernels(smi, vit.target, "vit_l_32",
-                                             flush)
-    free_device()
+    for name, err in phase_kernels_at_dev_points(smi, vit.target,
+                                                 "vit_l_32").items():
+        errs[name] = max(errs[name], err)
     draw["vit_l_32"] = phase_draw_kernel(smi, vit.target.dim, "vit_l_32",
                                          flush)
-    phase_fused_vit(smi, vit, vit_loaders, xs, ys, per_step)
+    phase_fused_vit(vit, vit_loaders)
     by_path["adam_csghmc vit_l_32 fused"] = phase_fused_vit_adam(
-        smi, vit, xs, ys, adam_step["ms"])
-    cfg, nd_size, sched = vit.cfg, vit.target.nd_size, vit.sched
-    del vit, vit_loaders
-    free_device()
-    phase_vit_b_16(smi, cfg, nd_size, sched, xs, ys)
+        smi, vit, xs, ys)
+    del vit, vit_loaders, xs, ys
     free_device()
     window_record = phase_window_attention(smi)
     free_device()
@@ -5490,7 +4599,6 @@ def main() -> int:
         "launches_by_path": {p: c[name] for p, c in by_path.items()
                              if name in c},
         "times_by_path": {p: t[name] for p, t in times.items() if name in t},
-        "pointer_entry_us_by_path": {p: t[name] for p, t in dev_us.items()},
     } for name in REPLACES]
     vit_draw = draw["vit_l_32"]
     record.append({
@@ -5504,12 +4612,9 @@ def main() -> int:
                                     "uniform_library_ms", "normal_to_uniform",
                                     "normal_share_of_bound")},
         "fp32_arithmetic": {p: d["fp32_arithmetic"] for p, d in draw.items()},
-        "ptxas_and_sass": draw_sass,
         "launches_by_path": {p: c["philox_draw"] for p, c in by_path.items()
                              if "philox_draw" in c},
         "times_by_path": draw,
-        "pointer_entry_us_by_path": {p: d["pointer_ms"] * 1e3
-                                     for p, d in draw.items()},
     })
     record.extend(window_record)
     print(json.dumps({"kernels": record}))

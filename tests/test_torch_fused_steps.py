@@ -10,8 +10,9 @@ eagerly on the same static buffers and device-side scalars:
     JAX's draws handed to the port (rtol 1e-4, atol 1e-5, as the port's
     parity tests);
   * `update_masked` and `segment_ends` against the JAX package's;
-  * the kernels' pointer entry points refuse CPU tensors; a step that
-    rebinds state tensors keeps the state's addresses on the fused path."""
+  * the dispatchers read the device row (seed, step, gate) on the CPU as
+    the host values; a step that rebinds state tensors keeps the state's
+    addresses on the fused path."""
 
 import dataclasses
 
@@ -416,42 +417,19 @@ def test_cli_fused_steps_same_results(method, tmp_path, monkeypatch):
         assert fused_res[key] == plain[key], key
 
 
-def test_pointer_entry_wrappers_refuse_cpu_tensors():
-    """The pointer entry points take CUDA vectors and an int64 (seed, step,
-    gate) on their device; CPU tensors and CPU scalars raise before any
-    launch, and nothing is counted."""
-    d = 1024
-    g, th, th0, v, lr = (torch.zeros(d) for _ in range(5))
-    mask = torch.ones(d)
-    dev = kernels.dev_scalars(7, 11, True, device="cpu")
-    assert dev.dtype == torch.int64 and dev.tolist() == [7, 11, 1]
-    before = kernels.launch_counts()
-    with pytest.raises(ValueError, match="CUDA"):
-        kernels.csghmc_update_dev(g, th, v, lr, dev, prior_sig=1.0,
-                                  alpha=0.05, noise_pref=1e-3)
-    with pytest.raises(ValueError, match="CUDA"):
-        kernels.sgld_update_dev(g, th, th0, mask, lr, dev, prior_sig=1.0,
-                                n_eff=100.0, nd=1.0)
-    with pytest.raises(ValueError, match="CUDA"):
-        kernels.sghmc_update_dev(g, th, th0, v, mask, lr, dev, prior_sig=1.0,
-                                 n_eff=100.0, nd=1.0, alpha=0.05)
-    with pytest.raises(ValueError, match="scalars on"):
-        kernels._check_dev(dev, th)
-    assert kernels.launch_counts() == before
-    # the full 64 bits of a seed survive the int64 row
-    assert kernels.dev_scalars(2**64 - 1, 3, device="cpu").tolist() \
-        == [-1, 3, 0]
-
-
 def test_cpu_dispatch_reads_the_device_row():
-    """On the CPU the dispatchers read (seed, step, gate) from the row and
-    give the by-value call's bits."""
+    """On the CPU the dispatchers read (seed, step, gate) from the row, an
+    int64 tensor that keeps the seed's 64 bits, and give the bits of the
+    call with host values."""
     gen = torch.Generator().manual_seed(0)
     d = 1027
     g, th, th0, v = (torch.randn(d, generator=gen) for _ in range(4))
     mask, lr = torch.ones(d), torch.full((d,), 1e-2)
     seed = 2**63 + 12345  # the row keeps all 64 bits
     dev = kernels.dev_scalars(seed, 9, True, device="cpu")
+    assert dev.dtype == torch.int64 and dev.tolist() == [seed - 2**64, 9, 1]
+    assert kernels.dev_scalars(2**64 - 1, 3, device="cpu").tolist() \
+        == [-1, 3, 0]
     kw = dict(prior_sig=1.0, n_eff=100.0, nd=1.0)
     a = [t.clone() for t in (g, th, v)]
     b = [t.clone() for t in (g, th, v)]

@@ -1,6 +1,5 @@
-"""The PyTorch port, chip_smoke.py, resnet_sweep.py, vit_cast_forms.py,
-draw_sweep.py and multi_card.py stand alone: they import nothing of JAX,
-flax or the JAX package.  The CIFAR path runs without PIL."""
+"""The PyTorch port, chip_smoke.py and multi_card.py stand alone: they
+import nothing of JAX, flax or the JAX package.  The CIFAR path runs without PIL."""
 
 import ast
 import json
@@ -14,8 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "bayesdll_tpu")
 SOURCES = sorted((ROOT / "bayesdll_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "resnet_sweep.py", ROOT / "vit_cast_forms.py",
-    ROOT / "draw_sweep.py", ROOT / "multi_card.py"]
+    ROOT / "chip_smoke.py", ROOT / "multi_card.py"]
 
 
 def _imported_roots(path: Path):
@@ -52,8 +50,7 @@ def test_importing_the_port_loads_no_jax():
         "import bayesdll_tpu_torch.models.resnet, bayesdll_tpu_torch.models.cnn\n"
         "import bayesdll_tpu_torch.models.vit\n"
         "import bayesdll_tpu_torch.models.convert, bayesdll_tpu_torch.models.layers\n"
-        "import bayesdll_tpu_torch.interop, chip_smoke, resnet_sweep\n"
-        "import vit_cast_forms, draw_sweep\n"
+        "import bayesdll_tpu_torch.interop, chip_smoke\n"
         "import bayesdll_tpu_torch.data.image_loader, bayesdll_tpu_torch.native\n"
         "import bayesdll_tpu_torch.cli.pretrain\n"
         "import bayesdll_tpu_torch.cli.demo_vision, bayesdll_tpu_torch.cli.demo_mnist\n"

@@ -6,6 +6,9 @@ The CUDA kernel itself runs only on the card: chip_smoke.py holds it
 against the plain version there.
 """
 
+import ctypes
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -122,14 +125,6 @@ def test_dispatcher_noise_is_a_function_of_seed_and_step():
     assert torch.equal(run(0, 5), run(0, 5))
     assert not torch.equal(run(0, 5), run(0, 6))
     assert not torch.equal(run(1, 5), run(0, 5))
-
-
-def test_kernel_wrapper_refuses_cpu_tensors():
-    g, theta, v, lr = _torch(*_vecs(64))
-    with pytest.raises(ValueError, match="CUDA"):
-        kernels.csghmc_update(g, theta, v, lr, prior_sig=1.0, alpha=0.05,
-                              noise_pref=0.0, gate=False, seed=0, step=0)
-    assert kernels.csghmc_update.launches == 0
 
 
 def test_kernel_library_name_tracks_its_sources():
@@ -296,13 +291,56 @@ def test_sg_dispatcher_noise_is_a_function_of_seed_and_step(name):
     assert not torch.equal(run(1, 5), run(0, 5))
 
 
-@pytest.mark.parametrize("name", ["sgld_update", "sghmc_update"])
-def test_sg_kernel_wrapper_refuses_cpu_tensors(name):
-    arrays, kw = _sg_args(name, _sg_vecs(64, 0, 1, False))
+def _kernel_call(name, dev, d=64):
+    """`name`'s wrapper on CPU operands of length d and the row `dev`."""
+    if name == "philox_draw":
+        return lambda: kernels.philox_draw(torch.zeros(d), dev, kind="normal",
+                                           stream=kernels.STREAM_VI)
+    if name == "csghmc_update":
+        g, theta, v, lr = _torch(*_vecs(d))
+        return lambda: kernels.csghmc_update(g, theta, v, lr, dev,
+                                             prior_sig=1.0, alpha=0.05,
+                                             noise_pref=0.0)
+    arrays, kw = _sg_args(name, _sg_vecs(d, 0, 1, False))
+    return lambda: getattr(kernels, name)(*_torch(*arrays), dev, nd=0.0,
+                                          **SG_KW, **kw)
+
+
+@pytest.mark.parametrize("name", kernels.KERNELS)
+def test_kernel_wrapper_refuses_cpu_tensors(name):
+    """Each kernel's one wrapper takes CUDA vectors and an int64 (seed,
+    step, gate) row on their device: CPU tensors and a CPU row raise before
+    any launch, and nothing is counted."""
+    dev = kernels.dev_scalars(7, 11, True, device="cpu")
+    before = kernels.launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
-        getattr(kernels, name)(*_torch(*arrays), nd=0.0, seed=0, step=0,
-                               **SG_KW, **kw)
-    assert getattr(kernels, name).launches == 0
+        _kernel_call(name, dev)()
+    with pytest.raises(ValueError, match="scalars on"):
+        kernels._check_dev(dev, torch.zeros(64))
+    assert kernels.launch_counts() == before
+
+
+_C_KINDS = {"void*": "pointer", "int64_t": "int64", "float": "float",
+            "int": "int", "uint32_t": "uint32", "uint64_t": "uint64"}
+_CTYPES_KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int64: "int64",
+                 ctypes.c_float: "float", ctypes.c_int: "int",
+                 ctypes.c_uint32: "uint32", ctypes.c_uint64: "uint64"}
+
+
+@pytest.mark.parametrize("name", kernels.KERNELS)
+def test_kernel_argtypes_match_the_c_prototype(name):
+    """ctypes passes arguments by the argtypes it is given and checks them
+    against nothing: each `csrc/<name>.cu` exports one function, `<name>`,
+    whose parameter kinds are those of `_ARGTYPES[name]`, in order."""
+    src = (kernels.CSRC / f"{name}.cu").read_text()
+    protos = re.findall(r'extern "C"\s+int\s+(\w+)\s*\(([^)]*)\)', src)
+    assert len(re.findall(r'extern "C"', src)) == 1
+    assert [p[0] for p in protos] == [name]
+    kinds = []
+    for param in protos[0][1].split(","):
+        ctype = " ".join(param.split()[:-1]).replace("const ", "")
+        kinds.append(_C_KINDS[ctype.replace(" *", "*")])
+    assert kinds == [_CTYPES_KINDS[t] for t in kernels._ARGTYPES[name]]
 
 
 def test_kernel_wrappers_refuse_overlapping_operands():

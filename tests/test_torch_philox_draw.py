@@ -163,17 +163,14 @@ def test_cpu_draw_matches_jax_random_in_distribution(kind):
 
 
 def test_draw_wrappers_refuse_cpu_tensors_and_bad_arguments():
-    """The kernel wrappers take a CUDA `like` only and count nothing when
-    they refuse; draw_ refuses an unknown kind or stream."""
+    """The kernel's wrapper takes a CUDA `like` only and counts nothing
+    when it refuses; draw_ refuses an unknown kind or stream."""
     like = torch.zeros(1024)
     dev = kernels.dev_scalars(7, 11, device="cpu")
     before = kernels.launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.philox_draw(like, kind="normal", stream=kernels.STREAM_VI,
-                            seed=7, step=11)
-    with pytest.raises(ValueError, match="CUDA"):
-        kernels.philox_draw_dev(like, dev, kind="uniform",
-                                stream=kernels.STREAM_MC_DROPOUT)
+        kernels.philox_draw(like, dev, kind="uniform",
+                            stream=kernels.STREAM_MC_DROPOUT)
     assert kernels.launch_counts() == before
     with pytest.raises(ValueError, match="kind"):
         fused.draw_(like, kind="gumbel", stream=kernels.STREAM_VI)

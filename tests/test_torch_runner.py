@@ -121,7 +121,6 @@ def test_unported_names_raise():
         get_runner_cls("hmc_nuts")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_backbone("vit_h_14")
-    assert methods._PENDING == {}
     assert len(methods._METHODS) == 11
     for name in methods._METHODS:
         assert get_runner_cls(name).method_name == name
