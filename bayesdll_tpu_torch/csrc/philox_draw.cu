@@ -10,7 +10,9 @@
 // None of these is a Pallas kernel; the kernel exists so that the port's
 // fused path (a captured CUDA graph of the step) draws anew at each step:
 // the kernel reads the seed and the step from device memory, which the
-// graph's runner fills before each replay.
+// graph's runner fills before each replay.  The Adam methods' step draws
+// the same Adam-stream bits inside adam_sghmc_update.cu's pass; this
+// draw is what its eager oracle reads.
 //
 // Element i takes word i % 4 of the Philox4x32-10 call of quad i / 4 at
 // counter (quad, step low word, stream, step high word), the layout of

@@ -6,7 +6,9 @@ bayesdll_tpu.methods.adam_csghmc).
     data gradient divided by a likelihood temperature:
         grad_U = g/T + mask*(theta-theta0)/sig^2/N;
   * the momentum OVERWRITES the gradient (reference `p.grad = v_momentum`)
-    and torch-SGD then applies the cyclical lr again;
+    and torch-SGD then applies the cyclical lr again; the two go through
+    ops/fused.py::adam_sghmc_update_, on the card one pass of the
+    adam_sghmc_update kernel;
   * at every cycle boundary buf, v_mom, m, v2 and t are reset; with hparam
     perform_cold_restarts=1 and a re-init function set (`set_reinit_fn`),
     θ is also replaced by a fresh draw of the backbone's initialisers;
@@ -28,10 +30,9 @@ import dataclasses
 import torch
 
 from bayesdll_tpu_torch.core.moments import RunningMoments
-from bayesdll_tpu_torch.core.sgd import sgd_step
 from bayesdll_tpu_torch.methods import base
 from bayesdll_tpu_torch.methods.adam_sghmc import (
-    adam_hparams, adam_noise, bias_correction_rows, zero_adam_state)
+    adam_hparams, bias_correction_rows, zero_adam_state)
 from bayesdll_tpu_torch.methods.cyclical_base import CyclicalRunnerBase
 from bayesdll_tpu_torch.ops import fused
 
@@ -93,17 +94,15 @@ class Runner(CyclicalRunnerBase):
         logits = logits.detach()
 
         state.t += 1
-        # v_mom, m and v2 change IN PLACE
-        fused.adam_sghmc_momentum(
+        # v_mom, m, v2, theta and buf change IN PLACE once the graph is
+        # consumed
+        fused.adam_sghmc_update_(
             g, state.theta, self.target.theta0, state.v_mom, state.m,
-            state.v2, state.t, self.prior_mask, lr_vec,
+            state.v2, state.buf, state.t, self.prior_mask, lr_vec,
+            add_g=False, momentum=self.cfg.momentum, sgd_count=state.step,
             prior_sig=self.prior_sig, n_eff=self.n_eff, nd=self.nd,
-            temperature=self.temperature,
-            noise=adam_noise(self, g, step, scalars), bc=scalars.get("bc"),
-            **self.adam)
-        # theta and buf change IN PLACE once the graph is consumed
-        sgd_step(state.theta, state.v_mom, state.buf, lr_vec,
-                 self.cfg.momentum, state.step)
+            temperature=self.temperature, bc=scalars.get("bc"),
+            **self.draw_args(step, scalars), **self.adam)
         self.collect_sample(state, scalars)
         state.step += 1
         return state, new_ns, (loss.detach(), base.err_count(logits, y))

@@ -11,13 +11,15 @@ ops/fused.py::adam_sghmc_update:
     g' = g + v_mom
 
 after which the torch-SGD step applies lr again, as in SGHMC.  z is a
-whole-vector draw keyed (seed, step) on the Adam stream (ops/fused.py::
-draw_: the philox_draw kernel on the card), taken only where nd != 0.  The
-update itself is plain PyTorch on every device: the JAX package has no
-Pallas kernel for it.  On the fused path the bias corrections 1 - b^t come
-from the step's scalars (`bias_corrections`, one row per step), since a
-captured step cannot take them from the host count t.  Moments and
-predictive are SGLD's.  Checkpoints carry beta1, beta2 and epsilon.
+whole-vector draw keyed (seed, step) on the Adam stream, taken only where
+nd != 0.  The momentum and the SGD step go through ops/fused.py::
+adam_sghmc_update_: on the card one pass of the adam_sghmc_update kernel,
+which draws z in the pass (the JAX package leaves the update to XLA and
+has no Pallas kernel for it); on the CPU the plain PyTorch versions.  On
+the fused path the bias corrections 1 - b^t come from the step's scalars
+(`bias_corrections`, one row per step), since a captured step cannot take
+them from the host count t.  Moments and predictive are SGLD's.
+Checkpoints carry beta1, beta2 and epsilon.
 
 hparams: {prior_sig, Ninflate, nd, burnin, thin, bias, nst, momentum_decay,
 beta1, beta2, epsilon}.
@@ -32,7 +34,7 @@ import torch
 
 from bayesdll_tpu_torch.core.moments import RunningMoments
 from bayesdll_tpu_torch.methods import sgld
-from bayesdll_tpu_torch.ops import fused, kernels
+from bayesdll_tpu_torch.ops import fused
 
 
 @dataclasses.dataclass
@@ -69,14 +71,6 @@ def bias_correction_rows(t: int, adam: dict, k: int) -> np.ndarray:
                      for j in range(1, k + 1)], np.float32).reshape(k, 2)
 
 
-def adam_noise(runner, g, step, scalars):
-    """The momentum noise z of a step, or None at nd = 0 (nothing drawn)."""
-    if runner.nd == 0.0:
-        return None
-    return fused.draw_(g, kind="normal", stream=kernels.STREAM_ADAM,
-                       **runner.draw_args(step, scalars))
-
-
 class Runner(sgld.Runner):
     method_name = "adam_sghmc"
 
@@ -93,17 +87,17 @@ class Runner(sgld.Runner):
     def bias_corrections(self, k: int):
         return bias_correction_rows(self.state.t, self.adam, k)
 
-    def _crafted_gradient(self, state, g, step, scalars):
-        """g + v_mom', with the Adam state advanced (v_mom, m and v2 written
-        in place)."""
+    def _update(self, state, g, step, scalars):
+        """The Adam state advanced and the SGD step on g + v_mom' (v_mom, m,
+        v2, theta and buf written in place)."""
         state.t += 1
-        g_out, *_ = fused.adam_sghmc_update(
+        fused.adam_sghmc_update_(
             g, state.theta, self.target.theta0, state.v_mom, state.m,
-            state.v2, state.t, self.prior_mask, self.lr_vec,
+            state.v2, state.buf, state.t, self.prior_mask, self.lr_vec,
+            add_g=True, momentum=self.cfg.momentum, sgd_count=state.step,
             prior_sig=self.prior_sig, n_eff=self.n_eff, nd=self.nd,
-            noise=adam_noise(self, g, step, scalars), bc=scalars.get("bc"),
+            bc=scalars.get("bc"), **self.draw_args(step, scalars),
             **self.adam)
-        return g_out
 
     def extra_ckpt(self):
         a = self.adam

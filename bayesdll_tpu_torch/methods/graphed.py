@@ -70,10 +70,11 @@ def fused_scalars(row_i, row_f, count) -> dict:
     """The scalars `_step` takes on the fused path, as views of the static
     rows: `dev` (seed, step, gate) int64 [3] for the kernels and the draws,
     `lr` the (body, head) pair of 0-d fp32, `collect` 0-d fp32 (1 or 0),
-    `bc` Adam's bias corrections (1 - b1^t, 1 - b2^t) as a pair of 0-d fp32,
-    and `count` 0-d fp32, the moments' count before the step."""
+    `bc` Adam's bias corrections (1 - b1^t, 1 - b2^t) as fp32 [2] (the
+    row adam_sghmc_update reads), and `count` 0-d fp32, the moments' count
+    before the step."""
     return {"dev": row_i[0], "lr": (row_f[0, 0], row_f[0, 1]),
-            "collect": row_f[0, 2], "bc": (row_f[0, 3], row_f[0, 4]),
+            "collect": row_f[0, 2], "bc": row_f[0, 3:5],
             "count": count, "should_sample": None}
 
 

@@ -82,6 +82,12 @@ class Runner(base.BaseRunner):
             prior_sig=self.prior_sig, n_eff=self.n_eff, nd=self.nd,
             **self.draw_args(step, scalars))
 
+    def _update(self, state, g, step, scalars):
+        """The crafted gradient, then the torch-SGD step on it."""
+        g = self._crafted_gradient(state, g, step, scalars)
+        sgd_step(state.theta, g, state.buf, self.lr_vec, self.cfg.momentum,
+                 state.step)
+
     def _step(self, state, ns, x, y, step, scalars):
         # the views into this leaf carry the forward, so the gradient comes
         # back as one flat tensor; autograd.grad accumulates nothing
@@ -93,9 +99,7 @@ class Runner(base.BaseRunner):
 
         # theta and buf change IN PLACE; theta_leaf shares theta's storage,
         # which is safe because its graph has been consumed above
-        g = self._crafted_gradient(state, g, step, scalars)
-        sgd_step(state.theta, g, state.buf, self.lr_vec, self.cfg.momentum,
-                 state.step)
+        self._update(state, g, step, scalars)
         self.collect_sample(state, scalars)
         state.step += 1
         return state, new_ns, (loss.detach(), base.err_count(logits, y))

@@ -12,18 +12,22 @@ step and csghmc's gate either as host values (the per-step path) or as
 path, whose captured graph cannot take host values that change from step
 to step).  Host values become that row once, through
 `kernels.dev_scalars`; the kernel reads it on the card, and the CPU reads
-it as the same three values.  `adam_sghmc_update` (and
-its momentum, `adam_sghmc_momentum`) has no kernel in either package: it
-is plain PyTorch on every device, in place on the Adam state.  `draw_` is
-the whole-vector draw of VI, MC-dropout and the Adam momentum noise: the
-philox_draw kernel on the card, a host generator keyed by (seed, stream,
-step) on the CPU.  Each of these takes `elem0` and `total` for a shard of
-a longer vector (one rank's slice of a sharded flat state): the kernels
-draw the noise of global elements [elem0, elem0 + n) of a vector of `total`
-elements; the CPU draws the whole vector's noise from its generator and
-takes the shard's slice, so the shards of a sharded run see the replicated
-run's noise on either device.  `box_muller_fp32` is the four kernels'
-Box-Muller
+it as the same three values.  `adam_sghmc_update` and its momentum,
+`adam_sghmc_momentum`, are the plain versions of Adam-SGHMC's update, in
+place on the Adam state; `adam_sghmc_update_` is what the Adam runners
+call: the momentum and the torch-SGD step after it, on the card one pass
+of the adam_sghmc_update kernel (which the JAX package, leaving the update
+to XLA, has no Pallas counterpart of), bit for bit the plain versions'
+composition there.  `draw_` is the whole-vector draw of VI and
+MC-dropout: the philox_draw kernel on the card, a host generator keyed by
+(seed, stream, step) on the CPU; the Adam noise is that draw on its own
+stream, which the Adam kernel computes in its pass.  Each of these takes
+`elem0` and `total` for a shard of a longer vector (one rank's slice of a
+sharded flat state): the kernels draw the noise of global elements
+[elem0, elem0 + n) of a vector of `total` elements; the CPU draws the
+whole vector's noise from its generator and takes the shard's slice, so
+the shards of a sharded run see the replicated run's noise on either
+device.  `box_muller_fp32` is the five kernels' Box-Muller
 (csrc/normal_from_bits.cuh) step for step in fp32 torch ops: the tests
 hold it against float64 over every input, chip_smoke.py holds the card's
 normals against it.
@@ -45,6 +49,7 @@ import torch
 
 from bayesdll_tpu_torch.core import rng
 from bayesdll_tpu_torch.core.moments import div_as_host_scalar
+from bayesdll_tpu_torch.core.sgd import sgd_step
 from bayesdll_tpu_torch.ops import kernels
 from bayesdll_tpu_torch.utils import profiling
 
@@ -162,11 +167,12 @@ def adam_sghmc_momentum(g, theta, theta0, v_mom, m, v2, t: int, prior_mask,
 
     in the JAX package's operation order.  `t` is the already-incremented
     Adam step; the bias corrections are `adam_bias_corrections(t)`, or `bc`
-    where given: the pair as 0-d fp32 tensors on the vectors' device (the
-    fused path, whose captured step cannot take them from the host), which
-    divide with the host floats' bits.  z is `noise` when given, else drawn
-    from `generator`; at nd = 0 nothing is drawn.  Plain PyTorch on any
-    device: the JAX package has no Pallas kernel for this update.  Each of
+    where given: the pair as fp32 [2] on the vectors' device (the fused
+    path, whose captured step cannot take them from the host), which
+    divides with the host floats' bits.  z is `noise` when given, else
+    drawn from `generator`; at nd = 0 nothing is drawn.  Plain PyTorch on
+    any device: the oracle of the adam_sghmc_update kernel, which on the
+    card computes its bits (`adam_sghmc_update_`).  Each of
     v_mom, m and v2 is written by its last sum (the bits of the
     out-of-place form), so a captured graph of the step reads and writes
     the state's own addresses.  Returns (v_mom, m, v2)."""
@@ -416,6 +422,11 @@ def draw_(like, *, kind: str, stream: int, seed: int = 0, step: int = 0,
     if like.is_cuda:
         return kernels.philox_draw(like, dev, kind=kind, stream=stream,
                                    elem0=elem0)
+    return _host_draw(like, kind, stream, dev, elem0, total)
+
+
+def _host_draw(like, kind: str, stream: int, dev, elem0: int, total):
+    """draw_'s plain version, on a CPU tensor `like`."""
     if like.device.type != "cpu":
         raise ValueError(f"draw_: no path for device {like.device}")
     if kind not in kernels.DRAW_KINDS:
@@ -499,3 +510,45 @@ def sghmc_update_(g, theta, theta0, v, prior_mask, lr, *, prior_sig: float,
     g.copy_(g_new)
     v.copy_(v_new)
     return g, v
+
+
+@_in_update_span
+def adam_sghmc_update_(g, theta, theta0, v_mom, m, v2, buf, t: int,
+                       prior_mask, lr, *, add_g: bool, momentum: float,
+                       sgd_count: int, seed: int = 0, step: int = 0,
+                       dev=None, bc=None, elem0: int = 0, total=None, **kw):
+    """Adam-SGHMC's momentum and the torch-SGD step after it, IN PLACE on
+    v_mom, m, v2, theta and buf: `adam_sghmc_momentum` (its keywords in
+    `kw`), then core/sgd.py::sgd_step with momentum `momentum` at the
+    runner's step count `sgd_count` on SGD's gradient, g + v_mom'
+    (`add_g`, Adam-SGHMC) or v_mom' (Adam-cSGHMC).  CUDA tensors go to the
+    adam_sghmc_update kernel, which takes the SGD step in its pass at
+    momentum 0 and otherwise leaves the gradient (written over g where
+    `add_g`) to the eager step; CPU tensors take the plain versions, the
+    noise drawn as `draw_` draws it on STREAM_ADAM.  `dev`, when given,
+    stands for seed and step; `bc`, Adam's bias corrections as an fp32 [2]
+    on the vectors' device (the fused path's), for the host's
+    `adam_bias_corrections(t)`; `elem0` and `total` place a shard in its
+    whole vector.  Returns (theta, v_mom, m, v2)."""
+    if dev is None:
+        dev = kernels.dev_scalars(seed, step, device=g.device)
+    if g.is_cuda:
+        if bc is None:
+            bc = kernels.bias_row(*adam_bias_corrections(
+                t, kw["beta1"], kw["beta2"]), device=g.device)
+        kernels.adam_sghmc_update(
+            g, theta, theta0, v_mom, m, v2, prior_mask, lr, bc, dev,
+            add_g=add_g, sgd_step=momentum == 0.0, elem0=elem0, **kw)
+        if momentum != 0.0:
+            sgd_step(theta, g if add_g else v_mom, buf, lr, momentum,
+                     sgd_count)
+        return theta, v_mom, m, v2
+    noise = _host_draw(g, "normal", kernels.STREAM_ADAM, dev, elem0, total) \
+        if kw["nd"] != 0.0 else None
+    adam_sghmc_momentum(g, theta, theta0, v_mom, m, v2, t, prior_mask, lr,
+                        noise=noise, bc=bc, **kw)
+    sgd_grad = v_mom
+    if add_g:  # over g where the card's pass leaves it there
+        sgd_grad = g.add_(v_mom) if momentum != 0.0 else g + v_mom
+    sgd_step(theta, sgd_grad, buf, lr, momentum, sgd_count)
+    return theta, v_mom, m, v2

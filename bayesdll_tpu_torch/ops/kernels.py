@@ -36,13 +36,15 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from bayesdll_tpu_torch.ops import window_attention
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("csghmc_update", "sgld_update", "sghmc_update", "philox_draw")
+KERNELS = ("csghmc_update", "sgld_update", "sghmc_update", "philox_draw",
+           "adam_sghmc_update")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 _U64 = (1 << 64) - 1
@@ -113,6 +115,10 @@ _ARGTYPES = {
                      _P, _P],
     # out, n, elem0, kind, stream id, dev, stream
     "philox_draw": [_P, _I64, _I64, ctypes.c_int, ctypes.c_uint32, _P, _P],
+    # g, theta, theta0, mask, lr, v_mom, m, v2, n, elem0, form, 1/T, 1/sigma^2,
+    # 1/N, nd, b1, 1-b1, b2, 1-b2, eps, 1-alpha, 2 alpha, bc, dev, stream
+    "adam_sghmc_update": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                          ctypes.c_int, *[_F] * 11, _P, _P, _P],
 }
 DEV_SCALARS = 3  # (seed, step, gate), the kernels' int64 row
 # philox_draw's stream ids (csrc/normal_from_bits.cuh): one for each method
@@ -134,9 +140,21 @@ def dev_scalars(seed: int, step: int, gate: bool = False, device="cuda"):
     a card it is filled in pinned host memory and copied without the host
     waiting: PyTorch's caching host allocator keeps the pinned block until
     the copy has run."""
+    return _row([seed_int64(seed), int(step), int(bool(gate))], torch.int64,
+                device)
+
+
+def bias_row(bc1: float, bc2: float, device="cuda"):
+    """The fp32 row (bc1, bc2) of Adam's bias corrections that
+    adam_sghmc_update reads, on `device`, copied as dev_scalars copies."""
+    return _row([bc1, bc2], torch.float32, device)
+
+
+def _row(values, dtype, device):
+    """`values` as a 1-D tensor on `device`; to a card from pinned host
+    memory, without the host waiting."""
     device = torch.device(device)
-    row = torch.tensor([seed_int64(seed), int(step), int(bool(gate))],
-                       dtype=torch.int64, pin_memory=device.type == "cuda")
+    row = torch.tensor(values, dtype=dtype, pin_memory=device.type == "cuda")
     return row.to(device, non_blocking=True)
 
 
@@ -311,6 +329,82 @@ def sghmc_update(g, theta, theta0, v, mask, lr, dev, *, prior_sig: float,
 
 
 sghmc_update.launches = 0
+
+
+def _check_bc(bc: torch.Tensor, like: torch.Tensor):
+    """Adam's bias corrections: a contiguous fp32 tensor of 2 elements on
+    the vectors' device."""
+    if not bc.is_cuda or bc.device != like.device:
+        raise ValueError(f"bc: kernel needs the bias corrections on "
+                         f"{like.device}, got {bc.device}")
+    if bc.dtype != torch.float32 or bc.numel() != 2 or not bc.is_contiguous():
+        raise ValueError(f"bc: kernel needs a contiguous float32 tensor of 2 "
+                         f"elements, got {bc.dtype} {tuple(bc.shape)}")
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def _recip32(x: float) -> float:
+    """1 / x as PyTorch on the card divides by a host scalar: the fp32
+    reciprocal of x rounded to fp32."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def adam_sghmc_update(g, theta, theta0, v_mom, m, v2, mask, lr, bc, dev, *,
+                      prior_sig: float, n_eff: float, nd: float,
+                      alpha: float, beta1: float, beta2: float,
+                      eps_adam: float, temperature: float = 1.0,
+                      add_g: bool, sgd_step: bool, elem0: int = 0):
+    """Adam-SGHMC's momentum on the card, IN PLACE on v_mom, m and v2
+    (csrc/adam_sghmc_update.cu), in ops/fused.py::adam_sghmc_momentum's
+    arithmetic and rounding:
+
+        grad_U = g / T + mask * (theta - theta0) / prior_sig^2 / N
+        m  <- b1 m + (1 - b1) grad_U;   v2 <- b2 v2 + (1 - b2) grad_U^2
+        P   = 1 / (sqrt(v2 / bc2) + eps)
+        v_mom <- (1 - alpha) v_mom + lr (m / bc1) P + nd sqrt(2 alpha P / N) z
+
+    then SGD's gradient s = g + v_mom (`add_g`, Adam-SGHMC) or v_mom
+    (Adam-cSGHMC): with `sgd_step` the torch-SGD step at momentum 0,
+    theta <- theta - lr s, in the same pass; without it s is left for the
+    eager step, written over g where `add_g`.  `bc` is the fp32 row (1 -
+    b1^t, 1 - b2^t) on the card (`bias_row`, or the fused path's table);
+    z is philox_draw's normal draw on STREAM_ADAM at `dev`'s (seed, step),
+    of global elements [elem0, elem0 + n), drawn only where nd != 0.
+    Returns (theta, v_mom, m, v2)."""
+    _check_vectors(g=g, theta=theta, theta0=theta0, v_mom=v_mom, m=m, v2=v2,
+                   mask=mask, lr=lr)
+    written = dict(v_mom=v_mom, m=m, v2=v2)
+    read = dict(theta0=theta0, mask=mask, lr=lr)
+    if sgd_step:
+        written["theta"], read["g"] = theta, g
+    elif add_g:
+        written["g"], read["theta"] = g, theta
+    else:
+        read.update(g=g, theta=theta)
+    _check_no_overlap(written, read)
+    _check_dev(dev, g)
+    _check_bc(bc, g)
+    lib = _library("adam_sghmc_update")
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.adam_sghmc_update(
+            g.data_ptr(), theta.data_ptr(), theta0.data_ptr(),
+            mask.data_ptr(), lr.data_ptr(), v_mom.data_ptr(), m.data_ptr(),
+            v2.data_ptr(), g.numel(), check_offset(elem0, g.numel()),
+            int(add_g) | int(sgd_step) << 1, _recip32(temperature),
+            _recip32(prior_sig ** 2), _recip32(n_eff), _f32(nd), _f32(beta1),
+            _f32(1.0 - beta1), _f32(beta2), _f32(1.0 - beta2), _f32(eps_adam),
+            _f32(1.0 - alpha), _f32(2.0 * alpha), bc.data_ptr(),
+            dev.data_ptr(), stream)
+    _raise_on(err, "adam_sghmc_update")
+    adam_sghmc_update.launches += 1
+    return theta, v_mom, m, v2
+
+
+adam_sghmc_update.launches = 0
 
 
 def _draw_args(like, kind: str, stream: int):

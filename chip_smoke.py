@@ -7,7 +7,8 @@ Phases, one line each:
   1. the card (nvidia-smi name and power limit), the kernel build from
      bayesdll_tpu_torch/csrc (one nvcc per source, all started together),
      fp32 matmuls and convolutions pinned (TF32 off);
-  2. every kernel (csghmc_update, sgld_update, sghmc_update, philox_draw)
+  2. every kernel (csghmc_update, sgld_update, sghmc_update, philox_draw;
+     adam_sghmc_update in phases 4 and 6e)
      against its plain PyTorch version at the main paths' shapes
      (full-width mlp_mnist: D = 2,797,568; csghmc_update also at
      ResNet-101's D = 42,576,896 and ViT-L/32's D = 305,549,312), with its
@@ -38,14 +39,16 @@ Phases, one line each:
      whose every chain equals, bit for bit, the single-chain run from its
      initial state, batches and seed;
   4. each kernel's time with CUDA events, L2 flushed before each launch,
-     its plain version's and its bound, at each main path's D (all three
-     at ViT-L/32's).  The training steps' times and profiles are the
+     its plain version's and its bound, at each main path's D (all four
+     update kernels at ViT-L/32's; adam_sghmc_update beside the eager
+     composition it replaced).  The training steps' times and profiles are the
      benchmark's (BENCHMARK.json, benchmark/), not this script's;
   6. the fused path (fused_steps: segments of steps as replays of a
      captured CUDA graph, methods/graphed.py), fp32 with TF32 off: (a) all
      eleven methods (cSGHMC, SGLD, SGHMC, cSGLD, vanilla, Laplace's stage
-     1, cSGHMC-FS, and VI, MC-dropout, Adam-SGHMC and Adam-cSGHMC, whose
-     step draws through philox_draw) through `train` on the full-width MLP,
+     1, cSGHMC-FS, VI and MC-dropout, whose step draws through
+     philox_draw, and Adam-SGHMC and Adam-cSGHMC, whose step is one
+     adam_sghmc_update pass) through `train` on the full-width MLP,
      each in its phase-3 config and bitwise equal to that per-step run
      (state, counts, Adam's t, losses), noise on; (c) the eleven at 2
      chains, each chain bitwise equal to the per-step 2-chain run; (d)
@@ -440,6 +443,67 @@ def sg_noise_std(name, nd, n_eff, lr):
     """Closed-form std of the injected term: nd sqrt(2/(N lr)) for sgld,
     nd sqrt(2 alpha/(N lr)) for sghmc."""
     return nd * math.sqrt(2.0 * SG_ALPHA[name].get("alpha", 1.0) / (n_eff * lr))
+
+
+# Adam-SGHMC's pass (csrc/adam_sghmc_update.cu) at the smoke matrix's Adam
+# hparams and Adam step 7, in two of its forms: Adam-cSGHMC's with the SGD
+# step in the pass (torch-SGD momentum 0, the benchmark's), temperature
+# 0.5; Adam-SGHMC's leaving SGD's gradient g + v_mom' over g for the eager
+# step (a nonzero momentum)
+ADAM_KW = dict(prior_sig=1.0, alpha=0.05, beta1=0.9, beta2=0.999,
+               eps_adam=1e-8)
+ADAM_T = 7
+ADAM_FORMS = {"adam_csghmc": dict(add_g=False, sgd_step=True,
+                                  temperature=0.5),
+              "adam_sghmc": dict(add_g=True, sgd_step=False)}
+
+
+def adam_inputs(target, lr_body=1e-2, lr_head=2e-2):
+    """(g, theta, theta0, v_mom, m, v2, mask, lr) at D: sg_inputs' vectors
+    and Adam's two moments."""
+    g, theta, theta0, v, mask, lr = sg_inputs(target, lr_body, lr_head)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    m = 0.01 * torch.randn(target.dim, generator=gen, device="cuda")
+    v2 = (1e-3 * torch.randn(target.dim, generator=gen, device="cuda")).abs_()
+    return g, theta, theta0, v, m, v2, mask, lr
+
+
+def adam_bc_row():
+    from bayesdll_tpu_torch.ops import fused, kernels
+    return kernels.bias_row(*fused.adam_bias_corrections(
+        ADAM_T, ADAM_KW["beta1"], ADAM_KW["beta2"]))
+
+
+def adam_kernel(args, form, *, nd, n_eff, dev, copy=True):
+    """The kernel on `args` (on copies of them with `copy`); returns what
+    the form writes: (g, theta, v_mom, m, v2)."""
+    from bayesdll_tpu_torch.ops import kernels
+    g, theta, theta0, v_mom, m, v2, mask, lr = \
+        (t.clone() for t in args) if copy else args
+    kernels.adam_sghmc_update(g, theta, theta0, v_mom, m, v2, mask, lr,
+                              adam_bc_row(), dev, n_eff=n_eff, nd=nd,
+                              **ADAM_KW, **ADAM_FORMS[form])
+    return g, theta, v_mom, m, v2
+
+
+def adam_plain(args, form, *, nd, n_eff, noise=None, copy=True):
+    """The eager composition the kernel replaces (adam_sghmc_momentum,
+    then sgd_step at momentum 0 or SGD's gradient over g), on `args` or
+    copies of them, with the kernel's host bias corrections; returns the
+    same five."""
+    from bayesdll_tpu_torch.core.sgd import sgd_step
+    from bayesdll_tpu_torch.ops import fused
+    g, theta, theta0, v_mom, m, v2, mask, lr = \
+        (t.clone() for t in args) if copy else args
+    f = dict(ADAM_FORMS[form])
+    add_g, step = f.pop("add_g"), f.pop("sgd_step")
+    fused.adam_sghmc_momentum(g, theta, theta0, v_mom, m, v2, ADAM_T, mask,
+                              lr, n_eff=n_eff, nd=nd, noise=noise, **ADAM_KW,
+                              **f)
+    grad = g.add_(v_mom) if add_g else v_mom
+    if step:
+        sgd_step(theta, grad, None, lr, 0.0, ADAM_T - 1)
+    return g, theta, v_mom, m, v2
 
 
 def phase_sg_kernels():
@@ -890,14 +954,18 @@ REPLACES = {"csghmc_update": 80, "sgld_update": 122, "sghmc_update": 164}
 # output written once (fp32)
 BYTES_PER_ELEM = {"csghmc_update": 24,  # read g, theta, v, lr; write theta, v
                   "sgld_update": 24,    # read g, theta, theta0, mask, lr; write g
-                  "sghmc_update": 32}   # read g, theta, theta0, v, mask, lr; write g, v
+                  "sghmc_update": 32,   # read g, theta, theta0, v, mask, lr; write g, v
+                  # read g, theta, theta0, mask, lr, v_mom, m, v2; write
+                  # v_mom, m, v2, theta (Adam-cSGHMC's form at momentum 0)
+                  "adam_sghmc_update": 48}
 # operations per element, all counted at the fp32 rate (a generous bound:
 # integer ops run slower): the update's arithmetic plus ~35 for a quarter of
 # a Philox call and half a Box-Muller pair
-OPS_PER_ELEM = {"csghmc_update": 45, "sgld_update": 45, "sghmc_update": 50}
+OPS_PER_ELEM = {"csghmc_update": 45, "sgld_update": 45, "sghmc_update": 50,
+                "adam_sghmc_update": 60}
 
 
-def kernel_times_at(smi, target, names=tuple(REPLACES)):
+def kernel_times_at(smi, target, names=(*REPLACES, "adam_sghmc_update")):
     """Each kernel in `names` cold against its bound and its plain version
     at `target`'s D, the operands freed before the next.  Every launch reads
     one row (seed 0, step 1, the gate on or off), made before the timing:
@@ -945,9 +1013,33 @@ def kernel_times_at(smi, target, names=tuple(REPLACES)):
                                                   n_eff=n_eff, generator=gen),
             BYTES_PER_ELEM[name] * d, OPS_PER_ELEM[name] * d, flush,
             "nd = 0, no draw")
+    del vecs
+    free_device()
+
+    if "adam_sghmc_update" in names:
+        # Adam-cSGHMC's form; the plain version is the eager composition
+        # the kernel replaced: philox_draw's Adam-stream draw, then the
+        # ~27 kernels of adam_sghmc_momentum and sgd_step's two
+        args = adam_inputs(target, lr_body=1e-4, lr_head=2e-4)
+
+        def adam(noise):
+            adam_kernel(args, "adam_csghmc", nd=1.0 if noise else 0.0,
+                        n_eff=n_eff, dev=rows[True], copy=False)
+
+        def eager():
+            z = fused.draw_(args[0], kind="normal",
+                            stream=kernels.STREAM_ADAM, dev=rows[True])
+            adam_plain(args, "adam_csghmc", nd=1.0, n_eff=n_eff, noise=z,
+                       copy=False)
+
+        out["adam_sghmc_update"] = kernel_times(
+            smi, "adam_sghmc_update", adam, eager,
+            BYTES_PER_ELEM["adam_sghmc_update"] * d,
+            OPS_PER_ELEM["adam_sghmc_update"] * d, flush, "nd = 0, no draw")
+        del args
     for t in out.values():
         t["dim"] = d
-    del vecs, flush
+    del flush
     free_device()
     return out
 
@@ -1381,9 +1473,11 @@ LA_MATRIX_HP = ("prior_sig=0.1,Ninflate=1.0,bias=informative,nst=2,"
 SMOKE_BATCH = 64
 # the kernel a path's step launches; the others launch none.  VI, MC-dropout
 # and the Adam methods (at nd != 0) draw a whole vector each step.
-DRAWS = ("vi", "mc_dropout", "adam_sghmc", "adam_csghmc")
-SMOKE_KERNEL = {"csghmc_fs": "csghmc_update",
-                **{m: "philox_draw" for m in DRAWS}}
+DRAWS = ("vi", "mc_dropout")
+ADAM = ("adam_sghmc", "adam_csghmc")  # one adam_sghmc_update pass a step
+METHOD_KERNEL = {**{m: "philox_draw" for m in DRAWS},
+                 **{m: "adam_sghmc_update" for m in ADAM}}
+SMOKE_KERNEL = {"csghmc_fs": "csghmc_update", **METHOD_KERNEL}
 # cSGHMC-FS's snapshot epochs at 8 epochs in 2 cycles (ep % 4 in {1, 2})
 FS_SNAPSHOTS = [1, 2, 5, 6]
 
@@ -1714,8 +1808,7 @@ N_CHAINS = 2
 # the kernel each chain's step launches; the other methods launch none
 CHAIN_KERNEL = {"sgld": "sgld_update", "csgld": "sgld_update",
                 "sghmc": "sghmc_update", "csghmc": "csghmc_update",
-                "csghmc_fs": "csghmc_update",
-                **{m: "philox_draw" for m in DRAWS}}
+                "csghmc_fs": "csghmc_update", **METHOD_KERNEL}
 
 
 def phase_chain_path(method):
@@ -2048,7 +2141,7 @@ def phase_big_chains(smi, name):
 FUSED_KERNEL = {"csghmc": "csghmc_update", "sgld": "sgld_update",
                 "sghmc": "sghmc_update", "csgld": "sgld_update",
                 "csghmc_fs": "csghmc_update", "vanilla": None, "la": None,
-                **{m: "philox_draw" for m in DRAWS}}
+                **METHOD_KERNEL}
 FUSED_K = 10  # the replayed segment the profiler traces
 # (seed, step, gate) at which the kernels, reading them from their row, are
 # held to their plain versions: a seed past 2^63 and a step past 2^32
@@ -2265,7 +2358,50 @@ def phase_kernels_at_dev_points(smi, target, label):
               flush=True)
     del operands, args
     free_device()
+    errs["adam_sghmc_update"] = phase_adam_at_dev_points(smi, target, label)
     return errs
+
+
+def phase_adam_at_dev_points(smi, target, label):
+    """(e) The Adam pass at `target`'s D in both ADAM_FORMS, noise on, at
+    each (seed, step) of DEV_POINTS read from its row, against the eager
+    composition it replaces handed the kernel's normals (philox_draw_plain
+    of the Adam stream in the kernel's fp32 arithmetic) on the windows of
+    `draw_windows`: bitwise where the normals are (the pass rounds as the
+    eager kernels do), within TOL.  Returns the max abs error."""
+    from bayesdll_tpu_torch.ops import fused, kernels
+    n_eff = 1000.0
+    args = adam_inputs(target)
+    err, same, of = 0.0, 0, 0
+    for form in ADAM_FORMS:
+        for seed, step, gate in DEV_POINTS:
+            got = adam_kernel(args, form, nd=1.0, n_eff=n_eff,
+                              dev=kernels.dev_scalars(seed, step, gate))
+            for lo, hi in draw_windows(target.dim):
+                z = fused.philox_draw_plain(
+                    hi - lo, kind="normal", stream=kernels.STREAM_ADAM,
+                    seed=seed, step=step, device="cuda", offset=lo,
+                    fp32=True)
+                want = adam_plain([t[lo:hi] for t in args], form, nd=1.0,
+                                  n_eff=n_eff, noise=z)
+                pairs = [(x[lo:hi], y) for x, y in zip(got, want)]
+                e = max(float((x - y).abs().max()) for x, y in pairs)
+                err = max(err, e)
+                same += sum(int(torch.equal(x, y)) for x, y in pairs)
+                of += len(pairs)
+                check(all(torch.allclose(x, y, **TOL) for x, y in pairs),
+                      f"adam_sghmc_update ({form}) vs the eager composition "
+                      f"with its normals at D={target.dim} [{lo}, {hi}), "
+                      f"(seed, step) = {(seed, step)}: max abs err {e}")
+            del got
+    del args
+    free_device()
+    print(f"phase 6e: [{smi}] adam_sghmc_update at D={target.dim} ({label}), "
+          f"forms {list(ADAM_FORMS)}, (seed, step) from its row at each of "
+          f"{DEV_POINTS}: vs the eager composition with the kernel's normals "
+          f"max abs err {err:.3g} (rtol=atol=1e-6); {same} of {of} "
+          f"(vector, window) pairs bitwise", flush=True)
+    return err
 
 
 def phase_fused_vit(vit, loaders):
@@ -2504,7 +2640,7 @@ def phase_fused_vit_adam(smi, vit, xs, ys):
     (step_loop) and one fused (run_steps), their per-step losses held as
     6d holds cSGHMC's (the fused run no farther from the first per-step
     run than twice the spread of the two, plus 1e-6 of the loss);
-    philox_draw launched once per step and no other kernel.  Returns the
+    adam_sghmc_update launched once per step and no other kernel.  Returns the
     fused run's launches."""
     from bayesdll_tpu_torch.config import parse_hparams
     from bayesdll_tpu_torch.methods import get_runner_cls
@@ -2538,7 +2674,7 @@ def phase_fused_vit_adam(smi, vit, xs, ys):
     counts = read_launches()
     fused_loss = fused_loss.double().cpu()
     want = {n: 0 for n in counts}
-    want["philox_draw"] = VIT_STEPS
+    want["adam_sghmc_update"] = VIT_STEPS
     check(counts == want, f"adam_csghmc vit_l_32 fused: launches {counts}, "
           f"want {want}")
     check(runner.state.t == VIT_STEPS and runner.state.step == VIT_STEPS,
@@ -3512,20 +3648,23 @@ SHARD_DRAW = dict(seed=(1 << 63) + 5, step=(1 << 32) + 9)
 
 
 def shard_vectors(d: int) -> dict:
-    """The operands of the four kernels at D: fp32 vectors on the card, lr
-    head-free and positive, a 0/1 mask."""
+    """The operands of the five kernels at D: fp32 vectors on the card, lr
+    head-free and positive, a 0/1 mask, Adam's moments."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     vec = {k: s * torch.randn(d, generator=gen, device="cuda")
            for k, s in (("g", 0.1), ("theta", 0.05), ("theta0", 0.05),
                         ("v", 0.01))}
     vec["lr"] = 1e-2 * (1.0 + torch.rand(d, generator=gen, device="cuda"))
     vec["mask"] = (torch.rand(d, generator=gen, device="cuda") > 0.1).float()
+    vec["m"] = 0.01 * torch.randn(d, generator=gen, device="cuda")
+    vec["v2"] = (1e-3 * torch.randn(d, generator=gen, device="cuda")).abs_()
     return vec
 
 
 # what each kernel writes in place (philox_draw writes a new vector)
 SHARD_WRITES = {"csghmc_update": ("theta", "v"), "sgld_update": ("g",),
-                "sghmc_update": ("g", "v"), "philox_draw": ()}
+                "sghmc_update": ("g", "v"), "philox_draw": (),
+                "adam_sghmc_update": ("theta", "v", "m", "v2")}
 
 
 def shard_call(name, vec, lo, hi):
@@ -3544,6 +3683,12 @@ def shard_call(name, vec, lo, hi):
     if name == "philox_draw":
         return kernels.philox_draw(a["g"], dev, kind="normal",
                                    stream=kernels.STREAM_VI, **kw)
+    if name == "adam_sghmc_update":
+        kernels.adam_sghmc_update(
+            a["g"], a["theta"], a["theta0"], a["v"], a["m"], a["v2"],
+            a["mask"], a["lr"], adam_bc_row(), dev, n_eff=1000.0, nd=1.0,
+            **ADAM_KW, **ADAM_FORMS["adam_csghmc"], **kw)
+        return None
     sg = dict(prior_sig=1.0, n_eff=1000.0, nd=1.0, **kw)
     if name == "sgld_update":
         kernels.sgld_update(a["g"], a["theta"], a["theta0"], a["mask"],
@@ -3591,8 +3736,8 @@ def phase_shard_kernels(smi, dims: dict) -> dict:
             del whole
         del vec
         free_device()
-    print(f"phase 9a: [{smi}] csghmc_update, sgld_update, sghmc_update, "
-          f"philox_draw on {list(SHARD_COUNTS)} shards at their global "
+    print(f"phase 9a: [{smi}] {', '.join(kernels.KERNELS)} on "
+          f"{list(SHARD_COUNTS)} shards at their global "
           f"offsets, at D = {dims}: each concatenation bitwise equal to one "
           f"whole-vector launch (noise on, seed 2^63+5, step 2^32+9), one "
           f"launch per shard; {time.perf_counter() - tic:.1f} s", flush=True)
@@ -4543,7 +4688,7 @@ def main() -> int:
                                           ("csghmc_update",))}
     for name, err in phase_kernels_at_dev_points(smi, mlp_target,
                                                  "mlp_mnist").items():
-        errs[name] = max(errs[name], err)
+        errs[name] = max(errs.get(name, 0.0), err)
     del resnet, resnet_loaders, runners, runner, loaders
     free_device()
     by_path["la resnet50"] = phase_la_resnet50()
@@ -4566,7 +4711,7 @@ def main() -> int:
     phase_checkpoints_and_traces(smi, vit, xs, ys, by_path)
     for name, err in phase_kernels_at_dev_points(smi, vit.target,
                                                  "vit_l_32").items():
-        errs[name] = max(errs[name], err)
+        errs[name] = max(errs.get(name, 0.0), err)
     draw["vit_l_32"] = phase_draw_kernel(smi, vit.target.dim, "vit_l_32",
                                          flush)
     phase_fused_vit(vit, vit_loaders)
@@ -4584,8 +4729,9 @@ def main() -> int:
 
     # each kernel's launches and times on its main path: the ViT-L/32
     # cSGHMC path for csghmc_update, the SGLD and SGHMC paths for the
-    # others, the fused ViT-L/32 Adam-cSGHMC path for philox_draw; every D
-    # each was timed at under "times_by_path"
+    # others, the VI path for philox_draw, the fused ViT-L/32 Adam-cSGHMC
+    # path for adam_sghmc_update; every D each was timed at under
+    # "times_by_path"
     main_path = {"csghmc_update": ("csghmc vit_l_32", "vit_l_32"),
                  "sgld_update": ("sgld mlp_mnist", "mlp_mnist"),
                  "sghmc_update": ("sghmc mlp_mnist", "mlp_mnist")}
@@ -4605,7 +4751,7 @@ def main() -> int:
         "name": "philox_draw", "route": "cuda",
         "source": "bayesdll_tpu_torch/csrc/philox_draw.cu",
         "replaces": DRAW_REPLACES,
-        "launches": by_path["adam_csghmc vit_l_32 fused"]["philox_draw"],
+        "launches": by_path["vi mlp_mnist"]["philox_draw"],
         "max_abs_err": max(d["max_abs_err"] for d in draw.values()),
         **{k: vit_draw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "uniform_ms",
@@ -4615,6 +4761,21 @@ def main() -> int:
         "launches_by_path": {p: c["philox_draw"] for p, c in by_path.items()
                              if "philox_draw" in c},
         "times_by_path": draw,
+    })
+    record.append({
+        "name": "adam_sghmc_update", "route": "cuda",
+        "source": "bayesdll_tpu_torch/csrc/adam_sghmc_update.cu",
+        "replaces": "none: the eager Adam-SGHMC momentum, its philox_draw "
+                    "draw and the SGD step (bayesdll_tpu/ops/fused.py::"
+                    "adam_sghmc_update has no Pallas kernel)",
+        "launches": by_path["adam_csghmc vit_l_32 fused"]["adam_sghmc_update"],
+        "max_abs_err": errs["adam_sghmc_update"],
+        **times["vit_l_32"]["adam_sghmc_update"], "library_ms": None,
+        "launches_by_path": {p: c["adam_sghmc_update"]
+                             for p, c in by_path.items()
+                             if "adam_sghmc_update" in c},
+        "times_by_path": {p: t["adam_sghmc_update"] for p, t in times.items()
+                          if "adam_sghmc_update" in t},
     })
     record.extend(window_record)
     print(json.dumps({"kernels": record}))

@@ -31,6 +31,9 @@ def _vectors():
                         ("v", 0.01))}
     vec["lr"] = 1e-2 * (1.0 + torch.rand(D, generator=gen, device="cuda"))
     vec["mask"] = (torch.rand(D, generator=gen, device="cuda") > 0.1).float()
+    vec.update({k: s * torch.randn(D, generator=gen, device="cuda")
+                for k, s in (("m", 0.01), ("buf", 0.01))})
+    vec["v2"] = 1e-3 * torch.rand(D, generator=gen, device="cuda")
     return vec
 
 
@@ -45,6 +48,12 @@ CALLS = {
         alpha=0.05, **SG, **kw),
     "draw_": lambda a, **kw: (fused.draw_(
         a["g"], kind="normal", stream=kernels.STREAM_VI, **kw),),
+    # the per-step path's bias corrections: a second row from pinned memory
+    "adam_sghmc_update_": lambda a, **kw: fused.adam_sghmc_update_(
+        a["g"], a["theta"], a["theta0"], a["v"], a["m"], a["v2"], a["buf"],
+        3, a["mask"], a["lr"], add_g=False, momentum=0.0, sgd_count=2,
+        alpha=0.05, beta1=0.9, beta2=0.999, eps_adam=1e-8, temperature=0.5,
+        **SG, **kw),
 }
 
 

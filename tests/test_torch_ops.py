@@ -301,6 +301,13 @@ def _kernel_call(name, dev, d=64):
         return lambda: kernels.csghmc_update(g, theta, v, lr, dev,
                                              prior_sig=1.0, alpha=0.05,
                                              noise_pref=0.0)
+    if name == "adam_sghmc_update":
+        g, theta, theta0, v, mask, lr = _torch(*_sg_vecs(d, 0, 1, False))
+        return lambda: kernels.adam_sghmc_update(
+            g, theta, theta0, v, v.clone(), v.abs(), mask, lr,
+            kernels.bias_row(0.1, 0.001, device="cpu"), dev, prior_sig=1.0,
+            n_eff=1000.0, nd=0.0, alpha=0.05, beta1=0.9, beta2=0.999,
+            eps_adam=1e-8, add_g=True, sgd_step=True)
     arrays, kw = _sg_args(name, _sg_vecs(d, 0, 1, False))
     return lambda: getattr(kernels, name)(*_torch(*arrays), dev, nd=0.0,
                                           **SG_KW, **kw)
