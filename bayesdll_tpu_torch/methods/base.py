@@ -430,13 +430,16 @@ class BaseRunner:
         """The epoch in fused segments (JAX `_train_one_epoch_fused`): cut
         after each of `segment_ends` and when the stacked batches reach
         FUSED_BYTES_BUDGET, with `after_segment` at each segment end.  The
-        batches stream through one segment's buffer.  The epoch's loss and
-        error reduce the per-step values as train_one_epoch does."""
+        batches stream through one segment's buffer; an in-memory set is
+        gathered on the device, as in train_one_epoch.  The epoch's loss
+        and error reduce the per-step values as train_one_epoch does."""
         n = len(train_loader)
         bs = train_loader.batch_size
         losses, errs = [], []
+        batches = train_loader.batches_on(self.device) \
+            if isinstance(train_loader, ArrayLoader) else train_loader
         for xs, ys, at_end in graphed.segments(
-                ((x, y) for x, y, _ in train_loader), n,
+                ((x, y) for x, y, _ in batches), n,
                 self.segment_ends(ep, n), self.FUSED_BYTES_BUDGET):
             loss_k, err_k = self.run_steps(ep, xs, ys, self.bi)
             losses.append(loss_k)

@@ -80,9 +80,10 @@ def fused_scalars(row_i, row_f, count) -> dict:
 
 def segments(batches, n: int, ends, budget: int):
     """The fused path's segments of an epoch of n steps (the JAX package's
-    `_train_one_epoch_fused` cuts): from the (x, y) `batches`, stacked
-    (xs, ys, at_end) cut after each step index in `ends` (at_end True) and
-    whenever the stacked bytes would pass `budget`."""
+    `_train_one_epoch_fused` cuts): from the (x, y) `batches` (host arrays,
+    or tensors where the set is staged on the device), stacked (xs, ys,
+    at_end) cut after each step index in `ends` (at_end True) and whenever
+    the stacked bytes would pass `budget`."""
     ends = iter(sorted(set(ends) | {n}))
     next_end = next(ends)
     max_k = None
@@ -94,7 +95,8 @@ def segments(batches, n: int, ends, budget: int):
         buf_y.append(y)
         at_end = i + 1 == next_end
         if len(buf_x) == max_k or at_end:
-            yield np.stack(buf_x), np.stack(buf_y), at_end
+            stack = torch.stack if isinstance(x, torch.Tensor) else np.stack
+            yield stack(buf_x), stack(buf_y), at_end
             buf_x, buf_y = [], []
             if at_end:
                 next_end = next(ends, n + 1)

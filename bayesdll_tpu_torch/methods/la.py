@@ -19,6 +19,10 @@ Predictive: theta ~ N(theta_MAP, vars), Monte-Carlo averaged; during stage
 1, the point estimate.
 
 hparams: {prior_sig, Ninflate, bias, nst, fisher_microbatch}.
+
+A backbone whose per-example gradients are not its batch's terms (V-MoE:
+one example routed alone has its own expert capacity) declares
+`per_example_grads = False` and is refused here.
 """
 
 from __future__ import annotations
@@ -72,6 +76,13 @@ class Runner(base.BaseRunner):
     method_name = "la"
 
     def __init__(self, target, theta_init, net_state, cfg, **kw):
+        if not getattr(target.module, "per_example_grads", True):
+            raise ValueError(
+                f"Laplace ('la') is not supported for "
+                f"{type(target.module).__name__}: its Fisher takes "
+                f"per-example gradients under torch.func.vmap, and an "
+                f"example routed alone has its own expert capacity, so they "
+                f"are another function's")
         hp = cfg.hparams
         self.ninflate = float(hp.get("Ninflate", 1.0))
         self.fisher_microbatch = int(hp.get("fisher_microbatch", 16))

@@ -8,7 +8,9 @@ take the JAX factories' `remat`, `remat_policy`, `fused_attention` and
 `gelu_approx`, and `tp` (parallel/tp.py: Megatron tensor parallelism);
 the SwinV2 factories (models/swinv2.py, a backbone the JAX package does
 not have) take the first four (remat with policy "" only) and refuse
-`tp`; the other backbones ignore them.  Building
+`tp`; the V-MoE factories (models/vmoe.py, no JAX counterpart either)
+take `fused_attention` and `gelu_approx` and refuse `remat` and `tp`;
+the other backbones ignore them.  Building
 a backbone allocates no weights (models/layers.py), so the data pipeline
 builds one just to read its input shape.
 """
@@ -24,6 +26,8 @@ from bayesdll_tpu_torch.models.swinv2 import ARCHS as SWINV2_ARCHS
 from bayesdll_tpu_torch.models.swinv2 import SwinV2
 from bayesdll_tpu_torch.models.vit import ARCHS as VIT_ARCHS
 from bayesdll_tpu_torch.models.vit import ViT
+from bayesdll_tpu_torch.models.vmoe import ARCHS as VMOE_ARCHS
+from bayesdll_tpu_torch.models.vmoe import VMoE
 
 _REGISTRY = {}
 
@@ -122,6 +126,29 @@ def _swinv2_l_w24_384(num_classes: int = 1000, **kw):
 @register("swinv2_tiny")
 def _swinv2_tiny(num_classes: int = 10, **kw):
     return _swinv2("swinv2_tiny", num_classes, kw)
+
+
+def _vmoe(name, num_classes, kw):
+    arch = VMOE_ARCHS[name]
+    model = VMoE(**arch, num_classes=num_classes,
+                 dtype=kw.get("dtype", "float32"),
+                 remat=bool(kw.get("remat", False)),
+                 fused_attention=bool(kw.get("fused_attention", True)),
+                 gelu_approx=bool(kw.get("gelu_approx", False)),
+                 tp=kw.get("tp"))
+    side = arch["image_size"]
+    return model, (side, side, 3), {"has_batch_stats": False,
+                                    "has_dropout": False}
+
+
+@register("vmoe_l_16")
+def _vmoe_l_16(num_classes: int = 1000, **kw):
+    return _vmoe("vmoe_l_16", num_classes, kw)
+
+
+@register("vmoe_tiny")
+def _vmoe_tiny(num_classes: int = 10, **kw):
+    return _vmoe("vmoe_tiny", num_classes, kw)
 
 
 def create_backbone(name: str, num_classes: int = 10, **kw) -> Tuple:

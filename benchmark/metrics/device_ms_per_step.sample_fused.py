@@ -1,0 +1,16 @@
+"""Device milliseconds per fused cSGHMC sampling step (a graph replay): the
+accepted `device_ms_per_step.sample` reader, loaded as it is and called
+with the mix's loop read as `sample`, on the `sample_fused` loop's
+traced epochs."""
+
+from pathlib import Path
+
+from benchmark import spec
+
+_SAMPLE = spec.load_reader(Path(__file__).with_name("device_ms_per_step.sample.py"))
+
+
+def read(ctx):
+    if ctx["traffic"]["loop"] != "sample_fused":
+        return None
+    return _SAMPLE(dict(ctx, traffic=dict(ctx["traffic"], loop="sample")))
